@@ -3,7 +3,8 @@
 NVIDIA GPU: builds the port's CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the main path's shapes, then drives the zero-shot /
 pseudolabel path end to end at ViT-B/32's full width (random weights from a
-seed) and checks what it writes.
+seed) and the SSL CoOp prompt training (textual_prompt, textual_fpl), and
+checks what they write.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -14,19 +15,29 @@ Phases (one or more lines each; any failure raises and exits non-zero):
   2. build: compiles every kernel (one nvcc per source, all at once)
   3. kernels: each kernel against its plain version on the card, fp32 and
      bf16, at the main path's shapes, with CUDA-event times of the kernel,
-     the plain version and, for attention, one scaled_dot_product_attention
-     call as a yardstick (the port never calls it); a full-width ViT-B/32
-     forward on the card against the same weights on the CPU
+     the plain version and, for attention, scaled_dot_product_attention as
+     a yardstick (forward alone; forward + backward through autograd beside
+     the K1 + K2 pair - the port never calls it); the FusedAttention
+     gradient against autograd of the plain forward; a full-width ViT-B/32
+     forward on the card against the same weights on the CPU; one CoOp
+     training step at ViT-B/32 width on the card against the same step on
+     the CPU
   4. main path: main_clip.workflow on a synthetic 10-class MNIST-layout
      dataset (224x224 PNGs, 64 train + 64 test per class), BATCH_SIZE 256,
      in float32 and in bfloat16
   5. pseudolabels: FPL top-16 per class over the 640-image train pool
   6. serving: predict.main over the 640 test images, top 5
-  7. breakdown: set-up, host decode and device encode of the bf16 pass,
-     each timed alone (after the launch counts are read)
-Then one JSON line listing each kernel with its launches over phases 4-6
-(counts are zeroed just before phase 4), and last the device line
-{"ok": true, "device": {...}}.
+  7. training: main_ssl.workflow, MODEL=textual_prompt in float32 for 20
+     epochs and MODEL=textual_fpl in bfloat16 for the paper's 150 epochs,
+     BATCH_SIZE 16, on the same dataset
+  8. breakdown: set-up, host decode and device encode of the bf16 pass,
+     each timed alone; one bf16 textual_fpl training step on the host clock
+     and under torch.profiler (device busy time, kernels by name)
+Phases 4-6 (the zero-shot path) and phase 7 (the training path) each run
+with every launch count set to 0 just before and read just after; a kernel
+the path runs must show a launch.  Then one JSON line listing each kernel
+with its launches (the sum over both paths, and by path), and last the
+device line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -51,9 +62,12 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # kernel vs plain tolerances (max abs error), with the reason in the test
 # file tests/test_torch_port_gpu.py: sums in another order; bf16 outputs may
 # land on neighbouring bf16 values
-ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # the backward: tol + tol * |ref| (see
+# the test file: its gradients exceed 1 on unit-scale inputs, where one bf16 step is larger)
 HEAD_TOL = 2e-5
 MODEL_TOL = 1e-3  # ViT-B/32 features, card vs CPU, fp32 through 12 layers
+STEP_PREFIX_TOL = 1e-4  # one CoOp step, card vs CPU: updated prefix (abs)
+STEP_LOSS_RTOL = 1e-5  # ... and the loss (relative)
 
 N_CLASSES, N_PER_CLASS, RES = 10, 64, 224
 
@@ -108,7 +122,7 @@ def phase_build():
     from menghini_neurips23_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
-    secs = _cuda.build(["attention_fwd", "clip_head"])
+    secs = _cuda.build(["attention_fwd", "attention_bwd", "clip_head"])
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f} s")
     for name in secs:
@@ -251,6 +265,133 @@ def phase_model_reference(torch):
     log(f"  ViT-B/32 card vs CPU, fp32: {json.dumps(errs)} (tol {MODEL_TOL})")
     if max(errs.values()) > MODEL_TOL:
         fail(f"ViT-B/32 forward on the card disagrees with the CPU: {errs}")
+
+
+def phase_kernels_bwd(torch):
+    """K2 against its plain version; its time beside the K1 + K2 pair through
+    autograd and SDPA's forward + backward through autograd."""
+    import torch.nn.functional as F
+
+    from menghini_neurips23_tpu_torch.ops.attention import (
+        attention_bwd,
+        attention_bwd_reference,
+        fused_attention,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    # the CoOp text tower (C = 10 or 102 classes, truncated 24 or full 77),
+    # the VPT vision tower (16 prompt tokens) and the plain ViT-B/32 one
+    shapes = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
+        (256, 66, 768, 12, None), (256, 50, 768, 12, None)
+    ]
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for B, T, W, H, mask in shapes:
+            D = W // H
+            causal = mask == "causal"
+            qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
+            grad = torch.randn(B, T, W, generator=g, device="cuda").to(dt)
+            out = attention_bwd(qkv, grad, mask, H)
+            torch.cuda.synchronize()
+            ref = attention_bwd_reference(qkv, grad, mask, H).float()
+            diff = (out.float() - ref).abs()
+            err = diff.max().item()
+            tol = ATTN_TOL[dname]
+            ok = bool((diff <= tol + tol * ref.abs()).all())
+            leaf = qkv.detach().requires_grad_(True)
+            heads = [t.detach().contiguous().requires_grad_(True)
+                     for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4)]
+            g_heads = grad.view(B, T, H, D).transpose(1, 2).contiguous()
+            ms = device_ms(torch, lambda: attention_bwd(qkv, grad, mask, H))
+            plain = device_ms(torch, lambda: attention_bwd_reference(qkv, grad, mask, H))
+            pair = device_ms(torch, lambda: torch.autograd.grad(
+                fused_attention(leaf, mask, H), leaf, grad))
+            lib = device_ms(torch, lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(*heads, is_causal=causal), heads, g_heads))
+            size = qkv.element_size()
+            pairs = T * (T + 1) // 2 if causal else T * T  # key/query pairs computed
+            # reads qkv (3W) and g (W), writes dqkv (3W); five T x T x D products
+            b_ms, b_by = bound(B * T * 7 * W * size, 10 * B * H * D * pairs, dname)
+            case = dict(shape=[B, T, W, H], mask=mask, dtype=dname, max_abs_err=err,
+                        tol=tol, rtol=tol, ms=ms, plain_ms=plain, pair_ms=pair,
+                        library_ms=lib, library="autograd.grad of scaled_dot_product_attention "
+                        "(forward + backward)", bound_ms=b_ms, bound_by=b_by)
+            cases.append(case)
+            log("  attention_bwd " + json.dumps(case))
+            if not ok:
+                fail(f"attention_bwd disagrees with its plain version: {case}")
+    # the FusedAttention gradient (K1 forward + K2 backward) against autograd
+    # of the plain forward, both on the card, fp32
+    from menghini_neurips23_tpu_torch.ops.attention import attention_reference
+
+    for B, T, W, H, mask in ((10, 24, 512, 8, "causal"), (256, 66, 768, 12, None)):
+        qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda")
+        grad = torch.randn(B, T, W, generator=g, device="cuda")
+        a = qkv.clone().requires_grad_(True)
+        (got,) = torch.autograd.grad(fused_attention(a, mask, H), a, grad)
+        b = qkv.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(attention_reference(b, mask, H), b, grad)
+        diff = (got - want).abs()
+        err = diff.max().item()
+        log(f"  FusedAttention gradient vs autograd of the plain forward {[B, T, W, H]} "
+            f"{mask}: max abs err {err:.3g} (tol 1e-5 + 1e-5 relative)")
+        if not bool((diff <= 1e-5 + 1e-5 * want.abs()).all()):
+            fail(f"FusedAttention gradient disagrees with autograd: {err}")
+    return cases
+
+
+def phase_one_step(torch):
+    """One CoOp step (textual_fpl weights, two loss groups) at ViT-B/32 width,
+    fp32: on the card through K1 + K2, on the CPU through the plain versions,
+    from the same weights, prefix and batch."""
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.config import Config
+    from menghini_neurips23_tpu_torch.models.prompts import init_prefix
+    from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
+    from menghini_neurips23_tpu_torch.runtime import ClipRuntime
+    from menghini_neurips23_tpu_torch.training import TextualStrategy
+
+    cfg = Config(VIS_ENCODER="ViT-B/32", MODEL="textual_fpl", COMPUTE_DTYPE="float32",
+                 BATCH_SIZE=16, OPTIM_SEED=1)
+    classes = [str(i) for i in range(N_CLASSES)]
+    l2i = {c: i for i, c in enumerate(classes)}
+    cpu_rt = ClipRuntime(cfg, device="cpu")
+    gpu_rt = ClipRuntime(cfg, device="cuda")
+    gpu_rt.model.load_state_dict(cpu_rt.model.state_dict())
+    prefix = init_prefix(torch.Generator().manual_seed(7), 16, 512).numpy()
+    rng = np.random.default_rng(0)
+    feats = rng.normal(0, 1, (16, 512)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    labels = rng.integers(0, N_CLASSES, 16).astype(np.int32)
+    group = (np.arange(16) % 2).astype(np.int32)
+    valid = np.ones(16, np.float32)
+    out = {}
+    for name, rt in (("cpu", cpu_rt), ("cuda", gpu_rt)):
+        strat = TextualStrategy(cfg, l2i, classes, classes, classes, runtime=rt)
+        strat.load_parameters([prefix])
+        strat._w0, strat._w1 = 8.0, 1.0  # textual_fpl's balance, 128 pseudo / 16 labeled
+        dev = rt.device
+        ctx = torch.tensor(strat._train_text_class_ids(classes), dtype=torch.long, device=dev)
+        f0, b0 = fused_attention.launches, attention_bwd.launches
+        loss, correct = strat._apply_step(
+            ctx, 0.1, torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev),
+            torch.from_numpy(group).to(dev), torch.from_numpy(valid).to(dev))
+        launches = (fused_attention.launches - f0, attention_bwd.launches - b0)
+        out[name] = (loss, correct, strat.epoch_parameters()[0], launches, tuple(ctx.shape))
+    (lc, cc, pc, nc, shape), (lg, cg, pg, ng, _) = out["cpu"], out["cuda"]
+    p_err = float(np.abs(pg - pc).max())
+    moved = float(np.abs(pc - prefix).max())
+    l_rel = abs(lg - lc) / abs(lc)
+    rec = {"token_ids": list(shape), "loss_cpu": lc, "loss_card": lg, "loss_rel_err": l_rel,
+           "correct": [cc, cg], "prefix_max_abs_err": p_err, "prefix_moved": moved,
+           "card_launches_k1_k2": list(ng), "cpu_launches_k1_k2": list(nc)}
+    log(f"  one CoOp step, ViT-B/32 fp32, card vs CPU: {json.dumps(rec)} "
+        f"(tol {STEP_PREFIX_TOL} abs prefix, {STEP_LOSS_RTOL} rel loss)")
+    if not (p_err <= STEP_PREFIX_TOL and l_rel <= STEP_LOSS_RTOL and cc == cg and moved > 0):
+        fail(f"one CoOp step on the card disagrees with the CPU: {rec}")
+    if ng != (12, 12) or nc != (0, 0):
+        fail(f"one CoOp step: K1/K2 launches card {ng}, CPU {nc}; expected 12/12 and 0/0")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -423,6 +564,191 @@ def phase_serving(torch, data_dir: str, work: str):
 
 
 # ---------------------------------------------------------------- phase 7
+def phase_train(torch, data_dir: str, work: str, model: str, dtype: str, epochs: int):
+    """main_ssl.workflow for one CoOp MODEL with the bundled config (N_LABEL 2,
+    PREFIX_SIZE 16, N_PSEUDOSHOTS 16, BATCH_SIZE 16, SGD lr 0.1 cosine),
+    `epochs` epochs, in `dtype`; checks the artifacts and the losses."""
+    import argparse
+    import logging
+
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.models.prompts import init_prefix
+    from menghini_neurips23_tpu_torch.runners import common, main_ssl
+    from menghini_neurips23_tpu_torch.training import TextualStrategy
+
+    artifacts = f"{work}/artifacts_{model}_{dtype}"
+    env = dict(DATASET_NAME="MNIST", DATASET_DIR=data_dir, MODEL=model,
+               VIS_ENCODER="ViT-B/32", OPTIM_SEED="1", SPLIT_SEED="500")
+    args = argparse.Namespace(model_config=f"{model}_config.yml", learning_paradigm="ssl")
+    cfg = common.load_config(args, env=env)
+    cfg.EPOCHS, cfg.COMPUTE_DTYPE, cfg.ARTIFACT_DIR = epochs, dtype, artifacts
+
+    # what the run reports: the epoch log lines (loss per epoch), one pair of
+    # CUDA events around every step, the strategy and its best val accuracy
+    epoch_logs, events, seen = [], [], {}
+
+    class EpochLog(logging.Handler):
+        def emit(self, record):
+            if isinstance(record.msg, str) and record.msg.startswith("epoch %d"):
+                epoch_logs.append(record.args)
+
+    strategy_log = logging.getLogger("menghini_neurips23_tpu_torch.training.strategy")
+    handler = EpochLog(logging.INFO)
+    strategy_log.addHandler(handler)
+    strategy_log.setLevel(logging.INFO)
+    strategy_log.propagate = False  # one summary line per run instead of one per epoch
+    step, run = TextualStrategy._apply_step, common.run_strategy
+
+    def timed_step(self, *a, **k):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = step(self, *a, **k)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    def recorded_run(strategy, *a):
+        seen["strategy"] = strategy
+        t0 = time.perf_counter()
+        seen["result"] = run(strategy, *a)
+        seen["train_s"] = time.perf_counter() - t0
+        return seen["result"]
+
+    TextualStrategy._apply_step, common.run_strategy = timed_step, recorded_run
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp = main_ssl.workflow(cfg.DATASET_DIR, cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TextualStrategy._apply_step, common.run_strategy = step, run
+        strategy_log.removeHandler(handler)
+        strategy_log.propagate = True
+
+    enc = cfg.VIS_ENCODER.replace("/", "")
+    stem = f"MNIST_ssl_{model}_{enc}_opt_1_spl_500.pickle"
+    with open(f"{artifacts}/trained_prompts/{stem}", "rb") as f:
+        saved = pickle.load(f)
+    strategy = seen["strategy"]
+    width = strategy.runtime.arch.transformer_width  # 512 for ViT-B/32
+    start = init_prefix(torch.Generator().manual_seed(cfg.OPTIM_SEED * 1000), cfg.PREFIX_SIZE,
+                        width, cfg.VIS_PREFIX_INIT, cfg.MEAN_INIT, cfg.VAR_INIT).numpy()
+    p = np.asarray(saved[0])
+    losses = [a[1] for a in epoch_logs]
+    if len(losses) != epochs or not all(np.isfinite(losses)):
+        fail(f"train[{model}]: {len(losses)} epoch losses for {epochs} epochs, or not finite")
+    # the saved prompt is the best-validation epoch's; epoch 0 trains at lr 0
+    # (the cosine warm-up), so a best epoch of 0 saves the initial prefix
+    val_accs = [a[3] for a in epoch_logs]
+    best_epoch = int(np.argmax(val_accs))
+    final = strategy.epoch_parameters()[0]
+    if not (len(saved) == 1 and p.shape == (16, width) and p.dtype == np.float32
+            and np.isfinite(p).all() and np.array_equal(p, start) == (best_epoch == 0)
+            and not np.array_equal(final, start)):
+        fail(f"train[{model}]: saved prefix {p.shape} {p.dtype} (best epoch {best_epoch}) is not "
+             f"the trained (16, {width}) fp32 one, or the prefix never moved")
+    with open(f"{artifacts}/results_model_{model}.json") as f:
+        rec = json.loads(f.readline())
+    with open(f"{artifacts}/evaluation/{stem}", "rb") as f:
+        pred = pickle.load(f)
+    n_test = N_CLASSES * N_PER_CLASS
+    logits = np.asarray(pred["logits"])
+    if rec["model"] != model or not 0.0 <= rec["accuracy"] <= 1.0:
+        fail(f"train[{model}]: bad results line {rec}")
+    if logits.shape != (n_test, N_CLASSES) or not np.isfinite(logits).all():
+        fail(f"train[{model}]: evaluation logits {logits.shape}")
+    rows = len(strategy._train_groups)
+    extra = {}
+    if model == "textual_fpl":
+        cache = (f"{artifacts}/pseudolabels/MNIST_{enc}_ssl_textual_fpl_16"
+                 "_pseudolabels_split_500.pickle")
+        with open(cache, "rb") as f:
+            n_pseudo = len(pickle.load(f)["filepaths"])
+        # pseudo rows: the 80% carve of the selection; labeled rows: the
+        # train share of 2 shots per class
+        n_train_pseudo = int(n_pseudo * cfg.ratio_train_val)
+        n_shots = int(cfg.N_LABEL * N_CLASSES * cfg.ratio_train_val)
+        if (sum(strategy._train_groups), rows) != (n_train_pseudo, n_train_pseudo + n_shots):
+            fail(f"train[{model}]: {rows} training rows ({sum(strategy._train_groups)} pseudo), "
+                 f"expected {n_train_pseudo} + {n_shots}")
+        extra = {"pseudolabels": n_pseudo, "pseudo_val": len(strategy.val_unseen_files)}
+    steps = len(events)
+    torch.cuda.synchronize()
+    ev_ms = sorted(a.elapsed_time(b) for a, b in events)
+    out = {
+        "model": model, "dtype": dtype, "epochs": epochs, "training_rows": rows,
+        "steps": steps, "steps_per_epoch": steps / epochs, "wall_s": wall,
+        "train_s": seen["train_s"], "wall_ms_per_step": 1e3 * seen["train_s"] / steps,
+        "event_ms_per_step_median": ev_ms[len(ev_ms) // 2], "event_ms_per_step_min": ev_ms[0],
+        "best_val_acc": seen["result"][0], "best_epoch": best_epoch,
+        "saved_prefix_moved": float(np.abs(p - start).max()), "test_acc": resp[0],
+        "first_loss": losses[0], "last_loss": losses[-1], **extra,
+    }
+    log(f"  train[{model}, {dtype}]: " + json.dumps(out))
+    return wall, strategy
+
+
+def phase_step_profile(torch, strategy, n: int = 20):
+    """Where one training step's time goes: `n` steps of the trained strategy
+    (lr 0, a fixed batch of 16) timed on the host clock alone, then again
+    under torch.profiler for the device's busy time and the kernels by name."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = strategy.device
+    n_cls = len(strategy.classes)
+    ctx = torch.tensor(strategy._train_text_class_ids(strategy.classes), dtype=torch.long,
+                       device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    feats = F.normalize(torch.randn(16, strategy.runtime.arch.embed_dim, generator=g,
+                                    device=dev), dim=1)
+    labels = torch.randint(0, n_cls, (16,), generator=g, device=dev).int()
+    group = (torch.arange(16, device=dev) % 2).int()
+    valid = torch.ones(16, device=dev)
+
+    def steps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            strategy._apply_step(ctx, 0.0, feats, labels, group, valid)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    steps()
+    wall_ms = steps()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = steps()
+    from torch.autograd import DeviceType
+
+    # device-side events only (a CPU op's entry repeats its kernels' time),
+    # summed by the first 70 characters of the kernel's name
+    kernels, launched = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kernels[e.key[:70]] = kernels.get(e.key[:70], 0.0) + us / 1e3 / n
+            launched += e.count
+    busy = sum(kernels.values())
+    out = {
+        "model": strategy.config.MODEL, "dtype": strategy.config.COMPUTE_DTYPE,
+        "token_ids": list(ctx.shape), "steps": n, "wall_ms_per_step": wall_ms,
+        "profiled_wall_ms_per_step": prof_wall_ms,
+        "device_ops_per_step": launched / n if kernels else None,
+        "device_busy_ms_per_step": busy if kernels else None,
+        # the busy time against the wall without the profiler's overhead
+        "device_idle_share": 1 - busy / wall_ms if kernels else None,
+        "top_kernels_ms_per_step": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8]),
+    }
+    log("  training step profile: " + json.dumps(out))
+
+
+# ---------------------------------------------------------------- phase 8
 def phase_breakdown(torch, data_dir: str, work: str):
     """Where a main_clip run's wall time goes (bf16), measured apart from the
     counted main path: runtime set-up, the host's decode of the 640 test
@@ -465,7 +791,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
 
-    from menghini_neurips23_tpu_torch.ops.attention import fused_attention
+    from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
     from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs
 
     log("[1] device")
@@ -474,7 +800,9 @@ def main() -> int:
     phase_build()
     log("[3] kernels vs plain versions")
     attn_cases, head_cases = phase_kernels(torch)
+    bwd_cases = phase_kernels_bwd(torch)
     phase_model_reference(torch)
+    phase_one_step(torch)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -484,29 +812,64 @@ def main() -> int:
     log(f"[4] main path: dataset of {len(classes)} classes x {N_PER_CLASS} train + "
         f"{N_PER_CLASS} test {RES}px PNGs written in {time.perf_counter() - t0:.2f} s")
 
-    wrappers = {"attention_fwd": fused_attention, "clip_head": fused_probs}
-    for w in wrappers.values():
-        w.launches = 0
-    walls = {}
-    for dtype in ("float32", "bfloat16"):
-        walls[f"main_clip_{dtype}"] = phase_main_clip(torch, data_dir, work, dtype)
-    log("[5] pseudolabels")
-    walls["pseudolabels"] = phase_pseudolabels(torch, data_dir, work)
-    log("[6] serving")
-    walls["serving"] = phase_serving(torch, data_dir, work)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    wrappers = {"attention_fwd": fused_attention, "attention_bwd": attention_bwd,
+                "clip_head": fused_probs}
+    # each main path runs with every count set to 0 just before it and read
+    # just after; a kernel the path runs must show at least one launch
+    by_path = {}
+
+    def counted(path: str, needs, run):
+        for w in wrappers.values():
+            w.launches = 0
+        run()
+        by_path[path] = {name: w.launches for name, w in wrappers.items()}
+        log(f"  launches on the {path} path: {json.dumps(by_path[path])}")
+        for name in needs:
+            if by_path[path][name] <= 0:
+                fail(f"kernel {name} was not launched on the {path} path")
+
+    walls, trained = {}, {}
+
+    def zero_shot_path():
+        for dtype in ("float32", "bfloat16"):
+            walls[f"main_clip_{dtype}"] = phase_main_clip(torch, data_dir, work, dtype)
+        log("[5] pseudolabels")
+        walls["pseudolabels"] = phase_pseudolabels(torch, data_dir, work)
+        log("[6] serving")
+        walls["serving"] = phase_serving(torch, data_dir, work)
+
+    def training_path():
+        for model, dtype, epochs in (("textual_prompt", "float32", 20),
+                                     ("textual_fpl", "bfloat16", 150)):
+            walls[f"{model}_{dtype}"], trained[model] = phase_train(
+                torch, data_dir, work, model, dtype, epochs)
+
+    counted("zero-shot", ("attention_fwd", "clip_head"), zero_shot_path)
+    log("[7] training (SSL CoOp)")
+    counted("training", tuple(wrappers), training_path)
+    launches = {name: sum(c[name] for c in by_path.values()) for name in wrappers}
     log("phase wall seconds: " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    log("[7] breakdown")
+    log("[8] breakdown")
     phase_breakdown(torch, data_dir, work)
+    fpl = trained["textual_fpl"]
+    phase_step_profile(torch, fpl)
+    # the same step over Flowers102's 102 class prompts (the paper's widest
+    # class list), on the same runtime
+    from menghini_neurips23_tpu_torch.data import get_class_names
+    from menghini_neurips23_tpu_torch.training import TextualStrategy
+
+    flowers = get_class_names("Flowers102", data_dir, 500)[0]
+    phase_step_profile(torch, TextualStrategy(
+        fpl.config, {c: i for i, c in enumerate(flowers)}, flowers, flowers, flowers,
+        runtime=fpl.runtime))
 
     def entry(name, source, replaces, cases, headline):
         h = next(c for c in cases if headline(c))
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": h["max_abs_err"], "ms": h["ms"],
+            "launches": launches[name],
+            "launches_by_path": {path: c[name] for path, c in by_path.items()},
+            "max_abs_err": h["max_abs_err"], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": h["library_ms"], "shape": h["shape"], "dtype": h["dtype"],
             "cases": cases,
@@ -516,6 +879,9 @@ def main() -> int:
         entry("attention_fwd", f"{PKG}/csrc/attention_fwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:65", attn_cases,
               lambda c: c["shape"] == [256, 50, 768, 12] and c["dtype"] == "bfloat16"),
+        entry("attention_bwd", f"{PKG}/csrc/attention_bwd.cu",
+              "menghini_neurips23_tpu/ops/attention.py:96", bwd_cases,
+              lambda c: c["shape"] == [10, 24, 512, 8] and c["dtype"] == "bfloat16"),
         entry("clip_head", f"{PKG}/csrc/clip_head.cu",
               "menghini_neurips23_tpu/ops/clip_head.py:40", head_cases,
               lambda c: c["shape"] == [640, 512, 10] and c["dtype"] == "float32"),

@@ -104,14 +104,14 @@ class Config:
     # training slice reads are kept for that compatibility.
     COMPUTE_DTYPE: str = "float32"  # float32 | bfloat16
     CACHE_FEATURES: bool = True  # precompute frozen-tower features
-    FUSED_TRAIN: bool = True  # training slice: whole-run training loop
+    FUSED_TRAIN: bool = True  # read, no effect: every run takes the per-step loop (no whole-run form yet)
     CHECKPOINT_ITER: bool = True  # training slice: checkpoint each IFPL/GRIP iteration
     RESUME: bool = True  # training slice: resume IFPL/GRIP from the latest checkpoint
     PROFILE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
     COMPILE_CACHE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
     PSEUDO_TOPK: str = "exact"  # exact (reference leaderboard) | device (not in this package yet)
     GRIP_REFRESH: str = "onepass"  # training slice: onepass | twopass GRIP refresh
-    FUSED_MAX_BYTES: int = 6_000_000_000  # training slice: feature-size cap of the fused loop
+    FUSED_MAX_BYTES: int = 6_000_000_000  # training features above half this stream per batch instead of staying on the device
     HOST_CACHE_BYTES: int = 4_000_000_000  # byte cap for the per-image host feature LRU
     DECODE_CACHE_BYTES: int = 2_000_000_000  # byte cap for decoded uint8 images (0 = off); GRIP refreshes re-read the pool every iteration
     FUSED_REMAT: bool = False  # training slice: recompute the vision tower in fused steps

@@ -1,5 +1,37 @@
-"""Training strategies.  This slice holds the zero-shot part of the base
-class; the modality strategies (CoOp, VPT, UPT) arrive with the training
-slices."""
+"""Training strategies.
 
-from menghini_neurips23_tpu_torch.training.strategy import TrainingStrategy  # noqa: F401
+The reference exposes per-paradigm classes {Textual,Visual,Multimodal}Prompt
+and {Textual,Visual,Multimodal}FPL in three near-identical packages; here one
+strategy class per modality covers all paradigms (the paradigm is
+config.LEARNING_PARADIGM) and "FPL vs prompt-only" is just whether an
+unlabeled dataset is passed to train().  This package has the textual (CoOp)
+strategy; the visual (VPT) and multimodal (UPT) ones arrive with their slices.
+"""
+
+from menghini_neurips23_tpu_torch.training.losses import (  # noqa: F401
+    cross_entropy_per_sample,
+    masked_mean,
+    two_group_loss,
+)
+from menghini_neurips23_tpu_torch.training.schedulers import lr_factor, lr_for_epoch  # noqa: F401
+from menghini_neurips23_tpu_torch.training.strategy import EpochData, TrainingStrategy  # noqa: F401
+from menghini_neurips23_tpu_torch.training.textual import TextualStrategy
+
+# Reference-compatible aliases (reference methods/*/__init__.py)
+TextualPrompt = TextualStrategy
+TextualFPL = TextualStrategy
+
+MODALITY_STRATEGIES = {"text": TextualStrategy}
+
+# modalities whose strategy arrives with a later slice
+PENDING_MODALITIES = {"image": "VPT slice (ROADMAP M10)", "multi": "UPT slice (ROADMAP M11)"}
+
+
+def strategy_class(modality: str):
+    """The strategy class for a modality; raises for those still to port."""
+    if modality in PENDING_MODALITIES:
+        raise NotImplementedError(
+            f"modality {modality!r} is not in this package yet: it arrives with the "
+            f"{PENDING_MODALITIES[modality]}"
+        )
+    return MODALITY_STRATEGIES[modality]

@@ -5,11 +5,13 @@ On a CPU tensor each port wrapper computes its plain PyTorch version; the JAX
 side runs its Pallas kernels as its own tests do off-TPU (interpreted).  The
 same numpy inputs, made from a seed, go to both.
 
-Tolerances: attention 1e-5 in fp32 and 2e-2 in bf16 (both sides round the
-probabilities and the output to bf16; summation order differs); the CLIP
-head rtol 1e-5 / atol 1e-6 (fp32 math on both sides).
+Tolerances: attention forward and backward 1e-5 in fp32 and 2e-2 in bf16
+(both sides round the probabilities, dS and the outputs to bf16 at the same
+points; summation order differs, so a value may land on a neighbouring bf16
+step); the CLIP head rtol 1e-5 / atol 1e-6 (fp32 math on both sides).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +24,13 @@ from menghini_neurips23_tpu.ops.patch_embed import (
     patch_tokens as jax_patch_tokens,
 )
 from menghini_neurips23_tpu_torch.ops import _cuda
-from menghini_neurips23_tpu_torch.ops.attention import attention_reference, fused_attention
+from menghini_neurips23_tpu_torch.ops.attention import (
+    FusedAttention,
+    attention_bwd,
+    attention_bwd_reference,
+    attention_reference,
+    fused_attention,
+)
 from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs, fused_probs_reference
 from menghini_neurips23_tpu_torch.ops.patch_embed import fold_normalization, patch_tokens
 
@@ -42,6 +50,49 @@ def test_attention_plain_matches_jax_kernel(mask, T, dtype):
     got = fused_attention(torch.from_numpy(qkv).to(tdt), mask, H)
     assert got.dtype == tdt and got.shape == (B, T, H * D)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("T", [12, 24])
+@pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
+def test_attention_bwd_plain_matches_jax_vjp(mask, T, dtype):
+    """K2's plain version against the JAX package's custom VJP, whose `_bwd`
+    runs the Pallas backward kernel (interpreted off-TPU)."""
+    jdt, tdt, tol = _DTYPES[dtype]
+    B, H, D = 8, 2, 16
+    rng = np.random.default_rng(100 + T)
+    qkv = rng.normal(0, 1, (B, T, 3 * H * D)).astype(np.float32)
+    g = rng.normal(0, 1, (B, T, H * D)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jax_fused_attention(x, mask, H), jnp.asarray(qkv).astype(jdt))
+    (want,) = vjp(jnp.asarray(g).astype(jdt))
+    got = attention_bwd(torch.from_numpy(qkv).to(tdt), torch.from_numpy(g).to(tdt), mask, H)
+    assert got.dtype == tdt and got.shape == (B, T, 3 * H * D)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=tol, atol=tol
+    )
+
+
+@pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
+def test_fused_attention_cpu_gradient_matches_autograd_of_plain(mask):
+    """Through `FusedAttention` on the CPU (plain forward + plain backward)
+    against autograd of the plain forward, fp32; no kernel launch counted."""
+    fused_attention.launches = attention_bwd.launches = 0
+    gen = torch.Generator().manual_seed(1)
+    qkv = torch.randn(4, 12, 3 * 64, generator=gen)
+    g = torch.randn(4, 12, 64, generator=gen)
+    a = qkv.clone().requires_grad_(True)
+    out = fused_attention(a, mask, 4)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "FusedAttentionBackward"
+    (got,) = torch.autograd.grad(out, a, g)
+    b = qkv.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(attention_reference(b, mask, 4), b, g)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, attention_bwd_reference(qkv, g, mask, 4), rtol=0, atol=0)
+    # a non-contiguous qkv (a transposed view) is made contiguous in the forward
+    c = qkv.transpose(0, 1).contiguous().transpose(0, 1).requires_grad_(True)
+    (got_c,) = torch.autograd.grad(FusedAttention.apply(c, mask, 4), c, g)
+    torch.testing.assert_close(got_c, got, rtol=0, atol=0)
+    assert fused_attention.launches == 0 and attention_bwd.launches == 0
 
 
 def test_clip_head_plain_matches_jax_kernel():
@@ -106,7 +157,7 @@ def test_wrappers_refuse_other_devices_and_masks():
 
 def test_kernel_build_is_keyed_on_source_and_flags():
     # the library name changes with the source digest; nothing is built here
-    for name in ("attention_fwd", "clip_head"):
+    for name in ("attention_fwd", "attention_bwd", "clip_head"):
         path = _cuda.library_path(name)
         assert path == _cuda.library_path(name)
         assert path.startswith(_cuda.BUILD_DIR) and f"lib{name}-" in path
