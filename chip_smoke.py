@@ -12,12 +12,15 @@ Phases (one or more lines each; any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch/CUDA/nvcc/Triton
      versions, which optional host packages import, whether the native image
      loader builds; fails when torch sees no card
-  2. build: compiles every kernel (one nvcc per source, all at once)
+  2. build: compiles every kernel (one nvcc per source, all at once) and
+     prints ptxas's register report; fails if an attention entry point
+     spills registers
   3. kernels: each kernel against its plain version on the card, fp32 and
-     bf16, at the main path's shapes, with CUDA-event times of the kernel,
-     the plain version and, for attention, scaled_dot_product_attention as
-     a yardstick (forward alone; forward + backward through autograd beside
-     the K1 + K2 pair - the port never calls it); the FusedAttention
+     bf16, at the main path's shapes (K1 also at ViT-L/14's), with CUDA-event
+     times of the kernel, the plain version and, for attention,
+     scaled_dot_product_attention as a yardstick (forward alone; forward +
+     backward through autograd beside the K1 + K2 pair - the port never
+     calls it), and bound_share = bound_ms / ms; the FusedAttention
      gradient against autograd of the plain forward; a full-width ViT-B/32
      forward on the card against the same weights on the CPU; one CoOp
      training step at ViT-B/32 width on the card against the same step on
@@ -45,6 +48,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 import shutil
 import struct
 import subprocess
@@ -126,8 +130,15 @@ def phase_build():
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f} s")
     for name in secs:
-        regs = [l.strip() for l in _cuda.build_log(name).splitlines() if "registers" in l]
+        report = _cuda.build_log(name)
+        regs = [l.strip() for l in report.splitlines() if "registers" in l]
         log(f"  {name}: {len(regs)} entry points; " + ("; ".join(sorted(set(regs))) or "no report"))
+        # every entry point's spill stores, by function (ptxas names the function first)
+        spills = dict(re.findall(r"Function properties for (\S+)\s+\d+ bytes stack frame, "
+                                 r"(\d+) bytes spill stores", report))
+        spilled = {f: int(n) for f, n in spills.items() if int(n) > 0}
+        if name.startswith("attention") and (not spills or spilled):
+            fail(f"{name}: the ptxas report shows spill stores {spilled or 'nowhere (no report)'}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -188,11 +199,12 @@ def phase_kernels(torch):
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     g = torch.Generator(device="cuda").manual_seed(0)
     attn_cases, head_cases = [], []
-    # vision (ViT-B/32, the main path's batch) and the text tower: C = 10 or
-    # 102 classes at the truncated lengths 16 and 24 and the full 77
+    # vision (ViT-B/32, the main path's batch), the text tower: C = 10 or
+    # 102 classes at the truncated lengths 16 and 24 and the full 77, and
+    # Flowers102's (102, 48); ViT-L/14 vision without and with a VPT prefix
     shapes = [(256, 50, 768, 12, None)] + [
         (b, t, 512, 8, "causal") for b in (10, 102) for t in (16, 24, 77)
-    ]
+    ] + [(102, 48, 512, 8, "causal"), (8, 257, 1024, 16, None), (8, 273, 1024, 16, None)]
     for dname, dt in dtypes.items():
         for B, T, W, H, mask in shapes:
             D = W // H
@@ -212,7 +224,7 @@ def phase_kernels(torch):
             b_ms, b_by = bound(B * T * 4 * W * size, 4 * B * H * D * pairs, dname)
             case = dict(shape=[B, T, W, H], mask=mask, dtype=dname, max_abs_err=err,
                         tol=ATTN_TOL[dname], ms=ms, eager_ms=eager, plain_ms=plain,
-                        library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                        library_ms=lib, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
             attn_cases.append(case)
             log("  attention_fwd " + json.dumps(case))
             if not ok:
@@ -233,7 +245,7 @@ def phase_kernels(torch):
                                2 * B * C * E + 2 * (B + C) * E, dname)
             case = dict(shape=[B, E, C], dtype=dname, max_abs_err=err, tol=HEAD_TOL, ms=ms,
                         eager_ms=eager, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                        bound_by=b_by)
+                        bound_by=b_by, bound_share=b_ms / ms)
             head_cases.append(case)
             log("  clip_head " + json.dumps(case))
             if err > HEAD_TOL:
@@ -280,10 +292,11 @@ def phase_kernels_bwd(torch):
 
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
-    # the CoOp text tower (C = 10 or 102 classes, truncated 24 or full 77),
-    # the VPT vision tower (16 prompt tokens) and the plain ViT-B/32 one
+    # the CoOp text tower (C = 10 or 102 classes, truncated 24 or full 77;
+    # Flowers102's (102, 48)), the VPT vision tower (16 prompt tokens) and
+    # the plain ViT-B/32 one
     shapes = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
-        (256, 66, 768, 12, None), (256, 50, 768, 12, None)
+        (102, 48, 512, 8, "causal"), (256, 66, 768, 12, None), (256, 50, 768, 12, None)
     ]
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for B, T, W, H, mask in shapes:
@@ -315,7 +328,8 @@ def phase_kernels_bwd(torch):
             case = dict(shape=[B, T, W, H], mask=mask, dtype=dname, max_abs_err=err,
                         tol=tol, rtol=tol, ms=ms, plain_ms=plain, pair_ms=pair,
                         library_ms=lib, library="autograd.grad of scaled_dot_product_attention "
-                        "(forward + backward)", bound_ms=b_ms, bound_by=b_by)
+                        "(forward + backward)", bound_ms=b_ms, bound_by=b_by,
+                        bound_share=b_ms / ms)
             cases.append(case)
             log("  attention_bwd " + json.dumps(case))
             if not ok:

@@ -9,207 +9,466 @@
 //   q, k, v, g_h = the head's column slices of qkv (h*D, W+h*D, 2W+h*D) and g
 //   P     = softmax(q . k^T * D^-0.5 [+ causal mask]) in fp32, recomputed
 //   dv    = P_lp^T . g_h            (P_lp: P rounded to the input type)
-//   datt  = g_h . v^T               (fp32)
-//   dS    = P * (datt - rowsum(datt * P)) * D^-0.5, rounded to the input type
+//   dP    = g_h . v^T               (fp32)
+//   dS    = P * (dP - rowsum(dP * P)) * D^-0.5, rounded to the input type
+//           (the row sum takes the fp32 P)
 //   dq    = dS . k,  dk = dS^T . q
 //   dqkv[b, :, h*D...], [W+h*D...], [2W+h*D...] = dq, dk, dv (input type)
 // Every product accumulates in fp32.  Nothing of size (B, H, T, T) reaches
-// device memory, and no atomics are used: the result is deterministic.
+// device memory, and no atomics are used: dk and dv are reduced over the
+// query rows inside the block, in a fixed order, so the result is
+// bit-identical from launch to launch.
 //
 // What bounds it on an H100: memory.  It reads qkv (3W) and g (W) and writes
 // dqkv (3W) per token, about 7*W elements, against about 10*T*D operations
 // per head and token: at the VPT vision shape (T = 66, D = 64) some 24
 // operations per byte in bf16, far below the ~295 per byte where the tensor
-// cores would become the limit.
+// cores would become the limit.  The design keeps every product off the
+// shared-memory-bound FFMA path in bf16 and stages with 16-byte copies.
 //
-// Design (a plain first version; wgmma/TMA tiling is later work):
-// - one block per (batch row, head); the block stages that head's q, k, v
-//   and g (T x D each) in shared memory as fp32, reading the fused layout in
-//   place: no head-split copies, no transposes;
-// - rows are padded to D+1 floats, so the 32 lanes of a warp, which read 32
-//   different rows at one column, hit 32 different banks;
-// - pass 1, one warp per query row i: recompute the row's logits and fp32
-//   softmax P[i, :], then datt[i, j] = g_i . v_j, the row sum of datt * P by
-//   warp shuffles, and dS[i, :]; P and dS (T x T fp32 each) stay in shared
-//   memory, masked entries hold 0;
-// - pass 2, each thread owns output elements (row, column d, neighbouring
-//   threads on neighbouring d) and loops over T: dq = dS . k, dk = dS^T . q,
-//   dv = P_lp^T . g; the causal mask is a loop bound.
-// Shared memory: 4*T*(D+1) + 2*T*T floats, 128 KB at T = 77, D = 64; the
-// wrapper raises above the card's 227 KB per block (ViT-L/14's T = 257).
-// Numerics follow the Pallas kernel: scale after the dot, fp32 softmax
-// (exp(s - max) / sum), dS from the fp32 P, P and dS*scale rounded to the
-// input type where the Pallas kernel rounds them.
+// Design, one block per (batch row, head), T <= 128, a warp per 16-row tile:
+// - staging: q and k rows, then v and g rows in a second group that lands
+//   while S runs, with 16-byte cp.async copies (rows past T zero-filled),
+//   read from the fused layout in place, rows padded against bank conflicts;
+// - the key capacity KC (16 to 128, the smallest holding T) is a template
+//   parameter, as in K1;
+// - pass 1, each warp owns 16 query rows: it recomputes S and P, then dP,
+//   r = rowsum(dP * P) and dS, and forms dq = dS . k; it leaves P_lp and dS
+//   in shared memory;
+// - pass 2, after a barrier, each warp owns 16 key rows and forms
+//   dv = P_lp^T . g and dk = dS^T . q over the query rows, in a fixed order;
+// - bf16: every product on the tensor cores (mma.sync m16n8k16, bf16
+//   operands, fp32 accumulators, ldmatrix / ldmatrix.trans from shared
+//   memory); S and P stay in registers (16 x 128 fp32 per warp at most), dP
+//   is formed twice (once for r, once for dS) rather than held, dS is
+//   rounded straight into the A fragments of dS . k; P_lp and dS, bf16,
+//   take 2 * T^2 * 2 bytes (74 KB of shared memory in all at T = 66);
+// - fp32: full-fp32 FFMA (no TF32), register-tiled like K1's fp32 path;
+//   dP passes through the dS buffer of the tile's own rows; P stays in
+//   registers until every warp has read k and v, then takes their place, so
+//   that T = 128 fits in 227 KB; up to 32 keys each tile has two warps,
+//   which split the columns of dq and of pass 2;
+// - causal rows skip whole key tiles above the diagonal, and pass 2 skips
+//   the query tiles above it; masked and padded entries give P = dS = 0.
+// T above 128 (ViT-L/14's 257/273) needs a tiled backward; the wrapper
+// raises there.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+using bf16 = __nv_bfloat16;
+using namespace mnt;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kMaxSeq = 128;
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a dtype cast does
+size_t bf16_smem(int seq, int D) {
+  const size_t tp = round16(seq);
+  return (4 * tp * (D + 8) + 2 * tp * (tp + 8)) * sizeof(bf16);
 }
 
-// x rounded to the input type and back, as the Pallas kernel's astype
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+size_t f32_smem(int seq, int D) {
+  const size_t tp = round16(seq), tile = tp * (D + 4), pd = tp * (tp + 4);
+  return (2 * tile + pd + std::max(2 * tile, pd)) * sizeof(float);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// ------------------------------------------------------------------ bf16
 
-// shared memory: q, k, v, g (T x (D+1) each), P and dS (T x T each)
-__host__ __device__ constexpr size_t smem_floats(int T, int D) {
-  return 4 * (size_t)T * (D + 1) + 2 * (size_t)T * T;
-}
+template <int D, int KC>
+__global__ void __launch_bounds__(2 * KC, KC <= 64 ? 256 / KC : 1)
+attention_bwd_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
+                   bf16* __restrict__ dqkv, int seq, int width, int heads, float scale,
+                   int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 8;
+  const int tp = round16(seq), ldp = tp + 8;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + tp * LD;
+  bf16* vs = ks + tp * LD;
+  bf16* gs = vs + tp * LD;
+  bf16* ps = gs + tp * LD;   // P_lp, (query, key)
+  bf16* ds = ps + tp * ldp;  // dS * scale rounded, (query, key)
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ grad,
-                     T* __restrict__ dqkv, int seq, int width, int heads, float scale,
-                     int causal) {
-  extern __shared__ float smem[];
-  constexpr int ld = D + 1;
-  const size_t tile = (size_t)seq * ld;
-  float* qs = smem;
-  float* ks = qs + tile;
-  float* vs = ks + tile;
-  float* gs = vs + tile;
-  float* ps = gs + tile;                  // P, fp32, (seq x seq)
-  float* ds = ps + (size_t)seq * seq;     // dS*scale rounded to T, (seq x seq)
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t stride = 3 * (size_t)width;
+  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  // q and k first, v and g in a second group that lands while S runs
+  stage_rows<bf16, D>(qs, LD, base, stride, seq, tp, tid, nthreads);
+  stage_rows<bf16, D>(ks, LD, base + width, stride, seq, tp, tid, nthreads);
+  cp_async_commit();
+  stage_rows<bf16, D>(vs, LD, base + 2 * width, stride, seq, tp, tid, nthreads);
+  stage_rows<bf16, D>(gs, LD, grad + (size_t)b * seq * width + h * D, width, seq, tp, tid,
+                      nthreads);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
 
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
-  const size_t row_stride = 3 * (size_t)width;
-  const T* base = qkv + (size_t)b * seq * row_stride;
-  const T* gbase = grad + (size_t)b * seq * width + h * D;
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * warp, row0 = r0 + lane / 4;  // rows row0 and row0 + 8
+  bf16* out = dqkv + (size_t)b * seq * stride + h * D;
 
-  for (int idx = threadIdx.x; idx < seq * D; idx += kThreads) {
-    const int t = idx / D, d = idx % D;
-    const T* row = base + t * row_stride;
-    qs[t * ld + d] = to_float(row[h * D + d]);
-    ks[t * ld + d] = to_float(row[width + h * D + d]);
-    vs[t * ld + d] = to_float(row[2 * width + h * D + d]);
-    gs[t * ld + d] = to_float(gbase[(size_t)t * width + d]);
+  // pass 1: this warp's 16 query rows
+  {
+    const int kend = causal ? r0 + 16 : tp;
+    uint32_t qf[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], qs, LD, r0, 16 * kk, lane);
+    float p[KC / 8][4];
+    scores_bf16<D, KC>(p, qf, ks, 0, kend, seq, r0, causal, scale, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) m = fmaxf(m, fmaxf(p[n][2 * r], p[n][2 * r + 1]));
+      m = group_max<4>(m);
+      float l = 0.f;
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          p[n][e] = expf(p[n][e] - m);
+          l += p[n][e];
+        }
+      l = group_sum<4>(l);
+      const float inv_l = row0 + 8 * r < seq ? 1.f / l : 0.f;  // padded rows: P = 0
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) p[n][e] *= inv_l;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    uint32_t gf[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) load_a(gf[kk], gs, LD, r0, 16 * kk, lane);
+    // P_lp to shared memory; r = rowsum(dP * P) with dP = g . v^T
+    float r[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < KC / 16; ++j) {
+      const int n0 = 16 * j;
+      if (n0 >= kend) break;
+      float dp[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bv[4];
+        load_b_rows(bv, vs, LD, n0, 16 * kk, lane);
+        mma_bf16(dp[0], gf[kk], bv[0], bv[1]);
+        mma_bf16(dp[1], gf[kk], bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float(&pt)[4] = p[2 * j + t];
+        const int col = n0 + 8 * t + 2 * (lane & 3);
+        *reinterpret_cast<uint32_t*>(ps + row0 * ldp + col) = pack_bf16(pt[0], pt[1]);
+        *reinterpret_cast<uint32_t*>(ps + (row0 + 8) * ldp + col) = pack_bf16(pt[2], pt[3]);
+        r[0] = fmaf(dp[t][0], pt[0], fmaf(dp[t][1], pt[1], r[0]));
+        r[1] = fmaf(dp[t][2], pt[2], fmaf(dp[t][3], pt[3], r[1]));
+      }
+    }
+    r[0] = group_sum<4>(r[0]);
+    r[1] = group_sum<4>(r[1]);
+    // dS (dP formed again rather than held), to shared memory and, rounded,
+    // straight into the A fragments of dq = dS . k
+    float dq[D / 8][4] = {};
+#pragma unroll
+    for (int j = 0; j < KC / 16; ++j) {
+      const int n0 = 16 * j;
+      if (n0 >= kend) break;
+      float dp[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bv[4];
+        load_b_rows(bv, vs, LD, n0, 16 * kk, lane);
+        mma_bf16(dp[0], gf[kk], bv[0], bv[1]);
+        mma_bf16(dp[1], gf[kk], bv[2], bv[3]);
+      }
+      uint32_t a[4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float(&pt)[4] = p[2 * j + t];
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = pt[e] * (dp[t][e] - r[e >> 1]) * scale;
+        a[2 * t] = pack_bf16(v[0], v[1]);
+        a[2 * t + 1] = pack_bf16(v[2], v[3]);
+        const int col = n0 + 8 * t + 2 * (lane & 3);
+        *reinterpret_cast<uint32_t*>(ds + row0 * ldp + col) = a[2 * t];
+        *reinterpret_cast<uint32_t*>(ds + (row0 + 8) * ldp + col) = a[2 * t + 1];
+      }
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t bk[4];
+        load_b_cols(bk, ks, LD, n0, 16 * dd, lane);
+        mma_bf16(dq[2 * dd], a, bk[0], bk[1]);
+        mma_bf16(dq[2 * dd + 1], a, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * (lane & 3);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        if (row0 + 8 * h2 < seq)
+          *reinterpret_cast<uint32_t*>(out + (row0 + 8 * h2) * stride + col) =
+              pack_bf16(dq[n][2 * h2], dq[n][2 * h2 + 1]);
+    }
   }
   __syncthreads();
 
-  // pass 1: P and dS, one warp per query row
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < seq; i += kWarps) {
-    const float* qi = qs + i * ld;
-    const float* gi = gs + i * ld;
-    float* p = ps + (size_t)i * seq;
-    float* dsi = ds + (size_t)i * seq;
-    const int n = causal ? i + 1 : seq;  // keys row i attends to
-
-    float m = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float* kj = ks + j * ld;
-      float s = 0.f;
+  // pass 2: this warp's 16 key rows (j0 = r0): dv = P_lp^T . g, dk = dS^T . q
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  for (int i0 = causal ? r0 : 0; i0 < tp; i0 += 16) {
+    uint32_t ap[4], ad[4];
+    load_a_trans(ap, ps, ldp, r0, i0, lane);
+    load_a_trans(ad, ds, ldp, r0, i0, lane);
 #pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(qi[d], kj[d], s);
-      s *= scale;
-      p[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    float r = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float pj = p[j] / l;
-      p[j] = pj;
-      const float* vj = vs + j * ld;
-      float a = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) a = fmaf(gi[d], vj[d], a);
-      dsi[j] = a;  // datt, replaced by dS below
-      r = fmaf(a, pj, r);
-    }
-    r = warp_sum(r);
-    for (int j = lane; j < n; j += 32) {
-      dsi[j] = round_to<T>(p[j] * (dsi[j] - r) * scale);
-    }
-    for (int j = n + lane; j < seq; j += 32) {
-      p[j] = 0.f;
-      dsi[j] = 0.f;
+    for (int dd = 0; dd < D / 16; ++dd) {
+      uint32_t bg[4], bq[4];
+      load_b_cols(bg, gs, LD, i0, 16 * dd, lane);
+      load_b_cols(bq, qs, LD, i0, 16 * dd, lane);
+      mma_bf16(dv[2 * dd], ap, bg[0], bg[1]);
+      mma_bf16(dv[2 * dd + 1], ap, bg[2], bg[3]);
+      mma_bf16(dk[2 * dd], ad, bq[0], bq[1]);
+      mma_bf16(dk[2 * dd + 1], ad, bq[2], bq[3]);
     }
   }
-  __syncthreads();
-
-  // pass 2: each thread owns (row, d) elements of dq, dk and dv
-  T* out = dqkv + (size_t)b * seq * row_stride + h * D;
-  for (int idx = threadIdx.x; idx < seq * D; idx += kThreads) {
-    const int i = idx / D, d = idx % D;
-    // dq[i, d] = sum_j dS[i, j] k[j, d]
-    const float* dsi = ds + (size_t)i * seq;
-    const int n = causal ? i + 1 : seq;
-    float acc = 0.f;
-    for (int j = 0; j < n; ++j) acc = fmaf(dsi[j], ks[j * ld + d], acc);
-    out[(size_t)i * row_stride + d] = from_float<T>(acc);
-  }
-  for (int idx = threadIdx.x; idx < seq * D; idx += kThreads) {
-    const int j = idx / D, d = idx % D;
-    // dk[j, d] = sum_i dS[i, j] q[i, d];  dv[j, d] = sum_i P_lp[i, j] g[i, d]
-    const int start = causal ? j : 0;  // rows that attend to key j
-    float acc_k = 0.f, acc_v = 0.f;
-    for (int i = start; i < seq; ++i) {
-      acc_k = fmaf(ds[(size_t)i * seq + j], qs[i * ld + d], acc_k);
-      acc_v = fmaf(round_to<T>(ps[(size_t)i * seq + j]), gs[i * ld + d], acc_v);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * (lane & 3);
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int row = row0 + 8 * h2;
+      if (row < seq) {
+        *reinterpret_cast<uint32_t*>(out + row * stride + width + col) =
+            pack_bf16(dk[n][2 * h2], dk[n][2 * h2 + 1]);
+        *reinterpret_cast<uint32_t*>(out + row * stride + 2 * width + col) =
+            pack_bf16(dv[n][2 * h2], dv[n][2 * h2 + 1]);
+      }
     }
-    out[(size_t)j * row_stride + width + d] = from_float<T>(acc_k);
-    out[(size_t)j * row_stride + 2 * width + d] = from_float<T>(acc_v);
   }
 }
 
-template <typename T, int D>
+// ------------------------------------------------------------------ fp32
+
+// Warps per 16-row tile of the fp32 kernel: short sequences give each tile
+// two warps, which split the columns of dq and of pass 2 (the block is
+// otherwise only ceil(T/16) warps deep and its latency shows).
+__host__ __device__ constexpr int f32_split(int KC, int D) {
+  return KC <= 32 && D >= 32 ? 2 : 1;
+}
+
+template <int D, int KC>
+__global__ void __launch_bounds__(2 * KC * f32_split(KC, D),
+                                  KC <= 64 ? 256 / (KC * f32_split(KC, D)) : 1)
+attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ grad,
+                  float* __restrict__ dqkv, int seq, int width, int heads, float scale,
+                  int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int CS = f32_split(KC, D);
+  using C = Cols<D / CS>;
+  constexpr int LD = D + 4, NS = KC / 8, NG = NS <= 8 ? NS : NS / 2;
+  const int tp = round16(seq), ldp = tp + 4;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* gs = qs + tp * LD;
+  float* ds = gs + tp * LD;   // dP, then dS, (query, key)
+  float* ks = ds + tp * ldp;  // k and v during pass 1 ...
+  float* vs = ks + tp * LD;
+  float* ps = ks;             // ... P in their place for pass 2
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t stride = 3 * (size_t)width;
+  const float* base = qkv + (size_t)b * seq * stride + h * D;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  stage_rows<float, D>(qs, LD, base, stride, seq, tp, tid, nthreads);
+  stage_rows<float, D>(ks, LD, base + width, stride, seq, tp, tid, nthreads);
+  cp_async_commit();
+  stage_rows<float, D>(vs, LD, base + 2 * width, stride, seq, tp, tid, nthreads);
+  stage_rows<float, D>(gs, LD, grad + (size_t)b * seq * width + h * D, width, seq, tp, tid,
+                       nthreads);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
+  const int part = warp % CS, c0 = part * (D / CS);  // the warp's share of the columns
+  const int r0 = 16 * (warp / CS), row0 = r0 + 4 * ry;  // rows (pass 1) / keys (pass 2) row0 ..
+  // keys the tile's rows see, to the last 8-key slot holding a real key
+  const int kend = min(causal ? r0 + 16 : tp, (seq + 7) / 8 * 8);
+  float* out = dqkv + (size_t)b * seq * stride + h * D + c0;
+
+  // pass 1 (the tile's first warp): P in registers, dP through the tile's
+  // rows of ds, then dS; then dq, its columns split over the tile's warps
+  float p[4][NS];
+  if (part == 0) {
+    scores_f32<D, KC>(p, qs + r0 * LD, ks, 0, kend, seq, r0, causal, scale, ry, kx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < NS; ++jj) m = fmaxf(m, p[i][jj]);
+      m = group_max<8>(m);
+      float l = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < NS; ++jj) {
+        p[i][jj] = expf(p[i][jj] - m);
+        l += p[i][jj];
+      }
+      l = group_sum<8>(l);
+      const float inv_l = row0 + i < seq ? 1.f / l : 0.f;  // padded rows: P = 0
+#pragma unroll
+      for (int jj = 0; jj < NS; ++jj) p[i][jj] *= inv_l;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (part == 0) {
+    float r[4] = {};
+#pragma unroll
+    for (int g0 = 0; g0 < NS; g0 += NG) {  // dP = g . v^T, NG key slots at a time
+      float dp[4][NG] = {};
+#pragma unroll (NS <= 8 ? 4 : 1)
+      for (int d = 0; d < D; d += 4) {
+        float g[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_vec<4>(g[i], gs + (row0 + i) * LD + d);
+#pragma unroll
+        for (int jj = 0; jj < NG; ++jj) {
+          const int key = 8 * (g0 + jj);
+          if (key < kend) {
+            float v[4];
+            load_vec<4>(v, vs + (key + kx) * LD + d);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int t = 0; t < 4; ++t) dp[i][jj] = fmaf(g[i][t], v[t], dp[i][jj]);
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < NG; ++jj) {
+        const int key = 8 * (g0 + jj);
+        if (key < kend) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            r[i] = fmaf(dp[i][jj], p[i][g0 + jj], r[i]);
+            ds[(row0 + i) * ldp + key + kx] = dp[i][jj];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[i] = group_sum<8>(r[i]);
+#pragma unroll
+      for (int jj = 0; jj < NS; ++jj)
+        if (8 * jj < kend) {
+          float* e = ds + (row0 + i) * ldp + 8 * jj + kx;
+          *e = p[i][jj] * (*e - r[i]) * scale;
+        }
+    }
+  }
+  __syncthreads();
+  {
+    float dq[4][C::kPer] = {};
+#pragma unroll (NS <= 8 ? 2 : 1)
+    for (int j = 0; j < kend; j += 4) {
+      float s4[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_vec<4>(s4[i], ds + (row0 + i) * ldp + j);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int u = 0; u < C::kRuns; ++u) {
+          float kv[C::kVec];
+          load_vec<C::kVec>(kv, ks + (j + t) * LD + c0 + C::col(u, kx));
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < C::kVec; ++e)
+              dq[i][u * C::kVec + e] = fmaf(s4[i][t], kv[e], dq[i][u * C::kVec + e]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (row0 + i < seq)
+#pragma unroll
+        for (int u = 0; u < C::kRuns; ++u)
+          store_vec<C::kVec>(out + (row0 + i) * stride + C::col(u, kx), dq[i] + u * C::kVec);
+  }
+  __syncthreads();  // every warp is done with k and v
+  if (part == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < NS; ++jj)
+        if (8 * jj < kend) ps[(row0 + i) * ldp + 8 * jj + kx] = p[i][jj];
+  }
+  __syncthreads();
+
+  // pass 2: keys row0 .. row0 + 3 of the tile's 16, over query rows i
+  float dk[4][C::kPer] = {}, dv[4][C::kPer] = {};
+#pragma unroll 4
+  for (int i = causal ? r0 : 0; i < seq; ++i) {
+    float s4[4], p4[4];
+    load_vec<4>(s4, ds + i * ldp + row0);
+    load_vec<4>(p4, ps + i * ldp + row0);
+#pragma unroll
+    for (int u = 0; u < C::kRuns; ++u) {
+      float qv[C::kVec], gv[C::kVec];
+      load_vec<C::kVec>(qv, qs + i * LD + c0 + C::col(u, kx));
+      load_vec<C::kVec>(gv, gs + i * LD + c0 + C::col(u, kx));
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < C::kVec; ++e) {
+          dk[t][u * C::kVec + e] = fmaf(s4[t], qv[e], dk[t][u * C::kVec + e]);
+          dv[t][u * C::kVec + e] = fmaf(p4[t], gv[e], dv[t][u * C::kVec + e]);
+        }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    if (row0 + t < seq)
+#pragma unroll
+      for (int u = 0; u < C::kRuns; ++u) {
+        float* row = out + (row0 + t) * stride + C::col(u, kx);
+        store_vec<C::kVec>(row + width, dk[t] + u * C::kVec);
+        store_vec<C::kVec>(row + 2 * width, dv[t] + u * C::kVec);
+      }
+}
+
+template <int D, int KC>
 cudaError_t launch(const void* qkv, const void* grad, void* dqkv, int B, int seq, int width,
-                   int heads, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_floats(seq, D) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
+                   int heads, float scale, int causal, int dtype, cudaStream_t stream) {
+  cudaError_t e;
+  const int threads = round16(seq) / 16 * 32;  // a warp per 16-row tile
+  if (dtype == 0) {
+    const size_t smem = f32_smem(seq, D);
+    if ((e = set_smem(attention_bwd_f32<D, KC>, smem)) != cudaSuccess) return e;
+    attention_bwd_f32<D, KC><<<B * heads, threads * f32_split(KC, D), smem, stream>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(grad),
+        static_cast<float*>(dqkv), seq, width, heads, scale, causal);
+  } else {
+    const size_t smem = bf16_smem(seq, D);
+    if ((e = set_smem(attention_bwd_bf16<D, KC>, smem)) != cudaSuccess) return e;
+    attention_bwd_bf16<D, KC><<<B * heads, threads, smem, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad), static_cast<bf16*>(dqkv),
+        seq, width, heads, scale, causal);
   }
-  attention_bwd_kernel<T, D><<<B * heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(grad), static_cast<T*>(dqkv), seq,
-      width, heads, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* qkv, const void* grad, void* dqkv, int B, int seq,
-                       int width, int heads, float scale, int causal, cudaStream_t stream) {
-  switch (width / heads) {
-    case 16: return launch<T, 16>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, stream);
-    case 32: return launch<T, 32>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, stream);
-    case 64: return launch<T, 64>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
+template <int D>
+cudaError_t dispatch_kc(const void* qkv, const void* grad, void* dqkv, int B, int seq,
+                        int width, int heads, float scale, int causal, int dtype,
+                        cudaStream_t s) {
+  switch (key_capacity(round16(seq))) {
+    case 16: return launch<D, 16>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
+    case 32: return launch<D, 32>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
+    case 64: return launch<D, 64>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
+    case 96: return launch<D, 96>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
+    default: return launch<D, 128>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
   }
 }
 
@@ -217,27 +476,39 @@ cudaError_t dispatch_d(const void* qkv, const void* grad, void* dqkv, int B, int
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs; the wrapper checks it
-// against the card's limit before launching.
+// Bytes of dynamic shared memory one block needs (the larger of the two
+// types'); the wrapper checks it, and T <= mnt_attention_bwd_max_seq(),
+// before launching.
 size_t mnt_attention_bwd_smem(int seq, int head_dim) {
-  return smem_floats(seq, head_dim) * sizeof(float);
+  return std::max(bf16_smem(seq, head_dim), f32_smem(seq, head_dim));
 }
 
+// The longest sequence the kernel takes.
+int mnt_attention_bwd_max_seq() { return kMaxSeq; }
+
 // qkv: (B, seq, 3*width) contiguous; grad: (B, seq, width) contiguous;
-// dqkv: (B, seq, 3*width) contiguous; all of one type.
+// dqkv: (B, seq, 3*width) contiguous; all of one type, 16-byte aligned.
 // scale: D^-0.5 as the caller rounds it to float32.
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
 int mnt_attention_bwd(const void* qkv, const void* grad, void* dqkv, int B, int seq,
                       int width, int heads, float scale, int causal, int dtype,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((dtype != 0 && dtype != 1) || heads <= 0 || width % heads || seq > kMaxSeq) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t e;
-  if (dtype == 0) {
-    e = dispatch_d<float>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, s);
-  } else if (dtype == 1) {
-    e = dispatch_d<__nv_bfloat16>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, s);
-  } else {
-    e = cudaErrorInvalidValue;
+  switch (width / heads) {
+    case 16:
+      e = dispatch_kc<16>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
+      break;
+    case 32:
+      e = dispatch_kc<32>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
+      break;
+    case 64:
+      e = dispatch_kc<64>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
+      break;
+    default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
 }

@@ -7,8 +7,8 @@ so the Python wrapper can raise on a refused launch.  Nothing is compiled
 when a module is imported; the first launch builds what it needs.
 
 Libraries land in build/kernels/ at the repository root, named by a digest of
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is reused.  `build` compiles several sources at once, one `nvcc` process per
+the source, the shared headers (csrc/*.cuh) and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  `build` compiles several sources at once, one `nvcc` process per
 source, all started together.
 """
 
@@ -62,8 +62,10 @@ def _source(name: str) -> str:
 def library_path(name: str) -> str:
     """Where the library for csrc/<name>.cu is (or will be) built."""
     h = hashlib.sha256()
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [_source(name)] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

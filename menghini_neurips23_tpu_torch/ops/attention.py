@@ -13,7 +13,8 @@ read the fused layout in place and never write the (B, H, T, T) scores to
 device memory.  On a CPU tensor each takes its plain version,
 `attention_reference` and `attention_bwd_reference`, which perform the same
 arithmetic with PyTorch operators.  There is no other path: anything a
-kernel does not take raises.
+kernel does not take raises, the backward's T above 128 (ViT-L/14's 257 and
+273) among it.
 
 When `qkv` requires grad (and grad mode is on) the call goes through
 `FusedAttention`, a `torch.autograd.Function` that saves only `qkv` and
@@ -60,6 +61,7 @@ _BWD_SIGNATURES = {
         ctypes.c_int,
     ),
     "mnt_attention_bwd_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
+    "mnt_attention_bwd_max_seq": ([], ctypes.c_int),
     **_cuda.ERROR_STRING,
 }
 
@@ -133,6 +135,8 @@ def _check_cuda_qkv(what: str, qkv: torch.Tensor, heads: int) -> int:
         raise ValueError(f"{what}: unsupported dtype {qkv.dtype} (float32 or bfloat16)")
     if not qkv.is_contiguous():
         raise ValueError(f"{what}: qkv must be contiguous")
+    if qkv.data_ptr() % 16:  # the kernels stage rows with 16-byte copies
+        raise ValueError(f"{what}: qkv must be 16-byte aligned")
     W = qkv.shape[-1] // 3
     if W % heads or W // heads not in _HEAD_DIMS:
         raise ValueError(f"{what}: head width {W}/{heads} is not one of {_HEAD_DIMS}")
@@ -189,12 +193,19 @@ def attention_bwd(
     D = _check_cuda_qkv("attention_bwd", qkv, heads)
     B, T, three_w = qkv.shape
     W = three_w // 3
-    if g.shape != (B, T, W) or g.dtype != qkv.dtype or not g.is_contiguous():
+    if g.shape != (B, T, W) or g.dtype != qkv.dtype or not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError(
-            f"attention_bwd: g must be a contiguous {(B, T, W)} {qkv.dtype} tensor, got "
-            f"{tuple(g.shape)} {g.dtype} (contiguous: {g.is_contiguous()})"
+            f"attention_bwd: g must be a contiguous, 16-byte aligned {(B, T, W)} {qkv.dtype} "
+            f"tensor, got {tuple(g.shape)} {g.dtype} (contiguous: {g.is_contiguous()})"
         )
     lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
+    max_seq = lib.mnt_attention_bwd_max_seq()
+    if T > max_seq:
+        raise ValueError(
+            f"attention_bwd: T={T} exceeds the kernel's limit of {max_seq} (P and dS of a "
+            "whole (row, head) live in shared memory; a tiled backward for ViT-L/14 is not "
+            "ported yet)"
+        )
     _check_smem("attention_bwd", lib.mnt_attention_bwd_smem(T, D), T)
     dqkv = torch.empty_like(qkv)
     if B == 0 or T == 0:

@@ -48,9 +48,21 @@ def _require_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+# Ragged lengths around the kernels' 16-row tiles and 128-key chunks, up to
+# K2's limit of 128, at D = 16 (the tiny-test arch), 32 and 64 (B = 1),
+# unmasked and causal: (B, T, W, heads, mask)
+EDGE_T = (1, 15, 16, 17, 48, 63, 64, 65, 66, 77, 128)
+EDGE_CASES = [
+    (b, t, w, w // d, mask)
+    for t in EDGE_T
+    for b, w, d in ((3, 32, 16), (2, 64, 32), (1, 128, 64))
+    for mask in (None, "causal")
+]
+
 # (B, T, W, heads, mask): tiny-test widths (D=16), D=32, then the main path's
-# shapes - ViT-B/32 vision, the text tower truncated and at full context -
-# and ViT-L/14 vision
+# shapes - ViT-B/32 vision, the text tower truncated, at Flowers102's 48 and
+# at full context - ViT-L/14 vision with and without a VPT prefix, and the
+# edge lengths (K1 also past 128 keys, where it takes two sweeps)
 ATTN_CASES = [
     (4, 17, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -58,9 +70,13 @@ ATTN_CASES = [
     (256, 50, 768, 12, None),
     (10, 16, 512, 8, "causal"),
     (102, 24, 512, 8, "causal"),
+    (102, 48, 512, 8, "causal"),
     (102, 77, 512, 8, "causal"),
     (8, 257, 1024, 16, None),
-]
+    (8, 273, 1024, 16, None),
+    (2, 129, 64, 2, "causal"),
+    (1, 200, 128, 2, None),
+] + EDGE_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -90,10 +106,11 @@ BWD_CASES = [
     (10, 24, 512, 8, "causal"),
     (10, 77, 512, 8, "causal"),
     (102, 24, 512, 8, "causal"),
+    (102, 48, 512, 8, "causal"),
     (102, 77, 512, 8, "causal"),
     (256, 50, 768, 12, None),
     (256, 66, 768, 12, None),
-]
+] + EDGE_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -114,7 +131,7 @@ def test_attention_bwd_kernel_matches_plain(case, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[3], BWD_CASES[6], BWD_CASES[8]],
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[3], BWD_CASES[7], BWD_CASES[9]],
                          ids=lambda c: "x".join(map(str, c)))
 def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
     """fp32: K1 forward + K2 backward through `FusedAttention` against
@@ -132,6 +149,32 @@ def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
     b = qkv.clone().requires_grad_(True)
     (want,) = torch.autograd.grad(attention_reference(b, mask, H), b, grad)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(256, 66, 768, 12, None), (102, 77, 512, 8, "causal")],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_attention_bwd_kernel_is_deterministic(case, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    _require_card()
+    B, T, W, H, mask = case
+    g = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dtype)
+    grad = torch.randn(B, T, W, generator=g, device="cuda").to(dtype)
+    first = attention_bwd(qkv, grad, mask, H)
+    second = attention_bwd(qkv, grad, mask, H)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_bwd_raises_above_its_limit(dtype):
+    """K2 takes T <= 128 (EDGE_T's last length passes above); 129 raises."""
+    _require_card()
+    qkv = torch.randn(1, 129, 3 * 128, device="cuda").to(dtype)
+    g = torch.randn(1, 129, 128, device="cuda").to(dtype)
+    with pytest.raises(ValueError, match="T=129 exceeds the kernel's limit of 128"):
+        attention_bwd(qkv, g, "causal", 2)
 
 
 # (B, E, C): tiny-test, the slice's ViT-B/32 head, a ragged batch, ViT-L/14

@@ -29,6 +29,7 @@ from menghini_neurips23_tpu_torch.models import (
     precast_matmul_params,
 )
 from tests.test_torch_parity import _make_state_dict
+from tests.torch_port_fixtures import native_build_outside_checkout  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -33,6 +33,7 @@ from menghini_neurips23_tpu_torch.ops.attention import (
 )
 from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs, fused_probs_reference
 from menghini_neurips23_tpu_torch.ops.patch_embed import fold_normalization, patch_tokens
+from tests.torch_port_fixtures import native_build_outside_checkout  # noqa: F401
 
 torch.set_num_threads(2)
 

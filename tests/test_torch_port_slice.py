@@ -28,12 +28,14 @@ from menghini_neurips23_tpu.training import TextualStrategy as JaxTextualStrateg
 from menghini_neurips23_tpu.models import TINY_TEST as JAX_TINY
 from menghini_neurips23_tpu_torch import predict
 from menghini_neurips23_tpu_torch.config import Config
-from menghini_neurips23_tpu_torch.data import dataset_object
+from menghini_neurips23_tpu_torch.data import _native, dataset_object
+from menghini_neurips23_tpu_torch.data.loader import ImageLoader
 from menghini_neurips23_tpu_torch.pseudo import pseudolabel_top_k
 from menghini_neurips23_tpu_torch.runners import common, main_clip
 from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 from menghini_neurips23_tpu_torch.training import TrainingStrategy
 from tests.test_torch_parity import _make_state_dict
+from tests.torch_port_fixtures import native_build_outside_checkout  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -185,6 +187,18 @@ def test_runtime_passes_match_jax(mnist_fixture, runtimes, path):
         got = port_rt.encode_images_from_files(files, transform=tf)
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_image_decode_leaves_the_checkout_root_unchanged(mnist_fixture):
+    """The port's decode builds its native loader outside the checkout (the
+    module's fixture), so the repository root's listing does not change."""
+    root, _ = mnist_fixture
+    before = sorted(os.listdir(REPO))
+    files = [str(root / f"test/{c}/{c}_img{i}.png") for c in CLASSES for i in range(2)]
+    arr = ImageLoader(32).load_all(files)
+    assert arr.shape == (6, 32, 32, 3) and arr.dtype == np.uint8 and arr.any()
+    assert not os.path.abspath(_native._BUILD_DIR).startswith(REPO + os.sep)
+    assert sorted(os.listdir(REPO)) == before
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

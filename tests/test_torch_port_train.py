@@ -62,6 +62,7 @@ from menghini_neurips23_tpu_torch.training import textual as port_textual
 from menghini_neurips23_tpu_torch.training.losses import two_group_loss
 from menghini_neurips23_tpu_torch.training.schedulers import lr_for_epoch
 from tests.test_torch_parity import _make_state_dict
+from tests.torch_port_fixtures import native_build_outside_checkout  # noqa: F401
 
 torch.set_num_threads(2)
 
