@@ -9,7 +9,7 @@ hand-written kernel in csrc/clip_head.cu: the (B, E) image features are read
 once and no (B, C) logits round-trip through device memory.  On a CPU tensor
 it computes the plain version, `fused_probs_reference`, which performs the
 same fp32 arithmetic (rsqrt-normalise, dot, scale, row softmax) with PyTorch
-operators.  C and E are taken as given: the class count is not padded.
+operators.  The kernel takes E up to 1024 and C up to 2048 and raises above.
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ import torch
 from menghini_neurips23_tpu_torch.ops import _cuda
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_E = 1024
-_MAX_SMEM_BYTES = 227 * 1024  # per-block shared memory on an H100
 
 _SIGNATURES = {
     "mnt_clip_head": (
@@ -30,7 +28,8 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    "mnt_clip_head_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
+    "mnt_clip_head_max_e": ([], ctypes.c_int),
+    "mnt_clip_head_max_c": ([], ctypes.c_int),
     **_cuda.ERROR_STRING,
 }
 
@@ -75,15 +74,10 @@ def fused_probs(img_feats: torch.Tensor, txt_feats: torch.Tensor, scale) -> torc
         raise ValueError("fused_probs: img and txt must be contiguous")
     B, E = img_feats.shape
     C = txt_feats.shape[0]
-    if E > _MAX_E:
-        raise ValueError(f"fused_probs: feature width {E} exceeds {_MAX_E}")
     lib = _cuda.library("clip_head", _SIGNATURES)
-    smem = lib.mnt_clip_head_smem(C, E)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(
-            f"fused_probs: C={C}, E={E} need {smem} bytes of shared memory per block "
-            f"(limit {_MAX_SMEM_BYTES})"
-        )
+    for name, n, limit in (("E", E, lib.mnt_clip_head_max_e()), ("C", C, lib.mnt_clip_head_max_c())):
+        if n > limit:
+            raise ValueError(f"fused_probs: {name}={n} exceeds the kernel's limit of {limit}")
     out = torch.empty((B, C), dtype=torch.float32, device=img_feats.device)
     if B == 0 or C == 0:
         return out

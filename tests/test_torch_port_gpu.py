@@ -177,8 +177,16 @@ def test_attention_bwd_raises_above_its_limit(dtype):
         attention_bwd(qkv, g, "causal", 2)
 
 
-# (B, E, C): tiny-test, the slice's ViT-B/32 head, a ragged batch, ViT-L/14
-HEAD_CASES = [(12, 16, 7), (256, 512, 10), (256, 512, 102), (13, 512, 102), (256, 768, 102)]
+# (B, E, C): tiny-test, the slice's ViT-B/32 head, a ragged batch, ViT-L/14;
+# row counts that no row tile (16, 32, 64, 128) divides; one class and the
+# largest class counts (C > 128 sweeps the classes through shared memory);
+# widths that are not a multiple of the kernel's E-chunk or of 16 bytes
+# (staged without cp.async); a pool that takes the 32-row tile
+HEAD_CASES = [
+    (12, 16, 7), (256, 512, 10), (256, 512, 102), (13, 512, 102), (256, 768, 102),
+    (129, 512, 10), (513, 512, 102), (64, 512, 1), (64, 512, 1024), (33, 16, 1024),
+    (40, 768, 2048), (129, 16, 130), (17, 20, 5), (9, 7, 3), (16384, 512, 102),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -197,6 +205,44 @@ def test_clip_head_kernel_matches_plain(case, dtype):
     assert out.shape == (B, C) and out.dtype == torch.float32
     torch.testing.assert_close(out, ref, rtol=HEAD_TOL, atol=HEAD_TOL)
     torch.testing.assert_close(out.sum(-1), torch.ones(B, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_clip_head_kernel_takes_unaligned_rows(dtype):
+    """Rows that start off a 16-byte boundary are staged without cp.async."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    img = torch.randn(70 * 512 + 1, generator=g, device="cuda").to(dtype)[1:].view(70, 512)
+    txt = torch.randn(10 * 512 + 1, generator=g, device="cuda").to(dtype)[1:].view(10, 512)
+    out = fused_probs(img, txt, 100.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fused_probs_reference(img, txt, 100.0), rtol=HEAD_TOL,
+                               atol=HEAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(640, 512, 10), (16384, 512, 102), (40, 512, 300)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_clip_head_kernel_is_deterministic(case, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    _require_card()
+    B, E, C = case
+    g = torch.Generator(device="cuda").manual_seed(6)
+    img = torch.randn(B, E, generator=g, device="cuda").to(dtype)
+    txt = torch.randn(C, E, generator=g, device="cuda").to(dtype)
+    first = fused_probs(img, txt, 100.0)
+    second = fused_probs(img, txt, 100.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def test_clip_head_raises_above_its_limits():
+    """K3 takes E <= 1024 and C <= 2048 (HEAD_CASES reach both); one more raises."""
+    _require_card()
+    with pytest.raises(ValueError, match="C=2049 exceeds the kernel's limit of 2048"):
+        fused_probs(torch.randn(4, 64, device="cuda"), torch.randn(2049, 64, device="cuda"), 1.0)
+    with pytest.raises(ValueError, match="E=1025 exceeds the kernel's limit of 1024"):
+        fused_probs(torch.randn(4, 1025, device="cuda"), torch.randn(3, 1025, device="cuda"), 1.0)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

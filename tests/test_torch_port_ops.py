@@ -96,21 +96,23 @@ def test_fused_attention_cpu_gradient_matches_autograd_of_plain(mask):
     assert fused_attention.launches == 0 and attention_bwd.launches == 0
 
 
-def test_clip_head_plain_matches_jax_kernel():
+# (dtype, B, E, C): tiny bf16 inputs; the ViT-B/32 width at Flowers102's 102
+# classes in fp32, the main path's type
+@pytest.mark.parametrize("dtype, B, E, C", [("bfloat16", 12, 24, 7), ("float32", 40, 512, 102)],
+                         ids=["bf16-12x24x7", "f32-40x512x102"])
+def test_clip_head_plain_matches_jax_kernel(dtype, B, E, C):
+    jdt, tdt, _ = _DTYPES[dtype]
     rng = np.random.default_rng(3)
-    B, E, C = 12, 24, 7
     img = rng.normal(0, 1, (B, E)).astype(np.float32)
     txt = rng.normal(0, 1, (C, E)).astype(np.float32)
     scale = float(np.exp(np.float32(np.log(1 / 0.07))))
     want = np.asarray(
         jax_fused_probs(
-            jnp.asarray(img).astype(jnp.bfloat16), jnp.asarray(txt).astype(jnp.bfloat16),
+            jnp.asarray(img).astype(jdt), jnp.asarray(txt).astype(jdt),
             scale, force_pallas=True, interpret=True,
         )
     )
-    got = fused_probs(
-        torch.from_numpy(img).bfloat16(), torch.from_numpy(txt).bfloat16(), scale
-    )
+    got = fused_probs(torch.from_numpy(img).to(tdt), torch.from_numpy(txt).to(tdt), scale)
     assert got.dtype == torch.float32 and got.shape == (B, C)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
