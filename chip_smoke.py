@@ -3,8 +3,8 @@
 NVIDIA GPU: builds the port's CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the main path's shapes, then drives the zero-shot /
 pseudolabel path end to end at ViT-B/32's full width (random weights from a
-seed) and the SSL CoOp prompt training (textual_prompt, textual_fpl), and
-checks what they write.
+seed), the SSL CoOp prompt training (textual_prompt, textual_fpl) and the
+UL and TRZSL visual prompt training (visual_fpl), and checks what they write.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -24,24 +24,28 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      calls it), and bound_share = bound_ms / ms; the FusedAttention
      gradient against autograd of the plain forward; a full-width ViT-B/32
      forward on the card against the same weights on the CPU; one CoOp
-     training step at ViT-B/32 width on the card against the same step on
-     the CPU
+     training step and one deep VPT training step at ViT-B/32 width on the
+     card against the same step on the CPU
   4. main path: main_clip.workflow on a synthetic 10-class MNIST-layout
      dataset (224x224 PNGs, 64 train + 64 test per class), BATCH_SIZE 256,
      in float32 and in bfloat16
   5. pseudolabels: FPL top-16 per class over the 640-image train pool
   6. serving: predict.main over the 640 test images, top 5
   7. training: main_ssl.workflow, MODEL=textual_prompt in float32 for 20
-     epochs and MODEL=textual_fpl in bfloat16 for the paper's 150 epochs,
-     BATCH_SIZE 16, on the same dataset
+     epochs and MODEL=textual_fpl in bfloat16 for the paper's 150 epochs;
+     then main_ul.workflow, MODEL=visual_fpl in bfloat16 for 150 epochs, and
+     main_trzsl.workflow, MODEL=visual_fpl in float32 for 20 epochs; the
+     bundled configs (BATCH_SIZE 16), on the same dataset
   8. breakdown: set-up, host decode and device encode of the bf16 pass,
-     each timed alone; one bf16 textual_fpl training step on the host clock
-     and under torch.profiler (device busy time, kernels by name)
-Phases 4-6 (the zero-shot path) and phase 7 (the training path) each run
-with every launch count set to 0 just before and read just after; a kernel
-the path runs must show a launch.  Then one JSON line listing each kernel
-with its launches (the sum over both paths, and by path), and last the
-device line {"ok": true, "device": {...}}.
+     each timed alone; one bf16 training step of textual_fpl (10 and 102
+     classes) and of visual_fpl on the host clock and under torch.profiler
+     (device busy time, kernels by name)
+Phases 4-6 (the zero-shot path), the SSL CoOp runs and the UL/TRZSL VPT
+runs of phase 7 (two training paths) each run with every launch count set
+to 0 just before and read just after; a kernel the path runs must show a
+launch.  Then one JSON line listing each kernel with its launches (the sum
+over the paths, and by path), and last the device line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -76,7 +80,7 @@ ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # the backward: tol + tol * |ref
 # the test file: its gradients exceed 1 on unit-scale inputs, where one bf16 step is larger)
 HEAD_TOL = 2e-5
 MODEL_TOL = 1e-3  # ViT-B/32 features, card vs CPU, fp32 through 12 layers
-STEP_PREFIX_TOL = 1e-4  # one CoOp step, card vs CPU: updated prefix (abs)
+STEP_PREFIX_TOL = 1e-4  # one CoOp or VPT step, card vs CPU: updated prompts (abs)
 STEP_LOSS_RTOL = 1e-5  # ... and the loss (relative)
 
 N_CLASSES, N_PER_CLASS, RES = 10, 64, 224
@@ -207,10 +211,13 @@ def phase_kernels(torch):
     attn_cases, head_cases = [], []
     # vision (ViT-B/32, the main path's batch), the text tower: C = 10 or
     # 102 classes at the truncated lengths 16 and 24 and the full 77, and
-    # Flowers102's (102, 48); ViT-L/14 vision without and with a VPT prefix
+    # Flowers102's (102, 48); ViT-B/32 vision with a 16-token VPT prefix (a
+    # training batch of 16, a validation batch of 256); ViT-L/14 vision
+    # without and with a VPT prefix
     shapes = [(256, 50, 768, 12, None)] + [
         (b, t, 512, 8, "causal") for b in (10, 102) for t in (16, 24, 77)
-    ] + [(102, 48, 512, 8, "causal"), (8, 257, 1024, 16, None), (8, 273, 1024, 16, None)]
+    ] + [(102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
+         (8, 257, 1024, 16, None), (8, 273, 1024, 16, None)]
     for dname, dt in dtypes.items():
         for B, T, W, H, mask in shapes:
             D = W // H
@@ -309,10 +316,11 @@ def phase_kernels_bwd(torch):
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
     # the CoOp text tower (C = 10 or 102 classes, truncated 24 or full 77;
-    # Flowers102's (102, 48)), the VPT vision tower (16 prompt tokens) and
-    # the plain ViT-B/32 one
+    # Flowers102's (102, 48)), the VPT vision tower (16 prompt tokens; the
+    # training batch of 16 and a batch of 256) and the plain ViT-B/32 one
     shapes = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
-        (102, 48, 512, 8, "causal"), (256, 66, 768, 12, None), (256, 50, 768, 12, None)
+        (102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
+        (256, 50, 768, 12, None),
     ]
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for B, T, W, H, mask in shapes:
@@ -370,58 +378,105 @@ def phase_kernels_bwd(torch):
     return cases
 
 
-def phase_one_step(torch):
-    """One CoOp step (textual_fpl weights, two loss groups) at ViT-B/32 width,
-    fp32: on the card through K1 + K2, on the CPU through the plain versions,
-    from the same weights, prefix and batch."""
+def step_runtimes(torch):
+    """ViT-B/32 fp32 runtimes on the CPU and on the card, with the same
+    (random, seeded) weights."""
+    from menghini_neurips23_tpu_torch.config import Config
+    from menghini_neurips23_tpu_torch.runtime import ClipRuntime
+
+    cfg = Config(VIS_ENCODER="ViT-B/32", COMPUTE_DTYPE="float32", BATCH_SIZE=16, OPTIM_SEED=1)
+    cpu_rt = ClipRuntime(cfg, device="cpu")
+    gpu_rt = ClipRuntime(cfg, device="cuda")
+    gpu_rt.model.load_state_dict(cpu_rt.model.state_dict())
+    return {"cpu": cpu_rt, "cuda": gpu_rt}
+
+
+def one_step_card_vs_cpu(torch, runtimes, what, cls, cfg, prompt, feats, ctx=None):
+    """One training step of strategy `cls` (two loss groups at textual_fpl's
+    balance, 128 pseudo / 16 labeled) from the same weights, prompt, class
+    context and batch: on the card through K1 + K2, on the CPU through the
+    plain versions.  `ctx` None takes the strategy's own class context."""
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
+
+    classes = [str(i) for i in range(N_CLASSES)]
+    l2i = {c: i for i, c in enumerate(classes)}
+    rng = np.random.default_rng(0)
+    labels = torch.from_numpy(rng.integers(0, N_CLASSES, 16).astype(np.int32))
+    group = torch.from_numpy((np.arange(16) % 2).astype(np.int32))
+    valid = torch.ones(16)
+    out = {}
+    for name, rt in runtimes.items():
+        strat = cls(cfg, l2i, classes, classes, classes, runtime=rt)
+        strat.load_parameters(prompt)
+        strat._w0, strat._w1 = 8.0, 1.0
+        dev = rt.device
+        c = strat._class_context(classes) if ctx is None else ctx.to(dev)
+        f0, b0 = fused_attention.launches, attention_bwd.launches
+        loss, correct = strat._apply_step(c, 0.1, feats.to(dev), labels.to(dev), group.to(dev),
+                                          valid.to(dev))
+        launches = (fused_attention.launches - f0, attention_bwd.launches - b0)
+        out[name] = (loss, correct, strat.epoch_parameters(), launches, tuple(c.shape))
+    (lc, cc, pc, nc, shape), (lg, cg, pg, ng, _) = out["cpu"], out["cuda"]
+    p_err = max(float(np.abs(g - c).max()) for g, c in zip(pg, pc))
+    moved = min(float(np.abs(c - p).max()) for c, p in zip(pc, prompt))
+    l_rel = abs(lg - lc) / abs(lc)
+    rec = {"class_context": list(shape), "batch": list(feats.shape),
+           "prompt": [list(p.shape) for p in prompt], "loss_cpu": lc, "loss_card": lg,
+           "loss_rel_err": l_rel, "correct": [cc, cg], "prompt_max_abs_err": p_err,
+           "prompt_moved_min": moved, "card_launches_k1_k2": list(ng),
+           "cpu_launches_k1_k2": list(nc)}
+    log(f"  one {what} step, ViT-B/32 fp32, card vs CPU: {json.dumps(rec)} "
+        f"(tol {STEP_PREFIX_TOL} abs prompt, {STEP_LOSS_RTOL} rel loss)")
+    if not (p_err <= STEP_PREFIX_TOL and l_rel <= STEP_LOSS_RTOL and cc == cg and moved > 0):
+        fail(f"one {what} step on the card disagrees with the CPU: {rec}")
+    if ng != (12, 12) or nc != (0, 0):
+        fail(f"one {what} step: K1/K2 launches card {ng}, CPU {nc}; expected 12/12 and 0/0")
+
+
+def phase_one_step(torch, runtimes):
+    """One CoOp step (textual_fpl) at ViT-B/32 width, fp32, card vs CPU: the
+    text tower over the 10 class prompts, a batch of 16 image features."""
     import numpy as np
 
     from menghini_neurips23_tpu_torch.config import Config
     from menghini_neurips23_tpu_torch.models.prompts import init_prefix
-    from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
-    from menghini_neurips23_tpu_torch.runtime import ClipRuntime
     from menghini_neurips23_tpu_torch.training import TextualStrategy
 
     cfg = Config(VIS_ENCODER="ViT-B/32", MODEL="textual_fpl", COMPUTE_DTYPE="float32",
                  BATCH_SIZE=16, OPTIM_SEED=1)
-    classes = [str(i) for i in range(N_CLASSES)]
-    l2i = {c: i for i, c in enumerate(classes)}
-    cpu_rt = ClipRuntime(cfg, device="cpu")
-    gpu_rt = ClipRuntime(cfg, device="cuda")
-    gpu_rt.model.load_state_dict(cpu_rt.model.state_dict())
     prefix = init_prefix(torch.Generator().manual_seed(7), 16, 512).numpy()
-    rng = np.random.default_rng(0)
-    feats = rng.normal(0, 1, (16, 512)).astype(np.float32)
+    feats = np.random.default_rng(1).normal(0, 1, (16, 512)).astype(np.float32)
     feats /= np.linalg.norm(feats, axis=1, keepdims=True)
-    labels = rng.integers(0, N_CLASSES, 16).astype(np.int32)
-    group = (np.arange(16) % 2).astype(np.int32)
-    valid = np.ones(16, np.float32)
-    out = {}
-    for name, rt in (("cpu", cpu_rt), ("cuda", gpu_rt)):
-        strat = TextualStrategy(cfg, l2i, classes, classes, classes, runtime=rt)
-        strat.load_parameters([prefix])
-        strat._w0, strat._w1 = 8.0, 1.0  # textual_fpl's balance, 128 pseudo / 16 labeled
-        dev = rt.device
-        ctx = torch.tensor(strat._train_text_class_ids(classes), dtype=torch.long, device=dev)
-        f0, b0 = fused_attention.launches, attention_bwd.launches
-        loss, correct = strat._apply_step(
-            ctx, 0.1, torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev),
-            torch.from_numpy(group).to(dev), torch.from_numpy(valid).to(dev))
-        launches = (fused_attention.launches - f0, attention_bwd.launches - b0)
-        out[name] = (loss, correct, strat.epoch_parameters()[0], launches, tuple(ctx.shape))
-    (lc, cc, pc, nc, shape), (lg, cg, pg, ng, _) = out["cpu"], out["cuda"]
-    p_err = float(np.abs(pg - pc).max())
-    moved = float(np.abs(pc - prefix).max())
-    l_rel = abs(lg - lc) / abs(lc)
-    rec = {"token_ids": list(shape), "loss_cpu": lc, "loss_card": lg, "loss_rel_err": l_rel,
-           "correct": [cc, cg], "prefix_max_abs_err": p_err, "prefix_moved": moved,
-           "card_launches_k1_k2": list(ng), "cpu_launches_k1_k2": list(nc)}
-    log(f"  one CoOp step, ViT-B/32 fp32, card vs CPU: {json.dumps(rec)} "
-        f"(tol {STEP_PREFIX_TOL} abs prefix, {STEP_LOSS_RTOL} rel loss)")
-    if not (p_err <= STEP_PREFIX_TOL and l_rel <= STEP_LOSS_RTOL and cc == cg and moved > 0):
-        fail(f"one CoOp step on the card disagrees with the CPU: {rec}")
-    if ng != (12, 12) or nc != (0, 0):
-        fail(f"one CoOp step: K1/K2 launches card {ng}, CPU {nc}; expected 12/12 and 0/0")
+    one_step_card_vs_cpu(torch, runtimes, "CoOp", TextualStrategy, cfg, [prefix],
+                         torch.from_numpy(feats))
+
+
+def phase_one_vpt_step(torch, runtimes):
+    """One deep VPT step (visual_fpl, VPT_DEEP on) at ViT-B/32 width, fp32,
+    card vs CPU: the vision tower over a batch of 16 token sequences with the
+    16-token prefix (T = 66) and the 11 layers' deep prompts, against 10
+    frozen text features."""
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.config import Config
+    from menghini_neurips23_tpu_torch.models import VIT_B32
+    from menghini_neurips23_tpu_torch.models.prompts import init_deep_prefix, init_prefix
+    from menghini_neurips23_tpu_torch.training import VisualStrategy
+
+    a = VIT_B32
+    cfg = Config(VIS_ENCODER="ViT-B/32", MODEL="visual_fpl", COMPUTE_DTYPE="float32",
+                 BATCH_SIZE=16, OPTIM_SEED=1, VPT_DEEP=True)
+    gen = torch.Generator().manual_seed(7)
+    prompt = [init_prefix(gen, 16, a.vision_width).numpy(),
+              init_deep_prefix(gen, a.vision_layers - 1, 16, a.vision_width).numpy()]
+    rng = np.random.default_rng(1)
+    tokens = rng.normal(0, 1, (16, 1 + a.num_patches, a.vision_width)).astype(np.float32)
+    text = rng.normal(0, 1, (N_CLASSES, a.embed_dim)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=1, keepdims=True)
+    one_step_card_vs_cpu(torch, runtimes, "deep VPT", VisualStrategy, cfg, prompt,
+                         torch.from_numpy(tokens), torch.from_numpy(text))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -594,23 +649,27 @@ def phase_serving(torch, data_dir: str, work: str):
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_train(torch, data_dir: str, work: str, model: str, dtype: str, epochs: int):
-    """main_ssl.workflow for one CoOp MODEL with the bundled config (N_LABEL 2,
-    PREFIX_SIZE 16, N_PSEUDOSHOTS 16, BATCH_SIZE 16, SGD lr 0.1 cosine),
-    `epochs` epochs, in `dtype`; checks the artifacts and the losses."""
+def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtype: str,
+                epochs: int):
+    """main_<paradigm>.workflow for one prompt MODEL (CoOp or VPT) with its
+    bundled config (N_LABEL 2, PREFIX_SIZE 16, N_PSEUDOSHOTS 16, BATCH_SIZE
+    16, SGD lr 0.1 cosine), `epochs` epochs, in `dtype`; checks the artifacts,
+    the training rows the paradigm makes and the losses."""
     import argparse
+    import importlib
     import logging
 
     import numpy as np
 
     from menghini_neurips23_tpu_torch.models.prompts import init_prefix
-    from menghini_neurips23_tpu_torch.runners import common, main_ssl
-    from menghini_neurips23_tpu_torch.training import TextualStrategy
+    from menghini_neurips23_tpu_torch.runners import common
+    from menghini_neurips23_tpu_torch.training import TrainingStrategy
 
-    artifacts = f"{work}/artifacts_{model}_{dtype}"
+    runner = importlib.import_module(f"{PKG}.runners.main_{paradigm}")
+    artifacts = f"{work}/artifacts_{paradigm}_{model}_{dtype}"
     env = dict(DATASET_NAME="MNIST", DATASET_DIR=data_dir, MODEL=model,
                VIS_ENCODER="ViT-B/32", OPTIM_SEED="1", SPLIT_SEED="500")
-    args = argparse.Namespace(model_config=f"{model}_config.yml", learning_paradigm="ssl")
+    args = argparse.Namespace(model_config=f"{model}_config.yml", learning_paradigm=paradigm)
     cfg = common.load_config(args, env=env)
     cfg.EPOCHS, cfg.COMPUTE_DTYPE, cfg.ARTIFACT_DIR = epochs, dtype, artifacts
 
@@ -628,7 +687,7 @@ def phase_train(torch, data_dir: str, work: str, model: str, dtype: str, epochs:
     strategy_log.addHandler(handler)
     strategy_log.setLevel(logging.INFO)
     strategy_log.propagate = False  # one summary line per run instead of one per epoch
-    step, run = TextualStrategy._apply_step, common.run_strategy
+    step, run = TrainingStrategy._apply_step, common.run_strategy
 
     def timed_step(self, *a, **k):
         ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -645,39 +704,42 @@ def phase_train(torch, data_dir: str, work: str, model: str, dtype: str, epochs:
         seen["train_s"] = time.perf_counter() - t0
         return seen["result"]
 
-    TextualStrategy._apply_step, common.run_strategy = timed_step, recorded_run
+    TrainingStrategy._apply_step, common.run_strategy = timed_step, recorded_run
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        resp = main_ssl.workflow(cfg.DATASET_DIR, cfg, device="cuda")
+        resp = runner.workflow(cfg.DATASET_DIR, cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        TextualStrategy._apply_step, common.run_strategy = step, run
+        TrainingStrategy._apply_step, common.run_strategy = step, run
         strategy_log.removeHandler(handler)
         strategy_log.propagate = True
 
+    what = f"train[{paradigm}, {model}]"
     enc = cfg.VIS_ENCODER.replace("/", "")
-    stem = f"MNIST_ssl_{model}_{enc}_opt_1_spl_500.pickle"
+    stem = f"MNIST_{paradigm}_{model}_{enc}_opt_1_spl_500.pickle"
     with open(f"{artifacts}/trained_prompts/{stem}", "rb") as f:
         saved = pickle.load(f)
     strategy = seen["strategy"]
-    width = strategy.runtime.arch.transformer_width  # 512 for ViT-B/32
+    # the prefix is the first draw of the prompt's generator: (16, 512) for
+    # CoOp, (16, 768) for VPT at ViT-B/32
+    final = strategy.epoch_parameters()
+    width = final[0].shape[1]
     start = init_prefix(torch.Generator().manual_seed(cfg.OPTIM_SEED * 1000), cfg.PREFIX_SIZE,
                         width, cfg.VIS_PREFIX_INIT, cfg.MEAN_INIT, cfg.VAR_INIT).numpy()
     p = np.asarray(saved[0])
     losses = [a[1] for a in epoch_logs]
     if len(losses) != epochs or not all(np.isfinite(losses)):
-        fail(f"train[{model}]: {len(losses)} epoch losses for {epochs} epochs, or not finite")
+        fail(f"{what}: {len(losses)} epoch losses for {epochs} epochs, or not finite")
     # the saved prompt is the best-validation epoch's; epoch 0 trains at lr 0
     # (the cosine warm-up), so a best epoch of 0 saves the initial prefix
     val_accs = [a[3] for a in epoch_logs]
     best_epoch = int(np.argmax(val_accs))
-    final = strategy.epoch_parameters()[0]
-    if not (len(saved) == 1 and p.shape == (16, width) and p.dtype == np.float32
+    if not (len(saved) == len(final) and p.shape == (16, width) and p.dtype == np.float32
             and np.isfinite(p).all() and np.array_equal(p, start) == (best_epoch == 0)
-            and not np.array_equal(final, start)):
-        fail(f"train[{model}]: saved prefix {p.shape} {p.dtype} (best epoch {best_epoch}) is not "
+            and not np.array_equal(final[0], start)):
+        fail(f"{what}: saved prefix {p.shape} {p.dtype} (best epoch {best_epoch}) is not "
              f"the trained (16, {width}) fp32 one, or the prefix never moved")
     with open(f"{artifacts}/results_model_{model}.json") as f:
         rec = json.loads(f.readline())
@@ -685,55 +747,64 @@ def phase_train(torch, data_dir: str, work: str, model: str, dtype: str, epochs:
         pred = pickle.load(f)
     n_test = N_CLASSES * N_PER_CLASS
     logits = np.asarray(pred["logits"])
-    if rec["model"] != model or not 0.0 <= rec["accuracy"] <= 1.0:
-        fail(f"train[{model}]: bad results line {rec}")
+    # TRZSL reports unseen and seen accuracy and their harmonic mean
+    keys = (("harmonic_mean", "seen_accuracy", "unseen_accuracy") if paradigm == "trzsl"
+            else ("accuracy",))
+    if rec["model"] != model or not all(k in rec and 0.0 <= rec[k] <= 1.0 for k in keys):
+        fail(f"{what}: bad results line {rec}")
     if logits.shape != (n_test, N_CLASSES) or not np.isfinite(logits).all():
-        fail(f"train[{model}]: evaluation logits {logits.shape}")
-    rows = len(strategy._train_groups)
+        fail(f"{what}: evaluation logits {logits.shape}")
+    rows, n_group1 = len(strategy._train_groups), sum(strategy._train_groups)
     extra = {}
-    if model == "textual_fpl":
-        cache = (f"{artifacts}/pseudolabels/MNIST_{enc}_ssl_textual_fpl_16"
+    if model.endswith("_fpl"):
+        cache = (f"{artifacts}/pseudolabels/MNIST_{enc}_{paradigm}_{model}_16"
                  "_pseudolabels_split_500.pickle")
         with open(cache, "rb") as f:
             n_pseudo = len(pickle.load(f)["filepaths"])
-        # pseudo rows: the 80% carve of the selection; labeled rows: the
-        # train share of 2 shots per class
+        # pseudo rows: the 80% carve of the selection.  SSL adds the train
+        # share of 2 shots per class, TRZSL the seen classes' labeled train
+        # split; UL trains on the pseudolabels alone, in the labeled group 0
         n_train_pseudo = int(n_pseudo * cfg.ratio_train_val)
         n_shots = int(cfg.N_LABEL * N_CLASSES * cfg.ratio_train_val)
-        if (sum(strategy._train_groups), rows) != (n_train_pseudo, n_train_pseudo + n_shots):
-            fail(f"train[{model}]: {rows} training rows ({sum(strategy._train_groups)} pseudo), "
-                 f"expected {n_train_pseudo} + {n_shots}")
+        ok = {"ssl": (n_group1, rows) == (n_train_pseudo, n_train_pseudo + n_shots),
+              "ul": (n_group1, rows) == (0, n_train_pseudo),
+              "trzsl": n_group1 == n_train_pseudo and rows > n_train_pseudo}[paradigm]
+        if not ok:
+            fail(f"{what}: {rows} training rows ({n_group1} in the pseudolabel group) for "
+                 f"{n_pseudo} pseudolabels")
         extra = {"pseudolabels": n_pseudo, "pseudo_val": len(strategy.val_unseen_files)}
     steps = len(events)
     torch.cuda.synchronize()
     ev_ms = sorted(a.elapsed_time(b) for a, b in events)
     out = {
-        "model": model, "dtype": dtype, "epochs": epochs, "training_rows": rows,
+        "paradigm": paradigm, "model": model, "dtype": dtype, "epochs": epochs,
+        "prompt": [list(x.shape) for x in final], "training_rows": rows,
+        "pseudolabel_group_rows": n_group1,
         "steps": steps, "steps_per_epoch": steps / epochs, "wall_s": wall,
         "train_s": seen["train_s"], "wall_ms_per_step": 1e3 * seen["train_s"] / steps,
         "event_ms_per_step_median": ev_ms[len(ev_ms) // 2], "event_ms_per_step_min": ev_ms[0],
-        "best_val_acc": seen["result"][0], "best_epoch": best_epoch,
-        "saved_prefix_moved": float(np.abs(p - start).max()), "test_acc": resp[0],
+        "best_val_metric": seen["result"][0], "best_epoch": best_epoch,
+        "saved_prefix_moved": float(np.abs(p - start).max()), "test_result": list(resp),
         "first_loss": losses[0], "last_loss": losses[-1], **extra,
     }
-    log(f"  train[{model}, {dtype}]: " + json.dumps(out))
+    log(f"  {what}, {dtype}: " + json.dumps(out, default=float))
     return wall, strategy
 
 
-def phase_step_profile(torch, strategy, n: int = 20):
+def phase_step_profile(torch, strategy, files, n: int = 20):
     """Where one training step's time goes: `n` steps of the trained strategy
-    (lr 0, a fixed batch of 16) timed on the host clock alone, then again
-    under torch.profiler for the device's busy time and the kernels by name."""
-    import torch.nn.functional as F
+    (lr 0, a fixed batch of the first 16 of `files`) timed on the host clock
+    alone, then again under torch.profiler for the device's busy time and the
+    kernels by name."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = strategy.device
     n_cls = len(strategy.classes)
-    ctx = torch.tensor(strategy._train_text_class_ids(strategy.classes), dtype=torch.long,
-                       device=dev)
+    ctx = strategy._class_context(strategy.classes)
+    # the frozen representation of 16 images: image features for CoOp, the
+    # pos-embedded patch tokens for VPT
+    feats = torch.tensor(strategy._features_for_paths(files[:16]), device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    feats = F.normalize(torch.randn(16, strategy.runtime.arch.embed_dim, generator=g,
-                                    device=dev), dim=1)
     labels = torch.randint(0, n_cls, (16,), generator=g, device=dev).int()
     group = (torch.arange(16, device=dev) % 2).int()
     valid = torch.ones(16, device=dev)
@@ -767,7 +838,8 @@ def phase_step_profile(torch, strategy, n: int = 20):
     busy = sum(kernels.values())
     out = {
         "model": strategy.config.MODEL, "dtype": strategy.config.COMPUTE_DTYPE,
-        "token_ids": list(ctx.shape), "steps": n, "wall_ms_per_step": wall_ms,
+        "class_context": list(ctx.shape), "batch": list(feats.shape), "steps": n,
+        "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": prof_wall_ms,
         "device_ops_per_step": launched / n if kernels else None,
         "device_busy_ms_per_step": busy if kernels else None,
@@ -832,7 +904,10 @@ def main() -> int:
     attn_cases, head_cases = phase_kernels(torch)
     bwd_cases = phase_kernels_bwd(torch)
     phase_model_reference(torch)
-    phase_one_step(torch)
+    runtimes = step_runtimes(torch)
+    phase_one_step(torch, runtimes)
+    phase_one_vpt_step(torch, runtimes)
+    del runtimes
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -868,21 +943,28 @@ def main() -> int:
         log("[6] serving")
         walls["serving"] = phase_serving(torch, data_dir, work)
 
-    def training_path():
-        for model, dtype, epochs in (("textual_prompt", "float32", 20),
-                                     ("textual_fpl", "bfloat16", 150)):
-            walls[f"{model}_{dtype}"], trained[model] = phase_train(
-                torch, data_dir, work, model, dtype, epochs)
+    def training_runs(runs):
+        def run():
+            for paradigm, model, dtype, epochs in runs:
+                walls[f"{paradigm}_{model}_{dtype}"], trained[f"{paradigm}_{model}"] = phase_train(
+                    torch, data_dir, work, paradigm, model, dtype, epochs)
+        return run
 
     counted("zero-shot", ("attention_fwd", "clip_head"), zero_shot_path)
     log("[7] training (SSL CoOp)")
-    counted("training", tuple(wrappers), training_path)
+    counted("training (SSL CoOp)", tuple(wrappers), training_runs(
+        [("ssl", "textual_prompt", "float32", 20), ("ssl", "textual_fpl", "bfloat16", 150)]))
+    log("[7] training (UL/TRZSL, VPT)")
+    counted("training (UL/TRZSL, VPT)", tuple(wrappers), training_runs(
+        [("ul", "visual_fpl", "bfloat16", 150), ("trzsl", "visual_fpl", "float32", 20)]))
     launches = {name: sum(c[name] for c in by_path.values()) for name in wrappers}
     log("phase wall seconds: " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
     log("[8] breakdown")
     phase_breakdown(torch, data_dir, work)
-    fpl = trained["textual_fpl"]
-    phase_step_profile(torch, fpl)
+    with open(f"{data_dir}/MNIST/train.txt") as f:
+        train_files = [f"{data_dir}/MNIST/train/{l.split()[0]}" for l in f if l.strip()]
+    fpl = trained["ssl_textual_fpl"]
+    phase_step_profile(torch, fpl, train_files)
     # the same step over Flowers102's 102 class prompts (the paper's widest
     # class list), on the same runtime
     from menghini_neurips23_tpu_torch.data import get_class_names
@@ -891,7 +973,10 @@ def main() -> int:
     flowers = get_class_names("Flowers102", data_dir, 500)[0]
     phase_step_profile(torch, TextualStrategy(
         fpl.config, {c: i for i, c in enumerate(flowers)}, flowers, flowers, flowers,
-        runtime=fpl.runtime))
+        runtime=fpl.runtime), train_files)
+    # one bf16 VPT step: the vision tower over 16 x 66 tokens, forward and
+    # backward to the prefix
+    phase_step_profile(torch, trained["ul_visual_fpl"], train_files)
 
     def entry(name, source, replaces, cases, headline):
         h = next(c for c in cases if headline(c))

@@ -1,6 +1,7 @@
-"""Prompt artifacts in the reference's torch format (textual prompts).
+"""Prompt artifacts in the reference's torch format (textual and visual
+prompts).
 
-The reference persists a trained textual prompt as a pickled list of torch
+The reference persists a trained prompt as a pickled list of torch
 tensors (reference utils/compute_metrics.py:105-147).  These helpers convert
 between that list and the numpy list the strategies produce, in both
 directions.  The multimodal state_dict layouts arrive with the UPT slice.

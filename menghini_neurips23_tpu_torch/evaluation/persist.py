@@ -2,8 +2,9 @@
 (reference utils/compute_metrics.py:58-171).
 
 Artifacts: the results JSON line, the predictions pickle, and the trained
-textual prompt under trained_prompts/ - a pickled list of numpy arrays, or
-with ARTIFACT_FORMAT="torch" the reference's list of torch tensors.  The
+prompt under trained_prompts/ ([prefix] for CoOp, [prefix] or [prefix,
+deep] for VPT) - a pickled list of numpy arrays, or with
+ARTIFACT_FORMAT="torch" the reference's list of torch tensors.  The
 multimodal 8-part layout arrives with the UPT slice.  One process runs on
 one device, so it is the main process and writes every artifact.
 """
@@ -83,7 +84,8 @@ def save_parameters(obj: List[np.ndarray], config, iteration=None):
 
     ARTIFACT_FORMAT="torch" writes the reference's layout instead: a pickled
     list of torch tensors, the textual prefix batched to (1, L, W) as the
-    reference's TextPrefixModel holds it (clip_encoders.py:55-67)."""
+    reference's TextPrefixModel holds it (clip_encoders.py:55-67); a visual
+    prefix stays (L, W), as the JAX package writes it."""
     _refuse_multi(config)
     file_name = _prompt_file_name(config, iteration)
     _ensure_dir(file_name)

@@ -4,7 +4,8 @@ The towers expose the same staged methods as the JAX package's model, so that
 soft prompts can later be spliced between embedding and transformer:
 
     vision_embed(images)             -> (B, 1+N, W) CLS+patch tokens, pos-embedded
-    vision_encode_tokens(tokens)     -> (B, E)      ln_pre -> transformer -> ln_post -> proj
+    vision_encode_tokens(tokens[, deep_prompts])
+                                     -> (B, E)      ln_pre -> transformer -> ln_post -> proj
     text_embed_ids(ids)              -> (B, T, W)   raw token embeddings (no pos emb)
     text_encode_embeddings(x, eot)   -> (B, E)      +pos -> causal transformer -> ln_final -> EOT @ proj
 
@@ -101,8 +102,23 @@ class Transformer(nn.Module):
             [ResidualAttentionBlock(width, heads, dtype) for _ in range(layers)]
         )
 
-    def forward(self, x: torch.Tensor, mask: Optional[str] = None) -> torch.Tensor:
-        for block in self.resblocks:
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[str] = None,
+        deep_prompts: Optional[torch.Tensor] = None,
+        deep_start: int = 1,
+    ) -> torch.Tensor:
+        """deep_prompts: optional (D, L, width) per-layer prompts.  Before
+        layer i (1 <= i <= D) the sequence positions [deep_start,
+        deep_start+L) are REPLACED by deep_prompts[i-1], cast to the
+        activation dtype - the JAX package's working deep-VPT form.  Built out
+        of place, so the gradient reaches the deep prompts."""
+        for i, block in enumerate(self.resblocks):
+            if deep_prompts is not None and 1 <= i <= deep_prompts.shape[0]:
+                L = deep_prompts.shape[1]
+                dp = deep_prompts[i - 1].to(x.dtype).unsqueeze(0).expand(x.shape[0], -1, -1)
+                x = torch.cat([x[:, :deep_start], dp, x[:, deep_start + L :]], dim=1)
             x = block(x, mask)
         return x
 
@@ -137,11 +153,14 @@ class VisionTower(nn.Module):
         x = patch_tokens(images, self.conv1_kernel, self.arch.vision_patch_size, self.dtype)
         return self.tokens_from_patches(x)
 
-    def encode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S, width) -> (B, embed_dim)."""
+    def encode_tokens(
+        self, tokens: torch.Tensor, deep_prompts: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """tokens: (B, S, width) -> (B, embed_dim).  S may exceed 1+N (visual
+        prompts); deep_prompts enables per-layer prompt replacement."""
         dt = self.dtype
         x = self.ln_pre(tokens).to(dt)
-        x = self.transformer(x)
+        x = self.transformer(x, deep_prompts=deep_prompts)
         x = self.ln_post(x[:, 0, :]).to(dt)
         return x @ self.proj.to(dt)
 
@@ -206,8 +225,10 @@ class CLIP(nn.Module):
     def vision_embed(self, images: torch.Tensor) -> torch.Tensor:
         return self.visual.embed(images)
 
-    def vision_encode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.visual.encode_tokens(tokens)
+    def vision_encode_tokens(
+        self, tokens: torch.Tensor, deep_prompts: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        return self.visual.encode_tokens(tokens, deep_prompts)
 
     def text_embed_ids(self, ids: torch.Tensor) -> torch.Tensor:
         return self.text.embed_ids(ids)

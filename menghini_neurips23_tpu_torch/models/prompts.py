@@ -1,16 +1,35 @@
-"""CoOp prompt helpers: the prefix init, the 'X X .. X <class>' token frame,
-the prompted text forward, and context truncation.
+"""Prompt helpers: the prefix inits, the CoOp 'X X .. X <class>' token frame,
+the prompted text and vision forwards, and context truncation.
 
-Prompt semantics match the reference (models/clip_encoders.py:54-67): class
-prompts are tokenized as "X X ... X <class>" and the learnable prefix
-overwrites token-embedding positions 1..L.  The VPT and UPT
-parameterizations arrive with their slices.
+Prompt semantics match the reference:
+- textual (CoOp): class prompts are tokenized as "X X ... X <class>" and the
+  learnable prefix overwrites token-embedding positions 1..L
+  (reference models/clip_encoders.py:54-67);
+- visual (VPT): the learnable prefix is concatenated between the CLS token
+  and the patch tokens *after* positional embedding, so prompt tokens carry
+  no position embedding (reference models/clip_encoders.py:146-155); deep
+  VPT replaces the prompt slots before each later layer (models/clip.py
+  Transformer).
+The UPT parameterization arrives with its slice.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import numpy as np
 import torch
+
+
+def _draw(generator: torch.Generator, shape: Sequence[int], init: str, mean: float,
+          std: float) -> torch.Tensor:
+    dev = generator.device
+    if init == "normal":
+        return mean + std * torch.randn(*shape, generator=generator, device=dev)
+    if init == "uniform":
+        u = torch.rand(*shape, generator=generator, device=dev)
+        return -std + 2 * std * u
+    raise ValueError(f"Unknown prefix init {init!r}")
 
 
 def init_prefix(
@@ -24,13 +43,21 @@ def init_prefix(
     """(length, dim) fp32 prefix drawn from `generator`, on its device
     (reference: normal(MEAN_INIT, VAR_INIT), config VIS_PREFIX_INIT).  A
     torch.Generator does not reproduce the JAX package's jax.random draw."""
-    dev = generator.device
-    if init == "normal":
-        return mean + std * torch.randn(length, dim, generator=generator, device=dev)
-    if init == "uniform":
-        u = torch.rand(length, dim, generator=generator, device=dev)
-        return -std + 2 * std * u
-    raise ValueError(f"Unknown prefix init {init!r}")
+    return _draw(generator, (length, dim), init, mean, std)
+
+
+def init_deep_prefix(
+    generator: torch.Generator,
+    depth: int,
+    length: int,
+    dim: int,
+    init: str = "normal",
+    mean: float = 0.0,
+    std: float = 0.02,
+) -> torch.Tensor:
+    """Per-layer deep-VPT prompts (depth, length, dim), fp32, drawn from
+    `generator` as `init_prefix` draws."""
+    return _draw(generator, (depth, length, dim), init, mean, std)
 
 
 def build_prompt_token_ids(tokenizer, classes, prefix_len: int) -> np.ndarray:
@@ -80,3 +107,36 @@ def coop_text_features(model, prefix: torch.Tensor, token_ids: torch.Tensor) -> 
     emb = torch.cat([emb[:, :1], pfx, emb[:, 1 + L :]], dim=1)
     eot = token_ids.argmax(dim=-1)
     return model.text_encode_embeddings(emb, eot)
+
+
+def vision_tokens_with_prefix(tokens: torch.Tensor, prefix: torch.Tensor) -> torch.Tensor:
+    """Insert the visual prefix between CLS and patch tokens, out of place.
+
+    :param tokens: (B, 1+N, width) pos-embedded CLS+patch tokens
+    :param prefix: (L, width), cast to the tokens' dtype
+    :returns: (B, 1+L+N, width)
+    """
+    pfx = prefix.to(tokens.dtype).unsqueeze(0).expand(tokens.shape[0], -1, -1)
+    return torch.cat([tokens[:, :1], pfx, tokens[:, 1:]], dim=1)
+
+
+def vpt_image_features(
+    model,
+    prefix: torch.Tensor,
+    images: Optional[torch.Tensor] = None,
+    tokens: Optional[torch.Tensor] = None,
+    deep_prompts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Visual-prompt image features, differentiable in the prompts.
+
+    Takes raw images or the precomputed pos-embedded CLS+patch tokens (the
+    patchify + position stage is prompt-independent, so callers cache it per
+    image).  deep_prompts (D, L, width) enables deep VPT.
+
+    :param model: a models.clip.CLIP
+    :returns: (B, embed_dim) *unnormalized* image features
+    """
+    if tokens is None:
+        tokens = model.vision_embed(images)
+    x = vision_tokens_with_prefix(tokens, prefix)
+    return model.vision_encode_tokens(x, deep_prompts)

@@ -42,6 +42,10 @@ from menghini_neurips23_tpu_torch.ops import _cuda
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 _MAX_SMEM_BYTES = 227 * 1024  # per-block shared memory on an H100
+# the backward kernel's longest sequence (kMaxSeq in csrc/attention_bwd.cu,
+# which the wrapper reads from the library); callers that know their T before
+# the first launch refuse early against it
+BWD_MAX_SEQ = 128
 
 _FWD_SIGNATURES = {
     "mnt_attention_fwd": (

@@ -3,8 +3,9 @@
 Mirrors the reference entry points' arg/env handling (reference
 main_SSL.py:430-505) and the MODEL-name dispatch tables (main_SSL.py:203-396,
 main_UL.py:168-310, main_TRZSL.py:170-355).  This package runs
-MODEL=clip_baseline and the CoOp models textual_prompt and textual_fpl; the
-other training MODELs are known names that raise naming their slice.
+MODEL=clip_baseline, the CoOp models textual_prompt and textual_fpl and the
+VPT models visual_prompt and visual_fpl; the other training MODELs are known
+names that raise naming their slice.
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ MODEL_DISPATCH = {
 }
 
 # what this package runs; every other MODEL_DISPATCH entry names its slice
-RUNNABLE_MODELS = ("clip_baseline", "textual_prompt", "textual_fpl")
+RUNNABLE_MODELS = (
+    "clip_baseline", "textual_prompt", "textual_fpl", "visual_prompt", "visual_fpl",
+)
 _PENDING_SLICE = {
     **PENDING_MODALITIES,
     "fixed_iterative_train": "IFPL/GRIP slice (ROADMAP M9)",

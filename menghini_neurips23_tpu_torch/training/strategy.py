@@ -7,7 +7,8 @@ sites, and this module follows that reconstruction:
 - frozen-tower work is hoisted out of the epoch loop: CoOp computes the image
   features ONCE per training-set composition (the reference re-runs the
   frozen image tower every batch, textual_prompt.py:100) and keeps them as one
-  device tensor; each step gathers its batch there;
+  device tensor, VPT likewise the pos-embedded patch tokens; each step
+  gathers its batch there;
 - one step = forward logits, the two-group loss / ACCUMULATION_ITER,
   `.backward()` into the prompt's `.grad` (which sums across accumulation
   steps), then, when the step applies, `torch.optim.SGD` (weight decay, then
@@ -134,7 +135,7 @@ class TrainingStrategy:
 
     def _encode_paths(self, paths: Sequence[str]) -> np.ndarray:
         """Modality hook: frozen per-image representation for a file list
-        (image features for CoOp)."""
+        (image features for CoOp, pos-embedded patch tokens for VPT)."""
         raise NotImplementedError
 
     def _feature_item_nbytes(self) -> int:
@@ -142,8 +143,19 @@ class TrainingStrategy:
         raise NotImplementedError
 
     def _train_text_class_ids(self, class_list: Sequence[str]) -> np.ndarray:
-        """Token ids needed by the step for `class_list` (modality hook)."""
+        """What the step needs for `class_list`, on the host (modality hook):
+        token ids for CoOp, frozen text features for VPT."""
         raise NotImplementedError
+
+    def _class_context(self, class_list: Sequence[str]) -> torch.Tensor:
+        """The step's class context for `class_list` as a device tensor
+        (modality hook)."""
+        raise NotImplementedError
+
+    def _bump_prompt_version(self):
+        """Invalidate prompted-feature memos: called on every prompt change,
+        the optimizer's in-place updates included."""
+        self._prompt_version = getattr(self, "_prompt_version", 0) + 1
 
     def _logits(self, class_ctx: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
         """(B, C) fp32 logits under the current prompt, differentiable in it
@@ -173,6 +185,9 @@ class TrainingStrategy:
         if self._active_transform is None:
             self._active_transform = tr
             self._feat_cache.clear()
+            # the prompted-feature memo (VPT) was keyed before the transform
+            # became active: the same staleness as the feature cache
+            self._img_feats_memo = None
         elif self._active_transform is not tr:
             raise ValueError(
                 "datasets carry different custom transforms; set the same "
@@ -253,7 +268,10 @@ class TrainingStrategy:
         """One step on device tensors: loss / ACCUMULATION_ITER backward into
         the prompt's grad; with `apply`, one SGD update at `lr` and zeroed
         grads (the reference's manual accumulation,
-        textual_prompt.py:130-135).  Returns (loss, correct count)."""
+        textual_prompt.py:130-135).  Returns (loss, correct count).
+
+        The update is in place, so it bumps the prompt version that keys the
+        prompted-feature memo."""
         accum = self.config.ACCUMULATION_ITER
         logits = self._logits(class_ctx, feats)
         loss = two_group_loss(logits, labels, group, valid, self._w0, self._w1)
@@ -263,6 +281,7 @@ class TrainingStrategy:
                 pg["lr"] = lr
             self._opt.step()
             self._opt.zero_grad(set_to_none=True)
+            self._bump_prompt_version()
         with torch.no_grad():
             correct = ((logits.argmax(1) == labels) * valid).sum()
         return loss.item(), correct.item()
@@ -419,9 +438,7 @@ class TrainingStrategy:
 
         best_acc = -1.0
         best_params = self.epoch_parameters()
-        class_ctx = torch.tensor(
-            self._train_text_class_ids(train_classes), dtype=torch.long, device=self.device
-        )
+        class_ctx = self._class_context(train_classes)
         self._init_opt_state()
         bs = self._batch_size()
 

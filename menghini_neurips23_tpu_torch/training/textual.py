@@ -48,6 +48,7 @@ class TextualStrategy(TrainingStrategy):
             np.asarray(prefix, np.float32), device=self.device
         ).requires_grad_(True)
         self._init_opt_state()
+        self._bump_prompt_version()
 
     def _prompt_params(self):
         return [self.prefix]
@@ -77,12 +78,15 @@ class TextualStrategy(TrainingStrategy):
 
         return self._memoized_token_ids(class_list, build)
 
+    def _class_context(self, class_list: Sequence[str]) -> torch.Tensor:
+        return torch.tensor(
+            self._train_text_class_ids(class_list), dtype=torch.long, device=self.device
+        )
+
     # ----------------------------------------------------------- inference
     def text_features(self, class_list: Sequence[str]) -> np.ndarray:
         """Normalized prompted text features (the reference's self.model(classes))."""
-        ids = torch.tensor(
-            self._train_text_class_ids(class_list), dtype=torch.long, device=self.device
-        )
+        ids = self._class_context(class_list)
         with torch.no_grad():
             tf = coop_text_features(self.runtime.model, self.prefix, ids).float()
             tf = tf / tf.norm(dim=-1, keepdim=True)

@@ -61,8 +61,10 @@ EDGE_CASES = [
 
 # (B, T, W, heads, mask): tiny-test widths (D=16), D=32, then the main path's
 # shapes - ViT-B/32 vision, the text tower truncated, at Flowers102's 48 and
-# at full context - ViT-L/14 vision with and without a VPT prefix, and the
-# edge lengths (K1 also past 128 keys, where it takes two sweeps)
+# at full context, ViT-B/32 vision with a 16-token VPT prefix (a training
+# batch of 16, a validation batch of 256) - ViT-L/14 vision with and without
+# a VPT prefix, and the edge lengths (K1 also past 128 keys, where it takes
+# two sweeps)
 ATTN_CASES = [
     (4, 17, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -72,6 +74,8 @@ ATTN_CASES = [
     (102, 24, 512, 8, "causal"),
     (102, 48, 512, 8, "causal"),
     (102, 77, 512, 8, "causal"),
+    (16, 66, 768, 12, None),
+    (256, 66, 768, 12, None),
     (8, 257, 1024, 16, None),
     (8, 273, 1024, 16, None),
     (2, 129, 64, 2, "causal"),
@@ -98,7 +102,8 @@ def test_attention_kernel_matches_plain(case, dtype):
 
 # (B, T, W, heads, mask): tiny-test widths, then the CoOp text tower (C = 10
 # or 102 classes, truncated to 24 or at the full 77) and the ViT-B/32 vision
-# tower with and without a 16-token VPT prefix
+# tower with and without a 16-token VPT prefix (the VPT training batch of 16
+# last)
 BWD_CASES = [
     (4, 12, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -110,6 +115,7 @@ BWD_CASES = [
     (102, 77, 512, 8, "causal"),
     (256, 50, 768, 12, None),
     (256, 66, 768, 12, None),
+    (16, 66, 768, 12, None),
 ] + EDGE_CASES
 
 
@@ -131,7 +137,8 @@ def test_attention_bwd_kernel_matches_plain(case, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[3], BWD_CASES[7], BWD_CASES[9]],
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[3], BWD_CASES[7], BWD_CASES[9],
+                                  BWD_CASES[10]],
                          ids=lambda c: "x".join(map(str, c)))
 def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
     """fp32: K1 forward + K2 backward through `FusedAttention` against
@@ -268,3 +275,75 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
         fused_probs(img, torch.randn(3, 16, device="cuda").bfloat16(), 1.0)
     with pytest.raises(ValueError, match="exceeds"):
         fused_probs(torch.randn(4, 2048, device="cuda"), torch.randn(3, 2048, device="cuda"), 1.0)
+
+
+def test_deep_vpt_step_on_card_matches_cpu():
+    """One visual_fpl step with deep prompts at ViT-B/32 width, fp32: the
+    card (K1 + K2 in each of the 12 vision layers) against the CPU (their
+    plain versions) from the same weights, prompts, text features and token
+    batch.  Updated prompts within 1e-4, the loss within 1e-5 relative."""
+    _require_card()
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.config import Config
+    from menghini_neurips23_tpu_torch.models import VIT_B32
+    from menghini_neurips23_tpu_torch.runtime import ClipRuntime
+    from menghini_neurips23_tpu_torch.training import VisualStrategy
+
+    a = VIT_B32
+    cfg = Config(VIS_ENCODER="ViT-B/32", MODEL="visual_fpl", COMPUTE_DTYPE="float32",
+                 BATCH_SIZE=16, OPTIM_SEED=1, VPT_DEEP=True)
+    cpu_rt = ClipRuntime(cfg, device="cpu")
+    gpu_rt = ClipRuntime(cfg, device="cuda")
+    gpu_rt.model.load_state_dict(cpu_rt.model.state_dict())
+    rng = np.random.default_rng(0)
+    prompt = [rng.normal(0, 0.02, (16, a.vision_width)).astype(np.float32),
+              rng.normal(0, 0.02, (a.vision_layers - 1, 16, a.vision_width)).astype(np.float32)]
+    tokens = torch.from_numpy(
+        rng.normal(0, 1, (16, 1 + a.num_patches, a.vision_width)).astype(np.float32))
+    text = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(0, 1, (10, a.embed_dim)).astype(np.float32)), dim=1)
+    labels = torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32))
+    group = torch.arange(16, dtype=torch.int32) % 2
+    classes = [str(i) for i in range(10)]
+    out = {}
+    for rt in (cpu_rt, gpu_rt):
+        strat = VisualStrategy(cfg, {c: i for i, c in enumerate(classes)}, classes, classes,
+                               classes, runtime=rt)
+        strat.load_parameters(prompt)
+        strat._w0, strat._w1 = 8.0, 1.0
+        dev = rt.device
+        f0, b0 = fused_attention.launches, attention_bwd.launches
+        loss, correct = strat._apply_step(text.to(dev), 0.1, tokens.to(dev), labels.to(dev),
+                                          group.to(dev), torch.ones(16, device=dev))
+        launches = (fused_attention.launches - f0, attention_bwd.launches - b0)
+        out[dev.type] = (loss, correct, strat.epoch_parameters(), launches)
+    (lc, cc, pc, nc), (lg, cg, pg, ng) = out["cpu"], out["cuda"]
+    assert nc == (0, 0) and ng == (12, 12)
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and cg == cc
+    for g, c, p in zip(pg, pc, prompt):
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-4)
+        assert not np.array_equal(c, p)
+
+
+def test_visual_strategy_refuses_vit_l14_on_the_card_at_construction():
+    """ViT-L/14 VPT (T = 1 + 256 + 16 = 273) is above the backward kernel's
+    128: the strategy raises when it is built on the card, before any launch,
+    against the same limit the kernel library reports."""
+    _require_card()
+    from types import SimpleNamespace
+
+    from menghini_neurips23_tpu_torch.config import Config
+    from menghini_neurips23_tpu_torch.models import VIT_L14
+    from menghini_neurips23_tpu_torch.ops import _cuda
+    from menghini_neurips23_tpu_torch.ops.attention import _BWD_SIGNATURES, BWD_MAX_SEQ
+    from menghini_neurips23_tpu_torch.training import VisualStrategy
+
+    lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
+    assert lib.mnt_attention_bwd_max_seq() == BWD_MAX_SEQ
+    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", PREFIX_SIZE=16)
+    rt = SimpleNamespace(arch=VIT_L14, device=torch.device("cuda"))
+    launches = (fused_attention.launches, attention_bwd.launches)
+    with pytest.raises(NotImplementedError, match="= 273 tokens.*ViT-L/14 slice"):
+        VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
+    assert (fused_attention.launches, attention_bwd.launches) == launches

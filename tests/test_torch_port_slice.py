@@ -242,7 +242,7 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, mnist_fixture, t
 @pytest.mark.parametrize(
     "env_extra, exc, match",
     [
-        ({"MODEL": "visual_prompt"}, NotImplementedError, "VPT slice"),
+        ({"MODEL": "multimodal_fpl"}, NotImplementedError, "UPT slice"),
         ({"MODEL": "no_such_model"}, ValueError, "Unknown MODEL"),
         ({"PROFILE_DIR": "prof"}, NotImplementedError, "PROFILE_DIR"),
         ({"COMPILE_CACHE_DIR": "cache"}, NotImplementedError, "COMPILE_CACHE_DIR"),

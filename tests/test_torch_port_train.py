@@ -432,7 +432,7 @@ def test_main_ssl_cli_runs_on_the_cpu_when_asked(tmp_path, mnist_fixture, ckpt, 
 
 @pytest.mark.parametrize(
     "model, match",
-    [("visual_fpl", "VPT slice"), ("multimodal_prompt", "UPT slice"),
+    [("iterative_visual_fpl", "IFPL/GRIP slice"), ("multimodal_prompt", "UPT slice"),
      ("grip_textual", "IFPL/GRIP slice"), ("iterative_textual_fpl", "IFPL/GRIP slice")],
 )
 def test_training_models_of_later_slices_raise_naming_them(model, match):
