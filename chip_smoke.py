@@ -3,8 +3,10 @@
 NVIDIA GPU: builds the port's CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the main path's shapes, then drives the zero-shot /
 pseudolabel path end to end at ViT-B/32's full width (random weights from a
-seed), the SSL CoOp prompt training (textual_prompt, textual_fpl) and the
-UL and TRZSL visual prompt training (visual_fpl), and checks what they write.
+seed), the SSL CoOp prompt training (textual_prompt, textual_fpl), the UL
+and TRZSL visual prompt training (visual_fpl), and the IFPL/GRIP iterations
+with their resume and the UPT prompts (grip_visual, grip_multimodal,
+iterative_textual_fpl, multimodal_fpl), and checks what they write.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -23,29 +25,36 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      backward through autograd beside the K1 + K2 pair - the port never
      calls it), and bound_share = bound_ms / ms; the FusedAttention
      gradient against autograd of the plain forward; a full-width ViT-B/32
-     forward on the card against the same weights on the CPU; one CoOp
-     training step and one deep VPT training step at ViT-B/32 width on the
-     card against the same step on the CPU
+     forward on the card against the same weights on the CPU; one CoOp, one
+     deep VPT and one UPT training step at ViT-B/32 width on the card
+     against the same step on the CPU
   4. main path: main_clip.workflow on a synthetic 10-class MNIST-layout
      dataset (224x224 PNGs, 64 train + 64 test per class), BATCH_SIZE 256,
      in float32 and in bfloat16
   5. pseudolabels: FPL top-16 per class over the 640-image train pool
   6. serving: predict.main over the 640 test images, top 5
-  7. training: main_ssl.workflow, MODEL=textual_prompt in float32 for 20
+  7. training, with the bundled configs (BATCH_SIZE 16) on the same
+     dataset: main_ssl.workflow, MODEL=textual_prompt in float32 for 20
      epochs and MODEL=textual_fpl in bfloat16 for the paper's 150 epochs;
-     then main_ul.workflow, MODEL=visual_fpl in bfloat16 for 150 epochs, and
-     main_trzsl.workflow, MODEL=visual_fpl in float32 for 20 epochs; the
-     bundled configs (BATCH_SIZE 16), on the same dataset
+     main_ul.workflow, MODEL=visual_fpl in bfloat16 for 150 epochs, and
+     main_trzsl.workflow, MODEL=visual_fpl in float32 for 20 epochs; then
+     main_ul grip_visual bf16 (the paper's 10 GRIP iterations of 5 epochs,
+     N_PSEUDOSHOTS 6 ... 64), main_ssl grip_multimodal bf16 (4 iterations
+     of 5), main_trzsl iterative_textual_fpl fp32 (2 iterations of 5) and
+     main_ssl multimodal_fpl fp32 (20 epochs), and a resume check
+     (main_ssl grip_textual bf16 uninterrupted, cut after iteration 1 by
+     MNT_FAIL_AFTER_ITER, resumed)
   8. breakdown: set-up, host decode and device encode of the bf16 pass,
      each timed alone; one bf16 training step of textual_fpl (10 and 102
-     classes) and of visual_fpl on the host clock and under torch.profiler
-     (device busy time, kernels by name)
-Phases 4-6 (the zero-shot path), the SSL CoOp runs and the UL/TRZSL VPT
-runs of phase 7 (two training paths) each run with every launch count set
-to 0 just before and read just after; a kernel the path runs must show a
-launch.  Then one JSON line listing each kernel with its launches (the sum
-over the paths, and by path), and last the device line
-{"ok": true, "device": {...}}.
+     classes), of visual_fpl and of grip_multimodal (UPT) on the host clock
+     and under torch.profiler (device busy time, kernels by name); one GRIP
+     refresh of grip_visual over the 640-image pool, split into its parts
+Phases 4-6 (the zero-shot path), the SSL CoOp runs, the UL/TRZSL VPT runs
+and the IFPL/GRIP/UPT runs with the resume check of phase 7 (three
+training paths) each run with every launch count set to 0 just before and
+read just after; a kernel the path runs must show a launch.  Then one JSON
+line listing each kernel with its launches (the sum over the paths, and by
+path), and last the device line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -80,7 +89,7 @@ ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # the backward: tol + tol * |ref
 # the test file: its gradients exceed 1 on unit-scale inputs, where one bf16 step is larger)
 HEAD_TOL = 2e-5
 MODEL_TOL = 1e-3  # ViT-B/32 features, card vs CPU, fp32 through 12 layers
-STEP_PREFIX_TOL = 1e-4  # one CoOp or VPT step, card vs CPU: updated prompts (abs)
+STEP_PREFIX_TOL = 1e-4  # one CoOp, VPT or UPT step, card vs CPU: updated prompts (abs)
 STEP_LOSS_RTOL = 1e-5  # ... and the loss (relative)
 
 N_CLASSES, N_PER_CLASS, RES = 10, 64, 224
@@ -210,13 +219,15 @@ def phase_kernels(torch):
     g = torch.Generator(device="cuda").manual_seed(0)
     attn_cases, head_cases = [], []
     # vision (ViT-B/32, the main path's batch), the text tower: C = 10 or
-    # 102 classes at the truncated lengths 16 and 24 and the full 77, and
-    # Flowers102's (102, 48); ViT-B/32 vision with a 16-token VPT prefix (a
-    # training batch of 16, a validation batch of 256); ViT-L/14 vision
-    # without and with a VPT prefix
+    # 102 classes at the truncated lengths 16 and 24 and the full 77 (UPT's
+    # text tower is the (10, 77) case), and Flowers102's (102, 48); ViT-B/32
+    # vision with a 16-token VPT prefix and with UPT's 4-token prompt (a
+    # training batch of 16, a validation and refresh batch of 256); ViT-L/14
+    # vision without and with a VPT prefix
     shapes = [(256, 50, 768, 12, None)] + [
         (b, t, 512, 8, "causal") for b in (10, 102) for t in (16, 24, 77)
     ] + [(102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
+         (16, 54, 768, 12, None), (256, 54, 768, 12, None),
          (8, 257, 1024, 16, None), (8, 273, 1024, 16, None)]
     for dname, dt in dtypes.items():
         for B, T, W, H, mask in shapes:
@@ -316,11 +327,13 @@ def phase_kernels_bwd(torch):
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
     # the CoOp text tower (C = 10 or 102 classes, truncated 24 or full 77;
-    # Flowers102's (102, 48)), the VPT vision tower (16 prompt tokens; the
-    # training batch of 16 and a batch of 256) and the plain ViT-B/32 one
+    # UPT's text tower is the (10, 77) case; Flowers102's (102, 48)), the VPT
+    # vision tower (16 prompt tokens; the training batch of 16 and a batch of
+    # 256), UPT's vision tower (4 prompt tokens, the training batch) and the
+    # plain ViT-B/32 one
     shapes = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
         (102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
-        (256, 50, 768, 12, None),
+        (16, 54, 768, 12, None), (256, 50, 768, 12, None),
     ]
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for B, T, W, H, mask in shapes:
@@ -362,7 +375,8 @@ def phase_kernels_bwd(torch):
     # of the plain forward, both on the card, fp32
     from menghini_neurips23_tpu_torch.ops.attention import attention_reference
 
-    for B, T, W, H, mask in ((10, 24, 512, 8, "causal"), (256, 66, 768, 12, None)):
+    for B, T, W, H, mask in ((10, 24, 512, 8, "causal"), (256, 66, 768, 12, None),
+                             (10, 77, 512, 8, "causal"), (16, 54, 768, 12, None)):
         qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda")
         grad = torch.randn(B, T, W, generator=g, device="cuda")
         a = qkv.clone().requires_grad_(True)
@@ -391,11 +405,27 @@ def step_runtimes(torch):
     return {"cpu": cpu_rt, "cuda": gpu_rt}
 
 
-def one_step_card_vs_cpu(torch, runtimes, what, cls, cfg, prompt, feats, ctx=None):
+def leaves(tree):
+    """The arrays of a prompt parameter list in a fixed order: lists in
+    order, the UPT mixer's parameter dicts by key, None skipped."""
+    import numpy as np
+
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [np.asarray(tree)]
+
+
+def one_step_card_vs_cpu(torch, runtimes, what, cls, cfg, prompt, feats, ctx=None,
+                         launches=(12, 12)):
     """One training step of strategy `cls` (two loss groups at textual_fpl's
     balance, 128 pseudo / 16 labeled) from the same weights, prompt, class
     context and batch: on the card through K1 + K2, on the CPU through the
-    plain versions.  `ctx` None takes the strategy's own class context."""
+    plain versions.  `ctx` None takes the strategy's own class context;
+    `launches` is the (K1, K2) count the step makes on the card."""
     import numpy as np
 
     from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
@@ -416,23 +446,27 @@ def one_step_card_vs_cpu(torch, runtimes, what, cls, cfg, prompt, feats, ctx=Non
         f0, b0 = fused_attention.launches, attention_bwd.launches
         loss, correct = strat._apply_step(c, 0.1, feats.to(dev), labels.to(dev), group.to(dev),
                                           valid.to(dev))
-        launches = (fused_attention.launches - f0, attention_bwd.launches - b0)
-        out[name] = (loss, correct, strat.epoch_parameters(), launches, tuple(c.shape))
+        n = (fused_attention.launches - f0, attention_bwd.launches - b0)
+        out[name] = (loss, correct, leaves(strat.epoch_parameters()), n, tuple(c.shape))
     (lc, cc, pc, nc, shape), (lg, cg, pg, ng, _) = out["cpu"], out["cuda"]
+    start = leaves(prompt)
     p_err = max(float(np.abs(g - c).max()) for g, c in zip(pg, pc))
-    moved = min(float(np.abs(c - p).max()) for c, p in zip(pc, prompt))
+    moved = min(float(np.abs(c - p).max()) for c, p in zip(pc, start))
     l_rel = abs(lg - lc) / abs(lc)
     rec = {"class_context": list(shape), "batch": list(feats.shape),
-           "prompt": [list(p.shape) for p in prompt], "loss_cpu": lc, "loss_card": lg,
+           "prompt_arrays": len(start), "prompt_values": int(sum(p.size for p in start)),
+           "loss_cpu": lc, "loss_card": lg,
            "loss_rel_err": l_rel, "correct": [cc, cg], "prompt_max_abs_err": p_err,
            "prompt_moved_min": moved, "card_launches_k1_k2": list(ng),
            "cpu_launches_k1_k2": list(nc)}
     log(f"  one {what} step, ViT-B/32 fp32, card vs CPU: {json.dumps(rec)} "
         f"(tol {STEP_PREFIX_TOL} abs prompt, {STEP_LOSS_RTOL} rel loss)")
-    if not (p_err <= STEP_PREFIX_TOL and l_rel <= STEP_LOSS_RTOL and cc == cg and moved > 0):
+    if not (len(pg) == len(pc) == len(start) and p_err <= STEP_PREFIX_TOL
+            and l_rel <= STEP_LOSS_RTOL and cc == cg and moved > 0):
         fail(f"one {what} step on the card disagrees with the CPU: {rec}")
-    if ng != (12, 12) or nc != (0, 0):
-        fail(f"one {what} step: K1/K2 launches card {ng}, CPU {nc}; expected 12/12 and 0/0")
+    if ng != tuple(launches) or nc != (0, 0):
+        fail(f"one {what} step: K1/K2 launches card {ng}, CPU {nc}; expected "
+             f"{tuple(launches)} and (0, 0)")
 
 
 def phase_one_step(torch, runtimes):
@@ -477,6 +511,36 @@ def phase_one_vpt_step(torch, runtimes):
     text /= np.linalg.norm(text, axis=1, keepdims=True)
     one_step_card_vs_cpu(torch, runtimes, "deep VPT", VisualStrategy, cfg, prompt,
                          torch.from_numpy(tokens), torch.from_numpy(text))
+
+
+def phase_one_upt_step(torch, runtimes):
+    """One UPT step (multimodal_fpl) at ViT-B/32 width, fp32, card vs CPU:
+    the mixer (plain fp32 attention, no kernel), the text tower over the 10
+    class prompts at the full 77 tokens and the vision tower over a batch of
+    16 token sequences with the 4-token prompt (T = 54); 12 K1 + 12 K2 in
+    each tower.  The UPT prompt (coop, vpt and every mixer parameter) is
+    one torch.Generator draw."""
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.config import Config
+    from menghini_neurips23_tpu_torch.models import VIT_B32
+    from menghini_neurips23_tpu_torch.models.prompts import (
+        build_upt_mixer,
+        init_upt_params,
+        mixer_parts,
+    )
+    from menghini_neurips23_tpu_torch.training import MultimodalStrategy
+
+    a = VIT_B32
+    cfg = Config(VIS_ENCODER="ViT-B/32", MODEL="multimodal_fpl", COMPUTE_DTYPE="float32",
+                 BATCH_SIZE=16, OPTIM_SEED=1)
+    p = init_upt_params(torch.Generator().manual_seed(7), cfg, a)
+    mixer = build_upt_mixer(a, cfg, p["mixer"], "cpu")
+    prompt = mixer_parts(mixer) + [p["coop"].numpy(), None, p["vpt"].numpy()]
+    rng = np.random.default_rng(1)
+    tokens = rng.normal(0, 1, (16, 1 + a.num_patches, a.vision_width)).astype(np.float32)
+    one_step_card_vs_cpu(torch, runtimes, "UPT", MultimodalStrategy, cfg, prompt,
+                         torch.from_numpy(tokens), launches=(24, 24))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -649,45 +713,110 @@ def phase_serving(torch, data_dir: str, work: str):
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtype: str,
-                epochs: int):
-    """main_<paradigm>.workflow for one prompt MODEL (CoOp or VPT) with its
-    bundled config (N_LABEL 2, PREFIX_SIZE 16, N_PSEUDOSHOTS 16, BATCH_SIZE
-    16, SGD lr 0.1 cosine), `epochs` epochs, in `dtype`; checks the artifacts,
-    the training rows the paradigm makes and the losses."""
+def train_config(data_dir: str, artifacts: str, paradigm: str, model: str, dtype: str,
+                 epochs: int, step_quantile=None):
+    """The bundled configs/<model>_config.yml with the launcher's environment,
+    `epochs` epochs in `dtype`, artifacts under `artifacts`; for IFPL/GRIP
+    100 / `step_quantile` iterations."""
     import argparse
-    import importlib
-    import logging
 
-    import numpy as np
-
-    from menghini_neurips23_tpu_torch.models.prompts import init_prefix
     from menghini_neurips23_tpu_torch.runners import common
-    from menghini_neurips23_tpu_torch.training import TrainingStrategy
 
-    runner = importlib.import_module(f"{PKG}.runners.main_{paradigm}")
-    artifacts = f"{work}/artifacts_{paradigm}_{model}_{dtype}"
     env = dict(DATASET_NAME="MNIST", DATASET_DIR=data_dir, MODEL=model,
                VIS_ENCODER="ViT-B/32", OPTIM_SEED="1", SPLIT_SEED="500")
     args = argparse.Namespace(model_config=f"{model}_config.yml", learning_paradigm=paradigm)
     cfg = common.load_config(args, env=env)
     cfg.EPOCHS, cfg.COMPUTE_DTYPE, cfg.ARTIFACT_DIR = epochs, dtype, artifacts
+    if step_quantile is not None:
+        cfg.STEP_QUANTILE = step_quantile
+    return cfg
 
-    # what the run reports: the epoch log lines (loss per epoch), one pair of
-    # CUDA events around every step, the strategy and its best val accuracy
-    epoch_logs, events, seen = [], [], {}
 
-    class EpochLog(logging.Handler):
-        def emit(self, record):
-            if isinstance(record.msg, str) and record.msg.startswith("epoch %d"):
-                epoch_logs.append(record.args)
+def initial_prompt(torch, cfg, arch, reinit: int):
+    """The prompt a strategy draws at re-init `reinit` (the generator seeded
+    OPTIM_SEED * 1000 + reinit), as the arrays its saved parameters hold:
+    [prefix] for CoOp and VPT, [coop, vpt] for UPT."""
+    from menghini_neurips23_tpu_torch.models.prompts import init_prefix, init_upt_params
 
-    strategy_log = logging.getLogger("menghini_neurips23_tpu_torch.training.strategy")
-    handler = EpochLog(logging.INFO)
-    strategy_log.addHandler(handler)
-    strategy_log.setLevel(logging.INFO)
-    strategy_log.propagate = False  # one summary line per run instead of one per epoch
-    step, run = TrainingStrategy._apply_step, common.run_strategy
+    gen = torch.Generator().manual_seed(cfg.OPTIM_SEED * 1000 + reinit)
+    if cfg.MODALITY == "multi":
+        p = init_upt_params(gen, cfg, arch)
+        return [p["coop"].numpy(), p["vpt"].numpy()]
+    width = arch.transformer_width if cfg.MODALITY == "text" else arch.vision_width
+    return [init_prefix(gen, cfg.PREFIX_SIZE, width, cfg.VIS_PREFIX_INIT, cfg.MEAN_INIT,
+                        cfg.VAR_INIT).numpy()]
+
+
+def saved_prompt(cfg, params):
+    """The arrays of saved prompt parameters that `initial_prompt` draws."""
+    return [params[5], params[7]] if cfg.MODALITY == "multi" else [params[0]]
+
+
+class RunLog:
+    """Collects a training run's epoch and iteration log records from the
+    strategy module's logger, which stops propagating meanwhile: one summary
+    line per run instead of one per epoch."""
+
+    def __init__(self):
+        import logging
+
+        self.epochs, self.iterations = [], []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if isinstance(record.msg, str) and record.msg.startswith("epoch %d"):
+                    outer.epochs.append(record.args)
+                elif isinstance(record.msg, str) and record.msg.startswith("iteration %d/%d"):
+                    outer.iterations.append(record.args)
+
+        self.handler = Handler(logging.INFO)
+        self.logger = logging.getLogger("menghini_neurips23_tpu_torch.training.strategy")
+
+    def __enter__(self):
+        import logging
+
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        self.logger.propagate = False
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.propagate = True
+
+
+def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtype: str,
+                epochs: int, step_quantile=None, schedule=None):
+    """main_<paradigm>.workflow for one prompt MODEL (CoOp, VPT or UPT; one
+    run, FPL, or IFPL/GRIP iterations) with its bundled config (N_LABEL 2,
+    PREFIX_SIZE 16 or UPT's 4 + 4 tokens, N_PSEUDOSHOTS 16, BATCH_SIZE 16,
+    SGD cosine), `epochs` epochs per run, in `dtype`; checks the artifacts
+    (every iteration's prompt, pseudolabels and checkpoint manifest), that
+    each saved prompt moved from its draw, that the best metric is the best
+    iteration's, the GRIP `schedule` of N_PSEUDOSHOTS when given, the
+    training rows the paradigm makes and the losses."""
+    import importlib
+
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.checkpoint import run_key
+    from menghini_neurips23_tpu_torch.evaluation.persist import load_saved_parameters
+    from menghini_neurips23_tpu_torch.runners import common
+    from menghini_neurips23_tpu_torch.training import TrainingStrategy
+
+    runner = importlib.import_module(f"{PKG}.runners.main_{paradigm}")
+    artifacts = f"{work}/artifacts_{paradigm}_{model}_{dtype}"
+    cfg = train_config(data_dir, artifacts, paradigm, model, dtype, epochs, step_quantile)
+    method = common.MODEL_DISPATCH[model][1]
+    iterative = method in ("fixed_iterative_train", "grip_train")
+    n_iter = int(100 / cfg.STEP_QUANTILE) if iterative else 1
+    n_pseudo_cfg = cfg.N_PSEUDOSHOTS
+
+    # what the run reports: the epoch and iteration log lines, one pair of
+    # CUDA events around every step, the strategy and its best val metric
+    events, seen, trained_last = [], {}, []
+    step, run, train = TrainingStrategy._apply_step, common.run_strategy, TrainingStrategy.train
 
     def timed_step(self, *a, **k):
         ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -695,6 +824,12 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
         out = step(self, *a, **k)
         ev[1].record()
         events.append(ev)
+        return out
+
+    def recorded_train(self, *a, **k):
+        out = train(self, *a, **k)
+        # the final epoch's prompt, which the strategy keeps
+        trained_last.append(saved_prompt(cfg, self.epoch_parameters()))
         return out
 
     def recorded_run(strategy, *a):
@@ -705,42 +840,82 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
         return seen["result"]
 
     TrainingStrategy._apply_step, common.run_strategy = timed_step, recorded_run
+    TrainingStrategy.train = recorded_train
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        resp = runner.workflow(cfg.DATASET_DIR, cfg, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with RunLog() as runlog:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resp = runner.workflow(cfg.DATASET_DIR, cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         TrainingStrategy._apply_step, common.run_strategy = step, run
-        strategy_log.removeHandler(handler)
-        strategy_log.propagate = True
+        TrainingStrategy.train = train
 
     what = f"train[{paradigm}, {model}]"
     enc = cfg.VIS_ENCODER.replace("/", "")
     stem = f"MNIST_{paradigm}_{model}_{enc}_opt_1_spl_500.pickle"
-    with open(f"{artifacts}/trained_prompts/{stem}", "rb") as f:
-        saved = pickle.load(f)
     strategy = seen["strategy"]
-    # the prefix is the first draw of the prompt's generator: (16, 512) for
-    # CoOp, (16, 768) for VPT at ViT-B/32
-    final = strategy.epoch_parameters()
-    width = final[0].shape[1]
-    start = init_prefix(torch.Generator().manual_seed(cfg.OPTIM_SEED * 1000), cfg.PREFIX_SIZE,
-                        width, cfg.VIS_PREFIX_INIT, cfg.MEAN_INIT, cfg.VAR_INIT).numpy()
-    p = np.asarray(saved[0])
-    losses = [a[1] for a in epoch_logs]
-    if len(losses) != epochs or not all(np.isfinite(losses)):
-        fail(f"{what}: {len(losses)} epoch losses for {epochs} epochs, or not finite")
-    # the saved prompt is the best-validation epoch's; epoch 0 trains at lr 0
-    # (the cosine warm-up), so a best epoch of 0 saves the initial prefix
-    val_accs = [a[3] for a in epoch_logs]
-    best_epoch = int(np.argmax(val_accs))
-    if not (len(saved) == len(final) and p.shape == (16, width) and p.dtype == np.float32
-            and np.isfinite(p).all() and np.array_equal(p, start) == (best_epoch == 0)
-            and not np.array_equal(final[0], start)):
-        fail(f"{what}: saved prefix {p.shape} {p.dtype} (best epoch {best_epoch}) is not "
-             f"the trained (16, {width}) fp32 one, or the prefix never moved")
+    arch = strategy.runtime.arch
+    losses = [a[1] for a in runlog.epochs]
+    if len(losses) != epochs * n_iter or not all(np.isfinite(losses)):
+        fail(f"{what}: {len(losses)} epoch losses for {n_iter} x {epochs} epochs, or not finite")
+    sched = [a[2] for a in runlog.iterations]
+    if iterative and (len(sched) != n_iter or (schedule is not None and sched != schedule)
+                      or (method == "fixed_iterative_train" and set(sched) != {n_pseudo_cfg})):
+        fail(f"{what}: N_PSEUDOSHOTS by iteration {sched}, expected "
+             f"{schedule or [n_pseudo_cfg] * n_iter}")
+    # per iteration: its best validation epoch and metric, and its saved
+    # and final-epoch prompts against its own draw (re-init n at iteration
+    # n; one run: 0).  Epoch 0 trains at lr 0 (the cosine warm-up), so a best
+    # epoch of 0 saves the drawn prompt; any other moved it.  The final
+    # epoch's prompt always moved.
+    best_epochs, best_metrics, moved, last_moved = [], [], [], []
+    if len(trained_last) != n_iter:
+        fail(f"{what}: {len(trained_last)} training runs for {n_iter} iterations")
+    for it in range(n_iter):
+        accs = [a[3] for a in runlog.epochs[it * epochs:(it + 1) * epochs]]
+        best_epochs.append(int(np.argmax(accs)))
+        best_metrics.append(float(max(accs)))
+        params = load_saved_parameters(cfg, it + 1 if iterative else None)
+        start = initial_prompt(torch, cfg, arch, it + 1 if iterative else 0)
+        diff = max(float(np.abs(np.asarray(p) - s).max())
+                   for p, s in zip(saved_prompt(cfg, params), start))
+        moved.append(diff)
+        last_moved.append(max(float(np.abs(p - s).max())
+                              for p, s in zip(trained_last[it], start)))
+        if last_moved[-1] == 0:
+            fail(f"{what}: iteration {it + 1}'s final-epoch prompt never moved from its draw")
+        shapes = [np.asarray(p).shape for p in saved_prompt(cfg, params)]
+        want = ([(4, arch.transformer_width), (4, arch.vision_width)] if cfg.MODALITY == "multi"
+                else [(16, arch.transformer_width if cfg.MODALITY == "text"
+                       else arch.vision_width)])
+        if shapes != want or (diff == 0) != (best_epochs[-1] == 0):
+            fail(f"{what}: iteration {it + 1} saved a prompt {shapes} (expected {want}) that "
+                 f"moved {diff} from its draw, best epoch {best_epochs[-1]}")
+    best = int(np.argmax(best_metrics))
+    if seen["result"][0] != max(best_metrics):
+        fail(f"{what}: best metric {seen['result'][0]} is not the best iteration's "
+             f"{best_metrics}")
+    final = load_saved_parameters(cfg)
+    best_saved = load_saved_parameters(cfg, best + 1) if iterative else final
+    if not all(np.array_equal(a, b) for a, b in zip(leaves(final), leaves(best_saved))):
+        fail(f"{what}: the saved prompt is not iteration {best + 1}'s, the best")
+    if iterative:
+        running = np.maximum.accumulate(best_metrics)
+        for it in range(n_iter):
+            name = f"MNIST_{paradigm}_{model}_{enc}_iter_{it + 1}_opt_1_spl_500.pickle"
+            man_path = f"{artifacts}/checkpoints/{run_key(cfg)}/iter_{it + 1}/manifest.json"
+            # (the iteration's prompt loaded above)
+            if not (os.path.exists(f"{artifacts}/pseudolabels/{name}")
+                    and os.path.exists(man_path)):
+                fail(f"{what}: iteration {it + 1} lacks its pseudolabels or checkpoint")
+            with open(man_path) as f:
+                man = json.load(f)
+            if (man["iteration"], man["n_pseudoshots"], man["run"]) != (it + 1, sched[it],
+                                                                        run_key(cfg)) \
+                    or abs(man["best_metric"] - running[it]) > 1e-9:
+                fail(f"{what}: checkpoint manifest {man} for iteration {it + 1}")
     with open(f"{artifacts}/results_model_{model}.json") as f:
         rec = json.loads(f.readline())
     with open(f"{artifacts}/evaluation/{stem}", "rb") as f:
@@ -756,39 +931,184 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
         fail(f"{what}: evaluation logits {logits.shape}")
     rows, n_group1 = len(strategy._train_groups), sum(strategy._train_groups)
     extra = {}
-    if model.endswith("_fpl"):
-        cache = (f"{artifacts}/pseudolabels/MNIST_{enc}_{paradigm}_{model}_16"
-                 "_pseudolabels_split_500.pickle")
-        with open(cache, "rb") as f:
-            n_pseudo = len(pickle.load(f)["filepaths"])
-        # pseudo rows: the 80% carve of the selection.  SSL adds the train
-        # share of 2 shots per class, TRZSL the seen classes' labeled train
-        # split; UL trains on the pseudolabels alone, in the labeled group 0
-        n_train_pseudo = int(n_pseudo * cfg.ratio_train_val)
+    if method != "train":
+        # the last iteration's pseudo rows: the 80% carve of its selection.
+        # SSL adds the train share of 2 shots per class, TRZSL the seen
+        # classes' labeled train split; UL trains on the pseudolabels alone,
+        # in the labeled group 0.  One FPL run reads its selection from the
+        # pseudolabel cache, an iterative one from its last iteration's file
+        # (the training set it saved)
         n_shots = int(cfg.N_LABEL * N_CLASSES * cfg.ratio_train_val)
-        ok = {"ssl": (n_group1, rows) == (n_train_pseudo, n_train_pseudo + n_shots),
-              "ul": (n_group1, rows) == (0, n_train_pseudo),
-              "trzsl": n_group1 == n_train_pseudo and rows > n_train_pseudo}[paradigm]
+        if iterative:
+            name = f"MNIST_{paradigm}_{model}_{enc}_iter_{n_iter}_opt_1_spl_500.pickle"
+            with open(f"{artifacts}/pseudolabels/{name}", "rb") as f:
+                n_saved = len(pickle.load(f)["filepaths"])
+            ok = rows == n_saved and {
+                "ssl": rows - n_group1 == n_shots, "ul": n_group1 == 0,
+                "trzsl": 0 < n_group1 < rows}[paradigm]
+            extra = {"last_iteration_rows_saved": n_saved}
+        else:
+            cache = (f"{artifacts}/pseudolabels/MNIST_{enc}_{paradigm}_{model}_{n_pseudo_cfg}"
+                     "_pseudolabels_split_500.pickle")
+            with open(cache, "rb") as f:
+                n_pseudo = len(pickle.load(f)["filepaths"])
+            n_train_pseudo = int(n_pseudo * cfg.ratio_train_val)
+            ok = {"ssl": (n_group1, rows) == (n_train_pseudo, n_train_pseudo + n_shots),
+                  "ul": (n_group1, rows) == (0, n_train_pseudo),
+                  "trzsl": n_group1 == n_train_pseudo and rows > n_train_pseudo}[paradigm]
+            extra = {"pseudolabels": n_pseudo}
         if not ok:
-            fail(f"{what}: {rows} training rows ({n_group1} in the pseudolabel group) for "
-                 f"{n_pseudo} pseudolabels")
-        extra = {"pseudolabels": n_pseudo, "pseudo_val": len(strategy.val_unseen_files)}
+            fail(f"{what}: {rows} training rows ({n_group1} in the pseudolabel group), "
+                 f"{extra}")
+        extra["pseudo_val"] = len(strategy.val_unseen_files)
     steps = len(events)
     torch.cuda.synchronize()
     ev_ms = sorted(a.elapsed_time(b) for a, b in events)
     out = {
         "paradigm": paradigm, "model": model, "dtype": dtype, "epochs": epochs,
-        "prompt": [list(x.shape) for x in final], "training_rows": rows,
-        "pseudolabel_group_rows": n_group1,
-        "steps": steps, "steps_per_epoch": steps / epochs, "wall_s": wall,
+        "iterations": n_iter, "n_pseudoshots_by_iteration": sched if iterative else None,
+        "prompt": [list(np.asarray(x).shape) for x in saved_prompt(cfg, final)],
+        "training_rows": rows, "pseudolabel_group_rows": n_group1,
+        "steps": steps, "steps_per_epoch": steps / (epochs * n_iter), "wall_s": wall,
         "train_s": seen["train_s"], "wall_ms_per_step": 1e3 * seen["train_s"] / steps,
         "event_ms_per_step_median": ev_ms[len(ev_ms) // 2], "event_ms_per_step_min": ev_ms[0],
-        "best_val_metric": seen["result"][0], "best_epoch": best_epoch,
-        "saved_prefix_moved": float(np.abs(p - start).max()), "test_result": list(resp),
-        "first_loss": losses[0], "last_loss": losses[-1], **extra,
+        "best_val_metric": seen["result"][0], "best_by_iteration": best_metrics,
+        "best_epoch_by_iteration": best_epochs, "saved_prompt_moved": moved,
+        "final_epoch_prompt_moved": last_moved,
+        "test_result": list(resp), "first_loss": losses[0], "last_loss": losses[-1], **extra,
     }
     log(f"  {what}, {dtype}: " + json.dumps(out, default=float))
     return wall, strategy
+
+
+def phase_resume(torch, data_dir: str, work: str):
+    """Resume on the card: main_ssl grip_textual, bf16, 2 iterations of 3
+    epochs, (a) uninterrupted, (b) with MNT_FAIL_AFTER_ITER=1, which must
+    raise its fault-injection error after iteration 1, (c) again over (b)'s
+    artifacts with RESUME, which must resume at iteration 2.  (c) must give
+    (a)'s best metric and iteration-2 pseudolabels, and its final prompt
+    must match (a)'s within STEP_PREFIX_TOL (K2 is deterministic: 0 is
+    expected)."""
+    import logging
+
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.evaluation.persist import load_saved_parameters
+    from menghini_neurips23_tpu_torch.runners import common, main_ssl
+
+    model, results = "grip_textual", {}
+    run = common.run_strategy
+
+    def recorded(strategy, *a):
+        results[len(results)] = run(strategy, *a)
+        return results[len(results) - 1]
+
+    resumed = []
+
+    class ResumeLog(logging.Handler):
+        def emit(self, record):
+            if isinstance(record.msg, str) and record.msg.startswith("resuming from"):
+                resumed.append(record.args[0])
+
+    handler = ResumeLog(logging.INFO)
+    strategy_log = logging.getLogger("menghini_neurips23_tpu_torch.training.strategy")
+    strategy_log.addHandler(handler)
+    common.run_strategy = recorded
+    t0 = time.perf_counter()
+    try:
+        with RunLog():
+            cfgs = {}
+            for name in ("a", "b", "c"):
+                artifacts = f"{work}/artifacts_resume_{'a' if name == 'a' else 'b'}"
+                cfgs[name] = cfg = train_config(data_dir, artifacts, "ssl", model, "bfloat16",
+                                                3, step_quantile=50)
+                if name == "b":
+                    os.environ["MNT_FAIL_AFTER_ITER"] = "1"
+                try:
+                    main_ssl.workflow(cfg.DATASET_DIR, cfg, device="cuda")
+                    if name == "b":
+                        fail("resume: MNT_FAIL_AFTER_ITER=1 did not stop the run")
+                except RuntimeError as e:
+                    if name != "b" or "fault injection: MNT_FAIL_AFTER_ITER=1" not in str(e):
+                        raise
+                finally:
+                    os.environ.pop("MNT_FAIL_AFTER_ITER", None)
+    finally:
+        common.run_strategy = run
+        strategy_log.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    (best_a, _), (best_c, _) = results[0], results[1]
+    enc = cfgs["a"].VIS_ENCODER.replace("/", "")
+    name = f"MNIST_ssl_{model}_{enc}_iter_2_opt_1_spl_500.pickle"
+    with open(f"{cfgs['a'].ARTIFACT_DIR}/pseudolabels/{name}", "rb") as f:
+        pl_a = pickle.load(f)
+    with open(f"{cfgs['c'].ARTIFACT_DIR}/pseudolabels/{name}", "rb") as f:
+        pl_c = pickle.load(f)
+    pa, pc = load_saved_parameters(cfgs["a"]), load_saved_parameters(cfgs["c"])
+    diff = max(float(np.abs(np.asarray(x) - np.asarray(y)).max()) for x, y in zip(pa, pc))
+    rec = {"resumed_at_iteration": [r + 1 for r in resumed], "best_metric": [best_a, best_c],
+           "iteration2_pseudolabels_equal": pl_a == pl_c, "final_prompt_max_abs_diff": diff,
+           "wall_s": wall}
+    log("  resume (main_ssl grip_textual bf16, a / cut after 1 / resumed): " + json.dumps(rec))
+    if not (resumed == [1] and best_a == best_c and pl_a == pl_c and diff <= STEP_PREFIX_TOL):
+        fail(f"resume: the resumed run differs from the uninterrupted one: {rec}")
+    return wall
+
+
+def phase_refresh_profile(torch, strategy, data_dir: str):
+    """One GRIP refresh (`get_pseudo_labels`) of the trained grip_visual
+    strategy over the 640-image train pool, on the host clock, split into
+    the frozen tokens (decode, from the decode cache after the run's earlier
+    refreshes, and the patch embedding), the prompted vision tower and the
+    leaderboard; and the host decode of the pool alone, uncached."""
+    from menghini_neurips23_tpu_torch.data import dataset_object
+    from menghini_neurips23_tpu_torch.data.loader import ImageLoader
+    from menghini_neurips23_tpu_torch.training import strategy as strategy_mod
+
+    with open(f"{data_dir}/MNIST/train.txt") as f:
+        files = [f"train/{l.split()[0]}" for l in f if l.strip()]
+    pool = dataset_object("MNIST")(files, f"{data_dir}/MNIST", train=True, labels=None,
+                                   label_map=strategy.label_to_idx)
+    spent = {"tokens": 0.0, "scoring": 0.0, "leaderboard": 0.0}
+    feats, predict, board = (strategy._features_for_paths, strategy._predict_logits,
+                             strategy_mod.compute_pseudo_labels)
+
+    def timed(key, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    strategy._features_for_paths = timed("tokens", feats)
+    strategy._predict_logits = timed("scoring", predict)
+    strategy_mod.compute_pseudo_labels = timed("leaderboard", board)
+    try:
+        strategy._img_feats_memo = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = strategy.get_pseudo_labels(pool)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del strategy._features_for_paths, strategy._predict_logits
+        strategy_mod.compute_pseudo_labels = board
+    t0 = time.perf_counter()
+    ImageLoader(RES).load_all([f"{data_dir}/MNIST/{p}" for p in files])
+    decode = time.perf_counter() - t0
+    rec = {"pool": len(files), "n_pseudoshots": strategy.config.N_PSEUDOSHOTS,
+           "selected": len(out.filepaths), "wall_s": wall,
+           "frozen_tokens_s": spent["tokens"],
+           "prompted_tower_s": spent["scoring"] - spent["tokens"],
+           "leaderboard_s": spent["leaderboard"],
+           "rest_s": wall - spent["scoring"] - spent["leaderboard"],
+           "decode_uncached_s": decode}
+    log("  GRIP refresh (grip_visual, bf16): " + json.dumps(rec))
+    if not 0 < len(out.filepaths) <= len(files):
+        fail(f"GRIP refresh selected {len(out.filepaths)} of {len(files)}")
 
 
 def phase_step_profile(torch, strategy, files, n: int = 20):
@@ -907,6 +1227,7 @@ def main() -> int:
     runtimes = step_runtimes(torch)
     phase_one_step(torch, runtimes)
     phase_one_vpt_step(torch, runtimes)
+    phase_one_upt_step(torch, runtimes)
     del runtimes
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -943,11 +1264,13 @@ def main() -> int:
         log("[6] serving")
         walls["serving"] = phase_serving(torch, data_dir, work)
 
-    def training_runs(runs):
+    def training_runs(runs, resume=False):
         def run():
-            for paradigm, model, dtype, epochs in runs:
+            for paradigm, model, dtype, epochs, *iterative in runs:
                 walls[f"{paradigm}_{model}_{dtype}"], trained[f"{paradigm}_{model}"] = phase_train(
-                    torch, data_dir, work, paradigm, model, dtype, epochs)
+                    torch, data_dir, work, paradigm, model, dtype, epochs, *iterative)
+            if resume:
+                walls["resume_check"] = phase_resume(torch, data_dir, work)
         return run
 
     counted("zero-shot", ("attention_fwd", "clip_head"), zero_shot_path)
@@ -957,6 +1280,13 @@ def main() -> int:
     log("[7] training (UL/TRZSL, VPT)")
     counted("training (UL/TRZSL, VPT)", tuple(wrappers), training_runs(
         [("ul", "visual_fpl", "bfloat16", 150), ("trzsl", "visual_fpl", "float32", 20)]))
+    log("[7] training (IFPL/GRIP, UPT)")
+    # GRIP over UL's 640-image pool and 10 classes: N(k) = int(k * 64 / 10)
+    counted("training (IFPL/GRIP, UPT)", tuple(wrappers), training_runs(
+        [("ul", "grip_visual", "bfloat16", 5, 10, [6, 12, 19, 25, 32, 38, 44, 51, 57, 64]),
+         ("ssl", "grip_multimodal", "bfloat16", 5, 25),
+         ("trzsl", "iterative_textual_fpl", "float32", 5, 50),
+         ("ssl", "multimodal_fpl", "float32", 20)], resume=True))
     launches = {name: sum(c[name] for c in by_path.values()) for name in wrappers}
     log("phase wall seconds: " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
     log("[8] breakdown")
@@ -977,6 +1307,10 @@ def main() -> int:
     # one bf16 VPT step: the vision tower over 16 x 66 tokens, forward and
     # backward to the prefix
     phase_step_profile(torch, trained["ul_visual_fpl"], train_files)
+    # one bf16 UPT step: the mixer, the text tower over 10 x 77 tokens and
+    # the vision tower over 16 x 54, forward and backward
+    phase_step_profile(torch, trained["ssl_grip_multimodal"], train_files)
+    phase_refresh_profile(torch, trained["ul_grip_visual"], data_dir)
 
     def entry(name, source, replaces, cases, headline):
         h = next(c for c in cases if headline(c))

@@ -7,11 +7,11 @@ hand-written Hopper kernel (csrc/), built with nvcc on first use and loaded
 with ctypes.  Every kernel keeps a plain PyTorch version beside it: a CPU
 tensor takes that version, a CUDA tensor launches the kernel or raises.
 
-This slice carries the zero-shot / pseudolabel forward path:
-runners.main_clip (zero-shot evaluation), predict (serving),
-training.TrainingStrategy's zero-shot probabilities and pseudo.engine (FPL
-pseudolabels), through the attention-forward (K1) and CLIP-head (K3)
-kernels.  Entry points run on CUDA unless the caller passes device="cpu".
+It runs zero-shot evaluation (runners.main_clip), serving (predict), and
+CoOp, VPT and UPT prompt training with FPL, IFPL and GRIP pseudolabels
+under SSL, UL and TRZSL (runners.main_ssl, main_ul, main_trzsl), through
+the attention forward (K1) and backward (K2) and CLIP-head (K3) kernels.
+Entry points run on CUDA unless the caller passes device="cpu".
 The package imports torch, never jax, and nothing of menghini_neurips23_tpu.
 """
 

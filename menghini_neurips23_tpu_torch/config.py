@@ -100,27 +100,27 @@ class Config:
     s_EPOCHS: int = 0
 
     # Framework knobs (no reference equivalent).  The same names as the JAX
-    # package's Config, so one YAML file configures both; knobs that only the
-    # training slice reads are kept for that compatibility.
+    # package's Config, so one YAML file configures both; knobs that serve
+    # only the JAX package's fused trainer are read here without effect.
     COMPUTE_DTYPE: str = "float32"  # float32 | bfloat16
     CACHE_FEATURES: bool = True  # precompute frozen-tower features
     FUSED_TRAIN: bool = True  # read, no effect: every run takes the per-step loop (no whole-run form yet)
-    CHECKPOINT_ITER: bool = True  # training slice: checkpoint each IFPL/GRIP iteration
-    RESUME: bool = True  # training slice: resume IFPL/GRIP from the latest checkpoint
+    CHECKPOINT_ITER: bool = True  # write a resume state after each IFPL/GRIP iteration (ARTIFACT_DIR/checkpoints/<run>/iter_<n>/, torch.save + manifest.json)
+    RESUME: bool = True  # IFPL/GRIP start after the run's latest checkpointed iteration, bit-identical to an uninterrupted run
     PROFILE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
     COMPILE_CACHE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
     PSEUDO_TOPK: str = "exact"  # exact (reference leaderboard) | device (not in this package yet)
-    GRIP_REFRESH: str = "onepass"  # training slice: onepass | twopass GRIP refresh
+    GRIP_REFRESH: str = "onepass"  # IFPL/GRIP pseudolabel refresh: onepass scores the pool once | twopass, the reference's two passes (the same pseudolabels)
     FUSED_MAX_BYTES: int = 6_000_000_000  # training features above half this stream per batch instead of staying on the device
     HOST_CACHE_BYTES: int = 4_000_000_000  # byte cap for the per-image host feature LRU
     DECODE_CACHE_BYTES: int = 2_000_000_000  # byte cap for decoded uint8 images (0 = off); GRIP refreshes re-read the pool every iteration
-    FUSED_REMAT: bool = False  # training slice: recompute the vision tower in fused steps
+    FUSED_REMAT: bool = False  # read, no effect: the JAX fused trainer's recompute switch
     FUSED_ATTENTION: str = "auto"  # read for compatibility; on CUDA the attention kernel always runs
-    FUSED_EPOCH_CHUNK: int = 0  # training slice: epochs per fused program
-    FUSED_BUCKETS: int = 2  # training slice: GRIP train-set shape ladder depth
+    FUSED_EPOCH_CHUNK: int = 0  # read, no effect: epochs per JAX fused program
+    FUSED_BUCKETS: int = 2  # read, no effect: pads the JAX fused trainer's GRIP shapes; the per-step loop takes each iteration's exact size
     TEXT_TRUNCATE: bool = True  # drop text-context positions after the last EOT (exact under causal attention). False = always run all 77 positions like the reference
     PRECAST_WEIGHTS: bool = True  # bf16 compute only: cast the transformer matmul weights to bf16 once at load (the same rounding as casting at every use)
-    UPT_FP16_QUIRK: bool = False  # training slice: the reference UPTModel's fp16 round-trip of the mixer output
+    UPT_FP16_QUIRK: bool = False  # UPT: round the mixer output through fp16, as the reference UPTModel does (off: the mixer stays fp32)
     MESH_SHAPE: str = ""  # multi-device layout; this package runs on one device
     ARTIFACT_DIR: str = "."  # root for trained_prompts/, pseudolabels/, ...
     ARTIFACT_FORMAT: str = "numpy"  # numpy | torch (reference-compatible layout)

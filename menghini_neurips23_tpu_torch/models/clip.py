@@ -59,12 +59,17 @@ class LayerNorm(nn.LayerNorm):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with OpenAI-CLIP-compatible fused qkv parameters."""
+    """Self-attention with OpenAI-CLIP-compatible fused qkv parameters.
 
-    def __init__(self, width: int, heads: int, dtype: torch.dtype):
+    `attention` maps the fused (B, T, 3W) qkv, the mask spec and the head
+    count to the (B, T, W) output: `fused_attention` (the kernels) for the
+    CLIP towers; the UPT mixer passes its own plain fp32 attention."""
+
+    def __init__(self, width: int, heads: int, dtype: torch.dtype, attention=fused_attention):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
+        self.attention = attention
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
         self.out_proj = nn.Linear(width, width)
@@ -73,16 +78,16 @@ class MultiHeadAttention(nn.Module):
         """mask is a static spec: None or "causal"."""
         dt = self.dtype
         qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
-        out = fused_attention(qkv, mask, self.heads)
+        out = self.attention(qkv, mask, self.heads)
         return _linear(out, self.out_proj, dt)
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, dtype: torch.dtype):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype, attention=fused_attention):
         super().__init__()
         self.dtype = dtype
         self.ln_1 = LayerNorm(width)
-        self.attn = MultiHeadAttention(width, heads, dtype)
+        self.attn = MultiHeadAttention(width, heads, dtype, attention)
         self.ln_2 = LayerNorm(width)
         self.mlp = nn.ModuleDict(
             {"c_fc": nn.Linear(width, 4 * width), "c_proj": nn.Linear(4 * width, width)}
@@ -96,10 +101,11 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype,
+                 attention=fused_attention):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(width, heads, dtype) for _ in range(layers)]
+            [ResidualAttentionBlock(width, heads, dtype, attention) for _ in range(layers)]
         )
 
     def forward(

@@ -91,20 +91,74 @@ def convert_state_dict(sd: Mapping[str, np.ndarray]) -> Tuple[CLIPArch, StateDic
     return arch, out
 
 
+# One flax ResidualAttentionBlock leaf <-> its OpenAI/torch state-dict suffix
+# within `resblocks.i`: (flax path, torch suffix, transpose?).  Flax Dense
+# kernels are (in, out); torch Linear weights are (out, in).
+BLOCK_KEYS = (
+    (("ln_1", "scale"), "ln_1.weight", False),
+    (("ln_1", "bias"), "ln_1.bias", False),
+    (("ln_2", "scale"), "ln_2.weight", False),
+    (("ln_2", "bias"), "ln_2.bias", False),
+    (("attn", "in_proj_kernel"), "attn.in_proj_weight", True),
+    (("attn", "in_proj_bias"), "attn.in_proj_bias", False),
+    (("attn", "out_proj", "kernel"), "attn.out_proj.weight", True),
+    (("attn", "out_proj", "bias"), "attn.out_proj.bias", False),
+    (("c_fc", "kernel"), "mlp.c_fc.weight", True),
+    (("c_fc", "bias"), "mlp.c_fc.bias", False),
+    (("c_proj", "kernel"), "mlp.c_proj.weight", True),
+    (("c_proj", "bias"), "mlp.c_proj.bias", False),
+)
+
+
+def _leaf(tree: Mapping, path) -> np.ndarray:
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree, np.float32)
+
+
 def _jax_block(blk: Mapping, prefix: str, out: StateDict) -> None:
-    """One flax ResidualAttentionBlock subtree -> OpenAI-named torch entries.
-    Flax Dense kernels are (in, out); torch Linear weights are (out, in)."""
-    for ln in ("ln_1", "ln_2"):
-        out[f"{prefix}.{ln}.weight"] = _tensor(blk[ln]["scale"])
-        out[f"{prefix}.{ln}.bias"] = _tensor(blk[ln]["bias"])
-    attn = blk["attn"]
-    out[f"{prefix}.attn.in_proj_weight"] = _tensor(np.asarray(attn["in_proj_kernel"]).T)
-    out[f"{prefix}.attn.in_proj_bias"] = _tensor(attn["in_proj_bias"])
-    out[f"{prefix}.attn.out_proj.weight"] = _tensor(np.asarray(attn["out_proj"]["kernel"]).T)
-    out[f"{prefix}.attn.out_proj.bias"] = _tensor(attn["out_proj"]["bias"])
-    for name in ("c_fc", "c_proj"):
-        out[f"{prefix}.mlp.{name}.weight"] = _tensor(np.asarray(blk[name]["kernel"]).T)
-        out[f"{prefix}.mlp.{name}.bias"] = _tensor(blk[name]["bias"])
+    """One flax ResidualAttentionBlock subtree -> OpenAI-named torch entries."""
+    for path, suffix, transpose in BLOCK_KEYS:
+        arr = _leaf(blk, path)
+        out[f"{prefix}.{suffix}"] = _tensor(arr.T if transpose else arr)
+
+
+def transformer_from_flax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A flax Transformer subtree ({"resblocks_i": block}) -> the torch
+    `Transformer.state_dict()` layout ("resblocks.i.<suffix>"), as numpy."""
+    out: Dict[str, np.ndarray] = {}
+    for name, blk in tree.items():
+        idx = name.split("_", 1)[1]
+        for path, suffix, transpose in BLOCK_KEYS:
+            arr = _leaf(blk, path)
+            out[f"resblocks.{idx}.{suffix}"] = np.ascontiguousarray(arr.T if transpose else arr)
+    return out
+
+
+def transformer_to_flax(sd: Mapping[str, np.ndarray]) -> dict:
+    """The inverse of `transformer_from_flax` (numpy leaves)."""
+    out: dict = {}
+    for idx in sorted({k.split(".")[1] for k in sd}, key=int):
+        blk: dict = {}
+        for path, suffix, transpose in BLOCK_KEYS:
+            arr = np.asarray(sd[f"resblocks.{idx}.{suffix}"], np.float32)
+            node = blk
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
+        out[f"resblocks_{idx}"] = blk
+    return out
+
+
+def linear_from_flax(dense: Mapping) -> Dict[str, np.ndarray]:
+    """flax Dense {kernel (in, out), bias} -> nn.Linear {weight (out, in), bias}."""
+    return {"weight": np.ascontiguousarray(_leaf(dense, ("kernel",)).T),
+            "bias": _leaf(dense, ("bias",))}
+
+
+def linear_to_flax(sd: Mapping) -> Dict[str, np.ndarray]:
+    return {"kernel": np.ascontiguousarray(np.asarray(sd["weight"], np.float32).T),
+            "bias": np.asarray(sd["bias"], np.float32)}
 
 
 def from_jax_params(tree: Mapping) -> StateDict:

@@ -9,16 +9,30 @@ Prompt semantics match the reference:
   and the patch tokens *after* positional embedding, so prompt tokens carry
   no position embedding (reference models/clip_encoders.py:146-155); deep
   VPT replaces the prompt slots before each later layer (models/clip.py
-  Transformer).
-The UPT parameterization arrives with its slice.
+  Transformer);
+- multimodal (UPT): coop and vpt prompts are projected to a shared mixer
+  width, mixed by a 1-layer, 1-head transformer whose sequence axis is the 2
+  modalities and whose batch axis is the prompt length, projected back, then
+  used as the textual and visual prefixes (reference
+  models/prompts_models.py:99-152).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
+
+from menghini_neurips23_tpu_torch.models.clip import Transformer
+from menghini_neurips23_tpu_torch.models.convert import (
+    linear_from_flax,
+    linear_to_flax,
+    transformer_from_flax,
+    transformer_to_flax,
+)
+from menghini_neurips23_tpu_torch.ops.attention import attention_reference
 
 
 def _draw(generator: torch.Generator, shape: Sequence[int], init: str, mean: float,
@@ -140,3 +154,182 @@ def vpt_image_features(
         tokens = model.vision_embed(images)
     x = vision_tokens_with_prefix(tokens, prefix)
     return model.vision_encode_tokens(x, deep_prompts)
+
+
+# ---------------------------------------------------------------------------
+# UPT mixer (trainable; reference models/prompts_models.py:99-146)
+# ---------------------------------------------------------------------------
+def mixer_attention(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch.Tensor:
+    """The mixer's attention: plain fp32 PyTorch, on every device, by design.
+    Its head width is TRANSFORMER_DIM (128), which the attention kernels do
+    not take, and its score tensor is (L, 1, 2, 2): there is nothing for a
+    kernel to save.  The CLIP towers' attention is unaffected."""
+    return attention_reference(qkv.float(), mask, heads)
+
+
+UPT_LINEARS = ("proj_coop_pre", "proj_coop_post", "proj_vpt_pre", "proj_vpt_post")
+
+
+class UPTMixer(nn.Module):
+    """Projects the coop/vpt prompts to `dim`, mixes them with a 1-layer
+    transformer whose sequence axis is the two modalities, projects back.
+    Always fp32.
+
+    Requires TEXT_PREFIX_SIZE == VISION_PREFIX_SIZE (the reference stacks the
+    two (1, L, dim) projections on the modality axis, reference
+    prompts_models.py:138, which implies equal prompt lengths).
+
+    fp16_quirk replicates the reference's fp16 round-trip of the mixer output
+    (prompts_models.py:141) for bit-closest reproduction runs; off by
+    default."""
+
+    def __init__(self, coop_dim: int, vpt_dim: int, dim: int = 128, layers: int = 1,
+                 heads: int = 1, fp16_quirk: bool = False):
+        super().__init__()
+        self.fp16_quirk = fp16_quirk
+        self.proj_coop_pre = nn.Linear(coop_dim, dim)
+        self.proj_vpt_pre = nn.Linear(vpt_dim, dim)
+        self.transformer = Transformer(dim, layers, heads, torch.float32, mixer_attention)
+        self.proj_coop_post = nn.Linear(dim, coop_dim)
+        self.proj_vpt_post = nn.Linear(dim, vpt_dim)
+
+    def forward(self, coop: torch.Tensor, vpt: torch.Tensor):
+        """(L, coop_dim), (L, vpt_dim) -> mixed (L, coop_dim), (L, vpt_dim)."""
+        if coop.shape[0] != vpt.shape[0]:
+            raise ValueError(
+                f"UPT needs TEXT_PREFIX_SIZE == VISION_PREFIX_SIZE, got {coop.shape[0]} "
+                f"and {vpt.shape[0]}"
+            )
+        # sequence axis = the 2 modality slots, batch axis = prompt positions
+        # (the reference's (seq=2, batch=L, dim) call, batch-major here)
+        seq = torch.stack([self.proj_coop_pre(coop.float()), self.proj_vpt_pre(vpt.float())],
+                          dim=1)
+        return self.project_back(self.transformer(seq))
+
+    def project_back(self, out: torch.Tensor):
+        """(L, 2, dim) transformer output -> the two mixed prompts, through
+        the fp16 round-trip when fp16_quirk is set."""
+        if self.fp16_quirk:
+            out = out.half().float()
+        return self.proj_coop_post(out[:, 0]), self.proj_vpt_post(out[:, 1])
+
+
+def build_upt_mixer(arch, cfg, state_dict: Mapping[str, torch.Tensor], device) -> UPTMixer:
+    """A `UPTMixer` for `arch` and `cfg` (TRANSFORMER_DIM, UPT_FP16_QUIRK)
+    holding `state_dict`, on `device`, trainable.  Built without drawing
+    from any random generator."""
+    with torch.device("meta"):
+        mixer = UPTMixer(arch.transformer_width, arch.vision_width, cfg.TRANSFORMER_DIM,
+                         fp16_quirk=bool(getattr(cfg, "UPT_FP16_QUIRK", False)))
+    mixer = mixer.to_empty(device=device)
+    mixer.load_state_dict({k: torch.as_tensor(v, dtype=torch.float32)
+                           for k, v in state_dict.items()}, strict=True)
+    return mixer.requires_grad_(True)
+
+
+def mixer_parts(mixer: UPTMixer) -> List[dict]:
+    """The mixer's parameters as the first five parts of the reference's
+    8-artifact order: [transformer, proj_coop_pre, proj_coop_post,
+    proj_vpt_pre, proj_vpt_post], each in the JAX package's flax layout
+    (numpy; Dense kernels (in, out))."""
+    sd = {k: v.detach().cpu().numpy().copy() for k, v in mixer.state_dict().items()}
+    tr = {k[len("transformer."):]: v for k, v in sd.items() if k.startswith("transformer.")}
+    return [transformer_to_flax(tr)] + [
+        linear_to_flax({"weight": sd[f"{n}.weight"], "bias": sd[f"{n}.bias"]})
+        for n in UPT_LINEARS
+    ]
+
+
+def mixer_state_from_parts(parts: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
+    """The inverse of `mixer_parts`: five flax-layout parts -> a `UPTMixer`
+    state dict."""
+    sd = {f"transformer.{k}": v for k, v in transformer_from_flax(parts[0]).items()}
+    for name, part in zip(UPT_LINEARS, parts[1:5]):
+        for k, v in linear_from_flax(part).items():
+            sd[f"{name}.{k}"] = v
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def upt_from_jax_params(tree: Mapping) -> dict:
+    """The JAX package's `upt_params` ({"coop", "vpt", "mixer": flax tree,
+    optional "deep"}, leaves as numpy) -> this package's UPT prompt:
+    {"coop", "vpt", optional "deep": fp32 tensors, "mixer": a `UPTMixer`
+    state dict}.  Flax Dense kernels are transposed to nn.Linear weights.
+    This is how the tests start both packages from one initial prompt: no
+    torch generator reproduces flax's initializers."""
+    m = tree["mixer"]["params"] if "params" in tree["mixer"] else tree["mixer"]
+    out = {
+        "coop": torch.from_numpy(np.array(tree["coop"], np.float32)),
+        "vpt": torch.from_numpy(np.array(tree["vpt"], np.float32)),
+        "mixer": mixer_state_from_parts([m["transformer"]] + [m[n] for n in UPT_LINEARS]),
+    }
+    if tree.get("deep") is not None:
+        out["deep"] = torch.from_numpy(np.array(tree["deep"], np.float32))
+    return out
+
+
+def _lecun_normal(generator: torch.Generator, fan_in: int, shape) -> torch.Tensor:
+    """flax's default Dense kernel init: a normal truncated at two standard
+    deviations, scaled to variance 1 / fan_in (the truncation's 0.8796 std
+    corrected), drawn from `generator`."""
+    t = torch.empty(*shape)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t * (fan_in**-0.5 / 0.87962566103423978)
+
+
+def init_upt_params(generator: torch.Generator, cfg, arch) -> dict:
+    """A fresh UPT prompt in `upt_from_jax_params`'s form, drawn from
+    `generator` in this order: coop (TEXT_PREFIX_SIZE, transformer_width),
+    vpt (VISION_PREFIX_SIZE, vision_width), the mixer's weights (the JAX
+    package's initializers' distributions: flax Dense kernels truncated
+    lecun-normal, the attention in-projection normal(dim^-0.5), zero biases,
+    unit LayerNorms), then with VPT_DEEP the deep prompts (vision_layers-1,
+    VISION_PREFIX_SIZE, vision_width).  Not the JAX package's values: that
+    package draws from split jax.random keys."""
+    if cfg.TEXT_PREFIX_SIZE != cfg.VISION_PREFIX_SIZE:
+        raise ValueError(
+            f"UPT needs TEXT_PREFIX_SIZE == VISION_PREFIX_SIZE, got {cfg.TEXT_PREFIX_SIZE} "
+            f"and {cfg.VISION_PREFIX_SIZE}"
+        )
+    init = (cfg.VIS_PREFIX_INIT, cfg.MEAN_INIT, cfg.VAR_INIT)
+    out = {
+        "coop": init_prefix(generator, cfg.TEXT_PREFIX_SIZE, arch.transformer_width, *init),
+        "vpt": init_prefix(generator, cfg.VISION_PREFIX_SIZE, arch.vision_width, *init),
+    }
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in UPTMixer(
+            arch.transformer_width, arch.vision_width, cfg.TRANSFORMER_DIM).state_dict().items()}
+    dim = cfg.TRANSFORMER_DIM
+    sd = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if ".ln_" in name and leaf == "weight":
+            sd[name] = torch.ones(shape)
+        elif leaf in ("bias", "in_proj_bias"):
+            sd[name] = torch.zeros(shape)
+        elif leaf == "in_proj_weight":
+            sd[name] = torch.randn(*shape, generator=generator) * dim**-0.5
+        else:  # an nn.Linear weight (out, in)
+            sd[name] = _lecun_normal(generator, shape[1], shape)
+    out["mixer"] = sd
+    if cfg.VPT_DEEP:
+        out["deep"] = init_deep_prefix(
+            generator, arch.vision_layers - 1, cfg.VISION_PREFIX_SIZE, arch.vision_width, *init
+        )
+    return out
+
+
+def upt_features(model, mixer: UPTMixer, prompt: Mapping, token_ids: torch.Tensor,
+                 images: Optional[torch.Tensor] = None,
+                 tokens: Optional[torch.Tensor] = None):
+    """UPT forward: mix the prompts, then run both prompted towers.
+
+    :param prompt: {"coop" (L, transformer_width), "vpt" (L, vision_width),
+        optional "deep" (D, L, vision_width)}
+    :returns: (text features (C, E), image features (B, E)), unnormalized
+    """
+    coop_o, vpt_o = mixer(prompt["coop"], prompt["vpt"])
+    text = coop_text_features(model, coop_o, token_ids)
+    image = vpt_image_features(model, vpt_o, images=images, tokens=tokens,
+                               deep_prompts=prompt.get("deep"))
+    return text, image

@@ -10,9 +10,10 @@ classifies arbitrary images in one batched pass on the GPU:
 
 MODEL/DATASET_NAME/DATASET_DIR/VIS_ENCODER/OPTIM_SEED/SPLIT_SEED come from
 the same env protocol as the training CLI; class names resolve through
-`get_class_names` exactly as in training.  This slice serves
-MODEL=clip_baseline (zero-shot, no artifact needed); classifying with
-trained prompts arrives with the training slice.
+`get_class_names` exactly as in training.  MODEL=clip_baseline classifies
+zero-shot (no artifact needed); any trained MODEL loads its saved prompt
+from ARTIFACT_DIR (`--iteration n` an IFPL/GRIP iteration's) and classifies
+with it.
 """
 
 from __future__ import annotations
@@ -51,11 +52,13 @@ def collect_images(spec: str) -> List[str]:
 
 
 def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description="Classify images zero-shot")
+    ap = argparse.ArgumentParser(description="Classify images, zero-shot or with trained prompts")
     ap.add_argument("--model_config", type=str, default="model_config.yml")
     ap.add_argument("--learning_paradigm", type=str, default="ssl")
     ap.add_argument("--images", type=str, required=True,
                     help="image file, directory, or .txt list of paths")
+    ap.add_argument("--iteration", type=int, default=None,
+                    help="IFPL/GRIP iteration artifact to load (default: final)")
     ap.add_argument("--output", type=str, default="",
                     help="write predictions JSON here (default: stdout)")
     ap.add_argument("--top_k", type=int, default=1)
@@ -85,13 +88,20 @@ def main(argv=None, env=None, device=None):
     label_to_idx = {c: i for i, c in enumerate(classes)}
     log.info("classifying %d images over %d classes", len(files), len(classes))
 
-    model = ClipBaseline(cfg, label_to_idx, classes, seen, unseen, device=device)
+    if cfg.MODEL == "clip_baseline":
+        model = ClipBaseline(cfg, label_to_idx, classes, seen, unseen, device=device)
 
-    class _D:  # minimal dataset shim for test_predictions
-        filepaths = files
-        transform = None
+        class _D:  # minimal dataset shim for test_predictions
+            filepaths = files
+            transform = None
 
-    _, _, _, logits = model.test_predictions(_D())
+        _, _, _, logits = model.test_predictions(_D())
+    else:
+        dict_classes = {"classes": classes, "seen_classes": seen, "unseen_classes": unseen}
+        strategy, _ = common.build_strategy(cfg, label_to_idx, dict_classes, data_folder=None,
+                                            device=device)
+        strategy.load_model_eval(iteration=args.iteration)
+        logits = strategy._predict_logits(files, classes)
 
     probs = np.exp(logits - logits.max(1, keepdims=True))
     probs = probs / probs.sum(1, keepdims=True)

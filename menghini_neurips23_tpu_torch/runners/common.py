@@ -2,10 +2,9 @@
 
 Mirrors the reference entry points' arg/env handling (reference
 main_SSL.py:430-505) and the MODEL-name dispatch tables (main_SSL.py:203-396,
-main_UL.py:168-310, main_TRZSL.py:170-355).  This package runs
-MODEL=clip_baseline, the CoOp models textual_prompt and textual_fpl and the
-VPT models visual_prompt and visual_fpl; the other training MODELs are known
-names that raise naming their slice.
+main_UL.py:168-310, main_TRZSL.py:170-355).  Every MODEL runs: clip_baseline
+and the 3 x 4 grid of CoOp / VPT / UPT prompts under prompt-only, FPL, IFPL
+and GRIP training.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from menghini_neurips23_tpu_torch.evaluation import (
     save_predictions,
     store_results,
 )
-from menghini_neurips23_tpu_torch.training import PENDING_MODALITIES, strategy_class
+from menghini_neurips23_tpu_torch.training import strategy_class
 from menghini_neurips23_tpu_torch.utils import setup_logging
 
 log = logging.getLogger(__name__)
@@ -46,28 +45,13 @@ MODEL_DISPATCH = {
     "grip_multimodal": ("multi", "grip_train"),
 }
 
-# what this package runs; every other MODEL_DISPATCH entry names its slice
-RUNNABLE_MODELS = (
-    "clip_baseline", "textual_prompt", "textual_fpl", "visual_prompt", "visual_fpl",
-)
-_PENDING_SLICE = {
-    **PENDING_MODALITIES,
-    "fixed_iterative_train": "IFPL/GRIP slice (ROADMAP M9)",
-    "grip_train": "IFPL/GRIP slice (ROADMAP M9)",
-}
+RUNNABLE_MODELS = ("clip_baseline",) + tuple(MODEL_DISPATCH)
 
 
 def check_model(model: str) -> None:
-    """Accept the MODELs this package runs; raise for everything else."""
+    """Accept the MODELs this package runs; raise ValueError for unknown ones."""
     if model in RUNNABLE_MODELS:
         return
-    if model in MODEL_DISPATCH:
-        modality, method = MODEL_DISPATCH[model]
-        slice_name = _PENDING_SLICE.get(modality) or _PENDING_SLICE[method]
-        raise NotImplementedError(
-            f"MODEL={model!r} is not in this package yet: it arrives with the "
-            f"{slice_name}.  Runnable now: {', '.join(RUNNABLE_MODELS)}."
-        )
     raise ValueError(
         f"Unknown MODEL {model!r}; known: clip_baseline, " + ", ".join(sorted(MODEL_DISPATCH))
     )

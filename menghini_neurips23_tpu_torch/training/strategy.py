@@ -21,10 +21,25 @@ sites, and this module follows that reconstruction:
 - validation and prediction logits are host-side NumPy fp32, as in the JAX
   package, so argmax and best-epoch decisions are the same computation.
 
-The JAX package's whole-run `lax.scan` trainer (`FUSED_TRAIN`) has no
-counterpart here: the option is read and has no effect, every run takes the
-per-step loop above.  IFPL and GRIP (`fixed_iterative_train`, `grip_train`)
-arrive with their slice.
+Training strategies (reference semantics):
+- train():                 supervised prompt tuning, or FPL when an
+                           unlabeled dataset is given (one pseudolabel
+                           bootstrap through zero-shot CLIP and the CLIP head)
+- fixed_iterative_train(): IFPL - 100/STEP_QUANTILE iterations, fixed
+                           N_PSEUDOSHOTS, pseudolabels refreshed with the
+                           best tuned prompts, prompts re-initialized each
+                           iteration
+- grip_train():            GRIP - the same loop, N_PSEUDOSHOTS grown by the
+                           quantile schedule (reference
+                           pseudo_iterative.py:62-75, 113-127) until the
+                           whole pool is used
+Each IFPL/GRIP iteration saves its prompt and pseudolabels, and a resume
+state (checkpoint.py) that RESUME picks up.
+
+The JAX package's whole-run `lax.scan` trainer (`FUSED_TRAIN`) and its
+shape ladder (`FUSED_BUCKETS`, which only pads that trainer's shapes) have
+no counterpart here: both options are read and have no effect, every run
+takes the per-step loop above.
 
 The zero-shot pseudolabel pass runs on the base class too: it can be built
 without a prompt (`initialize_prompts_parameters` does nothing here).
@@ -32,9 +47,11 @@ without a prompt (`initialize_prompts_parameters` does nothing here).
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import logging
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,9 +60,11 @@ import scipy.stats as st
 import torch
 
 from menghini_neurips23_tpu_torch.config import Config
+from menghini_neurips23_tpu_torch.data.datasets import dataset_object
 from menghini_neurips23_tpu_torch.data.templates import format_prompt
+from menghini_neurips23_tpu_torch.evaluation.persist import save_parameters, save_pseudo_labels
 from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs
-from menghini_neurips23_tpu_torch.pseudo.engine import pseudolabel_top_k
+from menghini_neurips23_tpu_torch.pseudo.engine import compute_pseudo_labels, pseudolabel_top_k
 from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 from menghini_neurips23_tpu_torch.training.losses import two_group_loss
 from menghini_neurips23_tpu_torch.training.schedulers import lr_for_epoch
@@ -185,9 +204,10 @@ class TrainingStrategy:
         if self._active_transform is None:
             self._active_transform = tr
             self._feat_cache.clear()
-            # the prompted-feature memo (VPT) was keyed before the transform
+            # the prompted-feature memos (VPT, UPT) were keyed before the transform
             # became active: the same staleness as the feature cache
             self._img_feats_memo = None
+            self._logits_memo = None
         elif self._active_transform is not tr:
             raise ValueError(
                 "datasets carry different custom transforms; set the same "
@@ -558,18 +578,210 @@ class TrainingStrategy:
         return float((global_pred == labels).mean())
 
     # -------------------------------------------------------- FPL iterations
-    def fixed_iterative_train(self, train_data, val_data, train_unseen_dataset,
-                              only_seen: bool = False):
-        raise NotImplementedError(
-            "IFPL (fixed_iterative_train) is not in this package yet: it arrives "
-            "with the IFPL/GRIP slice (ROADMAP M9)"
+    def get_pseudo_labels(self, unlabeled_examples):
+        """Refresh pseudolabels with the CURRENT prompts (reference
+        textual_fpl.py:168-283): predict over the pool, rebuild the dataset in
+        class_folder mode, re-rank with the leaderboard.
+
+        The reference runs two full prompted-tower passes over the pool per
+        refresh (test_predictions at textual_fpl.py:174, then the re-scoring
+        loop at :214-230).  The class lists are identical and the
+        class_folder rebuild is a host-side path permutation, so by default
+        (GRIP_REFRESH="onepass") the pool is scored once and the logits are
+        mapped through that permutation; GRIP_REFRESH="twopass" keeps the
+        literal two-pass flow.  The probabilities are a float64 host softmax
+        of the tuned logits, not the CLIP head."""
+        cfg = self.config
+        self._note_transform(unlabeled_examples)
+        classes = self.classes if self.paradigm == "ul" else self.unseen_classes
+        onepass = getattr(cfg, "GRIP_REFRESH", "onepass") != "twopass"
+        if onepass:
+            # test_predictions(standard_zsl=True) reduces to an argmax over
+            # the same class list (UL ignores standard_zsl and uses all
+            # classes - exactly `classes` above)
+            logits = self._predict_logits(unlabeled_examples.filepaths, classes)
+            ids = [f.split("/")[-1] for f in unlabeled_examples.filepaths]
+            preds = [classes[i] for i in logits.argmax(1)]
+            std_preds = pd.DataFrame({"id": ids, "class": preds})
+        else:
+            std_preds = self.test_predictions(unlabeled_examples, standard_zsl=True)
+        pseudo_unseen = dataset_object(cfg.DATASET_NAME)(
+            list(std_preds["id"]),
+            self.data_folder,
+            train=True,
+            labels=None,
+            label_map=self.label_to_idx,
+            class_folder=True,
+            original_filepaths=unlabeled_examples.filepaths,
+        )
+        perm = (
+            self._refresh_permutation(unlabeled_examples.filepaths, pseudo_unseen.filepaths)
+            if onepass
+            else None
+        )
+        if perm is not None:
+            probs = self._softmax64(logits[perm])
+        else:
+            if onepass:
+                log.warning(
+                    "one-pass refresh: resolved paths are ambiguous (duplicate or "
+                    "unmatched basenames); falling back to the two-pass pool scoring "
+                    "for this iteration"
+                )
+            probs = self._tuned_probs(pseudo_unseen.filepaths, classes)
+        return compute_pseudo_labels(
+            probs, pseudo_unseen, classes, self.label_to_idx, cfg.N_PSEUDOSHOTS,
+            method=getattr(cfg, "PSEUDO_TOPK", "exact"),
         )
 
+    @staticmethod
+    def _refresh_permutation(pool_paths, resolved_paths) -> Optional[np.ndarray]:
+        """Map class_folder-resolved paths back to pool rows: exact path match
+        first (the _OriginalPathLookup datasets return pool paths verbatim),
+        basename fallback for layouts that rebuild the path string (DTD,
+        EuroSAT, RESICS45 - reference data/dataset.py:166-180,256-259).
+
+        Returns None when the mapping is ambiguous (a needed basename is
+        duplicated across pool rows, or absent): the caller then falls back
+        to two-pass scoring rather than re-use another image's logits row."""
+        by_path: Dict[str, int] = {}
+        by_name: Dict[str, int] = {}
+        dupes = set()
+        for i, p in enumerate(pool_paths):
+            by_path.setdefault(p, i)
+            name = p.split("/")[-1]
+            if name in by_name:
+                dupes.add(name)
+            else:
+                by_name[name] = i
+        idx = []
+        for p in resolved_paths:
+            j = by_path.get(p)
+            if j is None:
+                name = p.split("/")[-1]
+                if name in dupes or name not in by_name:
+                    return None
+                j = by_name[name]
+            idx.append(j)
+        return np.asarray(idx, np.int64)
+
+    @staticmethod
+    def _softmax64(logits: np.ndarray) -> np.ndarray:
+        l64 = logits.astype(np.float64)
+        p = np.exp(l64 - l64.max(1, keepdims=True))
+        return (p / p.sum(1, keepdims=True)).astype(np.float32)
+
+    def _tuned_probs(self, filepaths, class_list) -> np.ndarray:
+        return self._softmax64(self._predict_logits(filepaths, class_list))
+
+    def fixed_iterative_train(self, train_data, val_data, train_unseen_dataset,
+                              only_seen: bool = False):
+        """IFPL (schedule from reference pseudo_iterative.py:63)."""
+        return self._iterative_train(train_data, val_data, train_unseen_dataset, grow=False)
+
     def grip_train(self, train_data, val_data, train_unseen_dataset, only_seen: bool = False):
-        raise NotImplementedError(
-            "GRIP (grip_train) is not in this package yet: it arrives with the "
-            "IFPL/GRIP slice (ROADMAP M9)"
+        """GRIP: quantile growth of N_PSEUDOSHOTS (pseudo_iterative.py:62-127)."""
+        return self._iterative_train(train_data, val_data, train_unseen_dataset, grow=True)
+
+    def _grip_pseudoshots(self, k: int, num_samples: int, n_unseen: int, pool: int) -> int:
+        """GRIP quantile schedule at iteration k (reference
+        pseudo_iterative.py:64-75 for k=1 and :113-125 for the growth step,
+        which together give N(k) = int(k*num_samples/n_unseen) capped by the
+        pool)."""
+        n_per_class = int(k * num_samples / n_unseen)
+        if n_per_class * n_unseen > pool:
+            n_per_class = math.floor(pool / n_unseen)
+        # degenerate pools (fewer samples than iterations x classes) would
+        # schedule 0 pseudoshots per class and train on nothing; take at
+        # least 1 (the reference's real configs never hit this regime)
+        return max(1, n_per_class)
+
+    def _iterative_train(self, train_data, val_data, unlabeled_data, grow: bool):
+        """The IFPL/GRIP loop.  Iteration 1 takes zero-shot FPL pseudolabels
+        (create_training_dataset); each later one refreshes them with the
+        best prompt so far (get_pseudo_labels).  Every iteration starts from
+        a fresh prompt, saves its prompt and pseudolabels, keeps the best,
+        and with CHECKPOINT_ITER writes a resume state; RESUME restarts after
+        the latest one.  MNT_FAIL_AFTER_ITER=n (environment) raises after
+        iteration n, to exercise the resume."""
+        from menghini_neurips23_tpu_torch.checkpoint import (
+            latest_iteration_state,
+            save_iteration_state,
         )
+
+        cfg = self.config
+        num_iter = int(100 / cfg.STEP_QUANTILE)
+        n_unseen = len(self.classes if self.paradigm == "ul" else self.unseen_classes)
+        pool_size = len(unlabeled_data.filepaths)
+        num_samples = int(pool_size / num_iter)
+        original_train = copy.deepcopy(train_data)
+        original_unlabeled = copy.deepcopy(unlabeled_data)
+        original_val = copy.deepcopy(val_data)
+
+        best_overall = -1.0
+        best_params = self.epoch_parameters()
+        start_iter = 1
+        if cfg.RESUME:
+            state = latest_iteration_state(cfg)
+            if state is not None and state["iteration"] < num_iter:
+                start_iter = state["iteration"] + 1
+                best_overall = state["best_metric"]
+                best_params = state["best_params"]
+                self.load_parameters(best_params)
+                # the permutation RNG stream and the prompt re-init counter:
+                # the resumed run is bit-identical to an uninterrupted one
+                if state.get("rng_state") is not None:
+                    self._rng.bit_generator.state = state["rng_state"]
+                if state.get("reinit") is not None:
+                    self._reinit = int(state["reinit"])
+                log.info(
+                    "resuming from checkpointed iteration %d (best=%.4f)",
+                    state["iteration"], best_overall,
+                )
+            elif state is not None:
+                log.info("run already complete at iteration %d", state["iteration"])
+                self.load_parameters(state["best_params"])
+                return state["best_metric"], state["best_params"]
+
+        for niter in range(start_iter, num_iter + 1):
+            if grow:
+                # ALL_UNLABELED=False freezes N_PSEUDOSHOTS at the iteration-1
+                # value: the reference only grows it inside
+                # `if self.config.ALL_UNLABELED` (pseudo_iterative.py:113-125).
+                # The shared config changes in place: the artifact and cache
+                # names read it.
+                k = niter if cfg.ALL_UNLABELED else 1
+                cfg.N_PSEUDOSHOTS = self._grip_pseudoshots(k, num_samples, n_unseen, pool_size)
+            log.info("iteration %d/%d: N_PSEUDOSHOTS=%d", niter, num_iter, cfg.N_PSEUDOSHOTS)
+            if niter == 1:
+                train_data = self.create_training_dataset(train_data, unlabeled_data)
+            else:
+                refreshed = self.get_pseudo_labels(unlabeled_data)
+                train_data = self._merge_pseudo(copy.deepcopy(original_train), refreshed)
+            # fresh prompts each iteration (paper section 4)
+            self.initialize_prompts_parameters()
+            acc, params = self.train(train_data, copy.deepcopy(original_val), None,
+                                     only_seen=False)
+            save_parameters(params, cfg, iteration=niter)
+            save_pseudo_labels(train_data.filepaths, train_data.labels, cfg, iteration=niter)
+            if acc > best_overall:
+                best_overall = acc
+                best_params = params
+            # the next refresh scores the pool with the best prompt so far
+            self.load_parameters(best_params)
+            if cfg.CHECKPOINT_ITER:
+                save_iteration_state(
+                    cfg, niter, cfg.N_PSEUDOSHOTS, best_overall, best_params,
+                    rng_state=self._rng.bit_generator.state,
+                    reinit=getattr(self, "_reinit", None),
+                )
+            fail_after = int(os.environ.get("MNT_FAIL_AFTER_ITER", "0") or 0)
+            if fail_after and niter == fail_after:
+                raise RuntimeError(f"fault injection: MNT_FAIL_AFTER_ITER={fail_after}")
+            # restore the full pool for the next refresh (the engine mutates it)
+            unlabeled_data = copy.deepcopy(original_unlabeled)
+            train_data = copy.deepcopy(original_train)
+        return best_overall, best_params
 
     # -------------------------------------------------------------- inference
     def load_model_eval(self, iteration=None):

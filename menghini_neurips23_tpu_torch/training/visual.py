@@ -15,7 +15,7 @@ that (ViT-L/14: 1 + 256 + 16 = 273) is refused when the strategy is built.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from menghini_neurips23_tpu_torch.training.strategy import TrainingStrategy
 
 class VisualStrategy(TrainingStrategy):
     MODALITY = "image"
+    MODALITY_NAME = "VPT"
 
     def initialize_prompts_parameters(self):
         """A fresh prompt: `prefix` (PREFIX_SIZE, vision_width) and, with
@@ -54,15 +55,19 @@ class VisualStrategy(TrainingStrategy):
             )
         self._set_prompt(prompt)
 
-    def _refuse_long_sequences(self):
+    def _refuse_long_sequences(self, prefix_len: Optional[int] = None):
         """On the card every step runs K2, which takes T <= BWD_MAX_SEQ: refuse
-        a longer prompted sequence now rather than at the first backward."""
+        a prompted vision sequence of 1 + patches + `prefix_len` tokens above
+        it now rather than at the first backward (VPT's PREFIX_SIZE, the
+        default; UPT passes its VISION_PREFIX_SIZE)."""
         arch = self.runtime.arch
-        T = 1 + arch.num_patches + self.config.PREFIX_SIZE
+        if prefix_len is None:
+            prefix_len = self.config.PREFIX_SIZE
+        T = 1 + arch.num_patches + prefix_len
         if self.device.type == "cuda" and T > BWD_MAX_SEQ:
             raise NotImplementedError(
-                f"VPT at {arch.name}: the prompted vision sequence is 1 + "
-                f"{arch.num_patches} patches + PREFIX_SIZE {self.config.PREFIX_SIZE} = {T} "
+                f"{self.MODALITY_NAME} at {arch.name}: the prompted vision sequence is 1 + "
+                f"{arch.num_patches} patches + {prefix_len} prompt tokens = {T} "
                 f"tokens, above the attention-backward kernel's limit of {BWD_MAX_SEQ}; "
                 "a tiled backward for T > 128 arrives with the ViT-L/14 slice (ROADMAP)"
             )

@@ -62,9 +62,10 @@ EDGE_CASES = [
 # (B, T, W, heads, mask): tiny-test widths (D=16), D=32, then the main path's
 # shapes - ViT-B/32 vision, the text tower truncated, at Flowers102's 48 and
 # at full context, ViT-B/32 vision with a 16-token VPT prefix (a training
-# batch of 16, a validation batch of 256) - ViT-L/14 vision with and without
-# a VPT prefix, and the edge lengths (K1 also past 128 keys, where it takes
-# two sweeps)
+# batch of 16, a validation batch of 256), UPT's vision tower with its
+# 4-token prompt (T = 54, the same two batches) and text tower at the full
+# context over 10 classes - ViT-L/14 vision with and without a VPT prefix,
+# and the edge lengths (K1 also past 128 keys, where it takes two sweeps)
 ATTN_CASES = [
     (4, 17, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -76,6 +77,9 @@ ATTN_CASES = [
     (102, 77, 512, 8, "causal"),
     (16, 66, 768, 12, None),
     (256, 66, 768, 12, None),
+    (16, 54, 768, 12, None),
+    (256, 54, 768, 12, None),
+    (10, 77, 512, 8, "causal"),
     (8, 257, 1024, 16, None),
     (8, 273, 1024, 16, None),
     (2, 129, 64, 2, "causal"),
@@ -101,9 +105,10 @@ def test_attention_kernel_matches_plain(case, dtype):
 
 
 # (B, T, W, heads, mask): tiny-test widths, then the CoOp text tower (C = 10
-# or 102 classes, truncated to 24 or at the full 77) and the ViT-B/32 vision
-# tower with and without a 16-token VPT prefix (the VPT training batch of 16
-# last)
+# or 102 classes, truncated to 24 or at the full 77; UPT's text tower is the
+# (10, 77) case) and the ViT-B/32 vision tower with and without a 16-token
+# VPT prefix (the VPT training batch of 16), then UPT's training batch with
+# its 4-token prompt
 BWD_CASES = [
     (4, 12, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -116,6 +121,7 @@ BWD_CASES = [
     (256, 50, 768, 12, None),
     (256, 66, 768, 12, None),
     (16, 66, 768, 12, None),
+    (16, 54, 768, 12, None),
 ] + EDGE_CASES
 
 
@@ -138,7 +144,7 @@ def test_attention_bwd_kernel_matches_plain(case, dtype):
 
 
 @pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[3], BWD_CASES[7], BWD_CASES[9],
-                                  BWD_CASES[10]],
+                                  BWD_CASES[10], BWD_CASES[4], BWD_CASES[11]],
                          ids=lambda c: "x".join(map(str, c)))
 def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
     """fp32: K1 forward + K2 backward through `FusedAttention` against
@@ -347,3 +353,63 @@ def test_visual_strategy_refuses_vit_l14_on_the_card_at_construction():
     with pytest.raises(NotImplementedError, match="= 273 tokens.*ViT-L/14 slice"):
         VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
     assert (fused_attention.launches, attention_bwd.launches) == launches
+
+
+def test_upt_step_on_card_matches_cpu():
+    """One multimodal_fpl step at ViT-B/32 width, fp32: the card (K1 + K2 in
+    each of the 12 text and 12 vision layers; the mixer's attention is plain
+    PyTorch) against the CPU (their plain versions) from the same weights,
+    UPT prompt, class prompts and token batch.  Every updated parameter
+    within 1e-4, the loss within 1e-5 relative."""
+    _require_card()
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.config import Config
+    from menghini_neurips23_tpu_torch.models import VIT_B32
+    from menghini_neurips23_tpu_torch.runtime import ClipRuntime
+    from menghini_neurips23_tpu_torch.training import MultimodalStrategy
+
+    a = VIT_B32
+    cfg = Config(VIS_ENCODER="ViT-B/32", MODEL="multimodal_fpl", COMPUTE_DTYPE="float32",
+                 BATCH_SIZE=16, OPTIM_SEED=1)
+    cpu_rt = ClipRuntime(cfg, device="cpu")
+    gpu_rt = ClipRuntime(cfg, device="cuda")
+    gpu_rt.model.load_state_dict(cpu_rt.model.state_dict())
+    classes = [str(i) for i in range(10)]
+    l2i = {c: i for i, c in enumerate(classes)}
+    prompt = MultimodalStrategy(cfg, l2i, classes, classes, classes,
+                                runtime=cpu_rt).epoch_parameters()
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(
+        rng.normal(0, 1, (16, 1 + a.num_patches, a.vision_width)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32))
+    group = torch.arange(16, dtype=torch.int32) % 2
+    out = {}
+    for rt in (cpu_rt, gpu_rt):
+        strat = MultimodalStrategy(cfg, l2i, classes, classes, classes, runtime=rt)
+        strat.load_parameters(prompt)
+        strat._w0, strat._w1 = 8.0, 1.0
+        dev = rt.device
+        ctx = strat._class_context(classes)
+        assert tuple(ctx.shape) == (10, 77)
+        f0, b0 = fused_attention.launches, attention_bwd.launches
+        loss, correct = strat._apply_step(ctx, 0.1, tokens.to(dev), labels.to(dev),
+                                          group.to(dev), torch.ones(16, device=dev))
+        launches = (fused_attention.launches - f0, attention_bwd.launches - b0)
+        out[dev.type] = (loss, correct, strat.epoch_parameters(), launches)
+    (lc, cc, pc, nc), (lg, cg, pg, ng) = out["cpu"], out["cuda"]
+    assert nc == (0, 0) and ng == (24, 24)
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and cg == cc
+
+    def leaves(tree):
+        if tree is None:
+            return []
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [x for t in tree for x in leaves(t)]
+        return [np.asarray(tree)]
+
+    for g, c, p in zip(leaves(pg), leaves(pc), leaves(prompt)):
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-4)
+    assert not np.array_equal(leaves(pc)[-1], leaves(prompt)[-1])  # vpt moved

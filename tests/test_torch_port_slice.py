@@ -242,24 +242,31 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, mnist_fixture, t
 @pytest.mark.parametrize(
     "env_extra, exc, match",
     [
-        ({"MODEL": "multimodal_fpl"}, NotImplementedError, "UPT slice"),
+        # every training MODEL runs now: main_template hands it to the workflow
+        ({"MODEL": "multimodal_fpl"}, None, None),
         ({"MODEL": "no_such_model"}, ValueError, "Unknown MODEL"),
         ({"PROFILE_DIR": "prof"}, NotImplementedError, "PROFILE_DIR"),
         ({"COMPILE_CACHE_DIR": "cache"}, NotImplementedError, "COMPILE_CACHE_DIR"),
     ],
     ids=["training-model", "unknown-model", "profile-dir", "compile-cache-dir"],
 )
-def test_main_template_rejects_what_this_slice_lacks(tmp_path, mnist_fixture, env_extra, exc, match):
+def test_main_template_rejects_what_this_slice_lacks(tmp_path, mnist_fixture, monkeypatch, env_extra,
+                                                    exc, match):
     root, _ = mnist_fixture
+    monkeypatch.chdir(tmp_path)  # an accepted run sets up its log file under ./logs
     yml = tmp_path / "c.yml"
     yml.write_text("BATCH_SIZE: 8\n")
     env = dict(DATASET_NAME="MNIST", DATASET_DIR=str(root.parent), MODEL="clip_baseline",
                VIS_ENCODER="tiny-test")
     env.update(env_extra)
     called = []
+    argv = ["--model_config", str(yml), "--learning_paradigm", "ssl"]
+    if exc is None:
+        common.main_template(lambda *a, **k: called.append(a), argv=argv, env=env, device="cpu")
+        assert len(called) == 1 and called[0][1].MODEL == env["MODEL"]
+        return
     with pytest.raises(exc, match=match):
-        common.main_template(lambda *a, **k: called.append(a), argv=[
-            "--model_config", str(yml), "--learning_paradigm", "ssl"], env=env, device="cpu")
+        common.main_template(lambda *a, **k: called.append(a), argv=argv, env=env, device="cpu")
     assert not called
 
 

@@ -57,7 +57,7 @@ from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_atte
 from menghini_neurips23_tpu_torch.runners import common, main_ssl
 from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 from menghini_neurips23_tpu_torch.tokenizer import get_tokenizer
-from menghini_neurips23_tpu_torch.training import TextualStrategy, TrainingStrategy
+from menghini_neurips23_tpu_torch.training import TextualStrategy, TrainingStrategy, strategy_class
 from menghini_neurips23_tpu_torch.training import textual as port_textual
 from menghini_neurips23_tpu_torch.training.losses import two_group_loss
 from menghini_neurips23_tpu_torch.training.schedulers import lr_for_epoch
@@ -436,8 +436,17 @@ def test_main_ssl_cli_runs_on_the_cpu_when_asked(tmp_path, mnist_fixture, ckpt, 
      ("grip_textual", "IFPL/GRIP slice"), ("iterative_textual_fpl", "IFPL/GRIP slice")],
 )
 def test_training_models_of_later_slices_raise_naming_them(model, match):
-    with pytest.raises(NotImplementedError, match=match):
-        common.check_model(model)
-    strat = object.__new__(TrainingStrategy)
-    with pytest.raises(NotImplementedError, match="IFPL/GRIP slice"):
-        strat.grip_train(None, None, None)
+    """The MODELs that `match` named as a later slice run now: check_model
+    accepts them and run_strategy hands each to its training method."""
+    common.check_model(model)
+    modality, method = common.MODEL_DISPATCH[model]
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            return lambda *a, **k: calls.append(name) or (0.0, [])
+
+    assert common.run_strategy(Recorder(), method, None, None, None) == (0.0, [])
+    assert calls == [method]
+    assert callable(getattr(strategy_class(modality), method))
+    assert getattr(TrainingStrategy, method) is getattr(strategy_class(modality), method)
