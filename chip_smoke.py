@@ -6,7 +6,8 @@ pseudolabel path end to end at ViT-B/32's full width (random weights from a
 seed), the SSL CoOp prompt training (textual_prompt, textual_fpl), the UL
 and TRZSL visual prompt training (visual_fpl), and the IFPL/GRIP iterations
 with their resume and the UPT prompts (grip_visual, grip_multimodal,
-iterative_textual_fpl, multimodal_fpl), and checks what they write.
+iterative_textual_fpl, multimodal_fpl), then zero-shot, VPT and UPT at
+ViT-L/14's full width, and checks what they write.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -18,16 +19,19 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      prints ptxas's register report; fails if any entry point spills
      registers
   3. kernels: each kernel against its plain version on the card, fp32 and
-     bf16, at the main path's shapes (K1 also at ViT-L/14's, K3 also at
-     pseudolabel pools of 65,536 rows), with CUDA-event
+     bf16, at the main path's shapes (K1 and K2 also at ViT-L/14's, where
+     K2 takes its tiled path; K3 also at pseudolabel pools of 65,536 rows;
+     two K2 launches must give the same bits), with CUDA-event
      times of the kernel, the plain version and, for attention,
      scaled_dot_product_attention as a yardstick (forward alone; forward +
      backward through autograd beside the K1 + K2 pair - the port never
      calls it), and bound_share = bound_ms / ms; the FusedAttention
-     gradient against autograd of the plain forward; a full-width ViT-B/32
+     gradient against autograd of the plain forward; PSEUDO_TOPK=device on
+     a 5.1M-cell pool against the exact leaderboard; a full-width ViT-B/32
      forward on the card against the same weights on the CPU; one CoOp, one
-     deep VPT and one UPT training step at ViT-B/32 width on the card
-     against the same step on the CPU
+     deep VPT and one UPT training step at ViT-B/32 width, and one deep VPT
+     and one UPT step at ViT-L/14 width (2 rows), on the card against the
+     same step on the CPU
   4. main path: main_clip.workflow on a synthetic 10-class MNIST-layout
      dataset (224x224 PNGs, 64 train + 64 test per class), BATCH_SIZE 256,
      in float32 and in bfloat16
@@ -43,16 +47,19 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      of 5), main_trzsl iterative_textual_fpl fp32 (2 iterations of 5) and
      main_ssl multimodal_fpl fp32 (20 epochs), and a resume check
      (main_ssl grip_textual bf16 uninterrupted, cut after iteration 1 by
-     MNT_FAIL_AFTER_ITER, resumed)
+     MNT_FAIL_AFTER_ITER, resumed); then at ViT-L/14 (24 + 12 layers, W
+     1024 / 768), bf16: main_clip, main_ul visual_fpl and main_ssl
+     multimodal_fpl, 5 epochs each
   8. breakdown: set-up, host decode and device encode of the bf16 pass,
      each timed alone; one bf16 training step of textual_fpl (10 and 102
-     classes), of visual_fpl and of grip_multimodal (UPT) on the host clock
-     and under torch.profiler (device busy time, kernels by name); one GRIP
+     classes), of visual_fpl and of grip_multimodal (UPT), and of ViT-L/14's
+     visual_fpl and multimodal_fpl, on the host clock (with peak device
+     memory) and under torch.profiler (device busy time, kernels by name); one GRIP
      refresh of grip_visual over the 640-image pool, split into its parts
-Phases 4-6 (the zero-shot path), the SSL CoOp runs, the UL/TRZSL VPT runs
-and the IFPL/GRIP/UPT runs with the resume check of phase 7 (three
-training paths) each run with every launch count set to 0 just before and
-read just after; a kernel the path runs must show a launch.  Then one JSON
+Phases 4-6 (the zero-shot path), the SSL CoOp runs, the UL/TRZSL VPT runs,
+the IFPL/GRIP/UPT runs with the resume check and the ViT-L/14 runs of phase
+7 (four training paths) each run with every launch count set to 0 just
+before and read just after; a kernel the path runs must show a launch.  Then one JSON
 line listing each kernel with its launches (the sum over the paths, and by
 path), and last the device line {"ok": true, "device": {...}}.
 """
@@ -228,7 +235,8 @@ def phase_kernels(torch):
         (b, t, 512, 8, "causal") for b in (10, 102) for t in (16, 24, 77)
     ] + [(102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
          (16, 54, 768, 12, None), (256, 54, 768, 12, None),
-         (8, 257, 1024, 16, None), (8, 273, 1024, 16, None)]
+         (8, 257, 1024, 16, None), (8, 273, 1024, 16, None),
+         (16, 273, 1024, 16, None), (16, 261, 1024, 16, None)]
     for dname, dt in dtypes.items():
         for B, T, W, H, mask in shapes:
             D = W // H
@@ -330,10 +338,12 @@ def phase_kernels_bwd(torch):
     # UPT's text tower is the (10, 77) case; Flowers102's (102, 48)), the VPT
     # vision tower (16 prompt tokens; the training batch of 16 and a batch of
     # 256), UPT's vision tower (4 prompt tokens, the training batch) and the
-    # plain ViT-B/32 one
+    # plain ViT-B/32 one; then the lengths K2 tiles: ViT-L/14's VPT (T = 273)
+    # and UPT (T = 261) training batches and a ragged T = 129
     shapes = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
         (102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
         (16, 54, 768, 12, None), (256, 50, 768, 12, None),
+        (16, 273, 1024, 16, None), (16, 261, 1024, 16, None), (16, 129, 1024, 16, None),
     ]
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for B, T, W, H, mask in shapes:
@@ -342,7 +352,9 @@ def phase_kernels_bwd(torch):
             qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
             grad = torch.randn(B, T, W, generator=g, device="cuda").to(dt)
             out = attention_bwd(qkv, grad, mask, H)
+            again = attention_bwd(qkv, grad, mask, H)
             torch.cuda.synchronize()
+            same = torch.equal(out.view(torch.uint8), again.view(torch.uint8))
             ref = attention_bwd_reference(qkv, grad, mask, H).float()
             diff = (out.float() - ref).abs()
             err = diff.max().item()
@@ -363,7 +375,8 @@ def phase_kernels_bwd(torch):
             # reads qkv (3W) and g (W), writes dqkv (3W); five T x T x D products
             b_ms, b_by = bound(B * T * 7 * W * size, 10 * B * H * D * pairs, dname)
             case = dict(shape=[B, T, W, H], mask=mask, dtype=dname, max_abs_err=err,
-                        tol=tol, rtol=tol, ms=ms, plain_ms=plain, pair_ms=pair,
+                        tol=tol, rtol=tol, bit_identical=same, ms=ms, plain_ms=plain,
+                        pair_ms=pair,
                         library_ms=lib, library="autograd.grad of scaled_dot_product_attention "
                         "(forward + backward)", bound_ms=b_ms, bound_by=b_by,
                         bound_share=b_ms / ms)
@@ -371,12 +384,15 @@ def phase_kernels_bwd(torch):
             log("  attention_bwd " + json.dumps(case))
             if not ok:
                 fail(f"attention_bwd disagrees with its plain version: {case}")
+            if not same:
+                fail(f"attention_bwd: two launches on the same inputs differ: {case}")
     # the FusedAttention gradient (K1 forward + K2 backward) against autograd
     # of the plain forward, both on the card, fp32
     from menghini_neurips23_tpu_torch.ops.attention import attention_reference
 
     for B, T, W, H, mask in ((10, 24, 512, 8, "causal"), (256, 66, 768, 12, None),
-                             (10, 77, 512, 8, "causal"), (16, 54, 768, 12, None)):
+                             (10, 77, 512, 8, "causal"), (16, 54, 768, 12, None),
+                             (4, 273, 1024, 16, None)):
         qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda")
         grad = torch.randn(B, T, W, generator=g, device="cuda")
         a = qkv.clone().requires_grad_(True)
@@ -392,13 +408,52 @@ def phase_kernels_bwd(torch):
     return cases
 
 
-def step_runtimes(torch):
-    """ViT-B/32 fp32 runtimes on the CPU and on the card, with the same
+def phase_device_topk(torch):
+    """PSEUDO_TOPK='device' on the card: a 50,000 x 102 pool (5.1M cells,
+    above the host delegation's 5M) with no board overflowing at k = 700,
+    against the exact host leaderboard (byte-identical lists), each timed
+    on the host clock (the device path's copies included)."""
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.pseudo import leaderboard_top_k
+    from menghini_neurips23_tpu_torch.pseudo import device_topk as mod
+
+    n, c, k = 50_000, 102, 700
+    rng = np.random.default_rng(11)
+    logits = rng.normal(0, 2, (n, c))
+    probs = np.exp(logits - logits.max(1, keepdims=True))
+    probs /= probs.sum(1, keepdims=True)
+    paths = [f"pool/img_{i:05d}.png" for i in range(n)]
+    ids = list(range(c))
+    ranked, inner = [], mod._segmented_topk_scores
+    mod._segmented_topk_scores = lambda *a: ranked.append(a[-1]) or inner(*a)
+    try:
+        mod.device_topk(probs, paths, k, ids, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = mod.device_topk(probs, paths, k, ids, device="cuda")
+        dev_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        mod._segmented_topk_scores = inner
+    t0 = time.perf_counter()
+    want = leaderboard_top_k(probs, paths, k, ids)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"pool": [n, c], "k": k, "selected": len(got[0]),
+           "ranked_on": sorted({str(d) for d in ranked}), "equal": got == want,
+           "device_topk_ms": dev_ms, "host_leaderboard_ms": host_ms}
+    log("  device top-k vs the exact leaderboard: " + json.dumps(rec))
+    if got != want or not ranked or any(d.type != "cuda" for d in ranked):
+        fail(f"device top-k: not the exact leaderboard's selection, or not ranked on the card: "
+             f"{rec}")
+
+
+def step_runtimes(torch, encoder: str = "ViT-B/32"):
+    """fp32 runtimes of `encoder` on the CPU and on the card, with the same
     (random, seeded) weights."""
     from menghini_neurips23_tpu_torch.config import Config
     from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 
-    cfg = Config(VIS_ENCODER="ViT-B/32", COMPUTE_DTYPE="float32", BATCH_SIZE=16, OPTIM_SEED=1)
+    cfg = Config(VIS_ENCODER=encoder, COMPUTE_DTYPE="float32", BATCH_SIZE=16, OPTIM_SEED=1)
     cpu_rt = ClipRuntime(cfg, device="cpu")
     gpu_rt = ClipRuntime(cfg, device="cuda")
     gpu_rt.model.load_state_dict(cpu_rt.model.state_dict())
@@ -423,19 +478,21 @@ def one_step_card_vs_cpu(torch, runtimes, what, cls, cfg, prompt, feats, ctx=Non
                          launches=(12, 12)):
     """One training step of strategy `cls` (two loss groups at textual_fpl's
     balance, 128 pseudo / 16 labeled) from the same weights, prompt, class
-    context and batch: on the card through K1 + K2, on the CPU through the
-    plain versions.  `ctx` None takes the strategy's own class context;
-    `launches` is the (K1, K2) count the step makes on the card."""
+    context and batch of `feats` rows: on the card through K1 + K2, on the
+    CPU through the plain versions.  `ctx` None takes the strategy's own
+    class context; `launches` is the (K1, K2) count the step makes on the
+    card."""
     import numpy as np
 
     from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
 
     classes = [str(i) for i in range(N_CLASSES)]
     l2i = {c: i for i, c in enumerate(classes)}
+    rows = feats.shape[0]
     rng = np.random.default_rng(0)
-    labels = torch.from_numpy(rng.integers(0, N_CLASSES, 16).astype(np.int32))
-    group = torch.from_numpy((np.arange(16) % 2).astype(np.int32))
-    valid = torch.ones(16)
+    labels = torch.from_numpy(rng.integers(0, N_CLASSES, rows).astype(np.int32))
+    group = torch.from_numpy((np.arange(rows) % 2).astype(np.int32))
+    valid = torch.ones(rows)
     out = {}
     for name, rt in runtimes.items():
         strat = cls(cfg, l2i, classes, classes, classes, runtime=rt)
@@ -459,7 +516,7 @@ def one_step_card_vs_cpu(torch, runtimes, what, cls, cfg, prompt, feats, ctx=Non
            "loss_rel_err": l_rel, "correct": [cc, cg], "prompt_max_abs_err": p_err,
            "prompt_moved_min": moved, "card_launches_k1_k2": list(ng),
            "cpu_launches_k1_k2": list(nc)}
-    log(f"  one {what} step, ViT-B/32 fp32, card vs CPU: {json.dumps(rec)} "
+    log(f"  one {what} step, {runtimes['cuda'].arch.name} fp32, card vs CPU: {json.dumps(rec)} "
         f"(tol {STEP_PREFIX_TOL} abs prompt, {STEP_LOSS_RTOL} rel loss)")
     if not (len(pg) == len(pc) == len(start) and p_err <= STEP_PREFIX_TOL
             and l_rel <= STEP_LOSS_RTOL and cc == cg and moved > 0):
@@ -487,43 +544,43 @@ def phase_one_step(torch, runtimes):
                          torch.from_numpy(feats))
 
 
-def phase_one_vpt_step(torch, runtimes):
-    """One deep VPT step (visual_fpl, VPT_DEEP on) at ViT-B/32 width, fp32,
-    card vs CPU: the vision tower over a batch of 16 token sequences with the
-    16-token prefix (T = 66) and the 11 layers' deep prompts, against 10
-    frozen text features."""
+def phase_one_vpt_step(torch, runtimes, rows: int = 16):
+    """One deep VPT step (visual_fpl, VPT_DEEP on) at the runtimes' full
+    width, fp32, card vs CPU: the vision tower over a batch of `rows` token
+    sequences with the 16-token prefix (T = 66 at ViT-B/32, 273 at ViT-L/14)
+    and every later layer's deep prompts, against 10 frozen text features."""
     import numpy as np
 
     from menghini_neurips23_tpu_torch.config import Config
-    from menghini_neurips23_tpu_torch.models import VIT_B32
     from menghini_neurips23_tpu_torch.models.prompts import init_deep_prefix, init_prefix
     from menghini_neurips23_tpu_torch.training import VisualStrategy
 
-    a = VIT_B32
-    cfg = Config(VIS_ENCODER="ViT-B/32", MODEL="visual_fpl", COMPUTE_DTYPE="float32",
+    a = runtimes["cuda"].arch
+    cfg = Config(VIS_ENCODER=a.name, MODEL="visual_fpl", COMPUTE_DTYPE="float32",
                  BATCH_SIZE=16, OPTIM_SEED=1, VPT_DEEP=True)
     gen = torch.Generator().manual_seed(7)
     prompt = [init_prefix(gen, 16, a.vision_width).numpy(),
               init_deep_prefix(gen, a.vision_layers - 1, 16, a.vision_width).numpy()]
     rng = np.random.default_rng(1)
-    tokens = rng.normal(0, 1, (16, 1 + a.num_patches, a.vision_width)).astype(np.float32)
+    tokens = rng.normal(0, 1, (rows, 1 + a.num_patches, a.vision_width)).astype(np.float32)
     text = rng.normal(0, 1, (N_CLASSES, a.embed_dim)).astype(np.float32)
     text /= np.linalg.norm(text, axis=1, keepdims=True)
     one_step_card_vs_cpu(torch, runtimes, "deep VPT", VisualStrategy, cfg, prompt,
-                         torch.from_numpy(tokens), torch.from_numpy(text))
+                         torch.from_numpy(tokens), torch.from_numpy(text),
+                         launches=(a.vision_layers,) * 2)
 
 
-def phase_one_upt_step(torch, runtimes):
-    """One UPT step (multimodal_fpl) at ViT-B/32 width, fp32, card vs CPU:
-    the mixer (plain fp32 attention, no kernel), the text tower over the 10
-    class prompts at the full 77 tokens and the vision tower over a batch of
-    16 token sequences with the 4-token prompt (T = 54); 12 K1 + 12 K2 in
-    each tower.  The UPT prompt (coop, vpt and every mixer parameter) is
-    one torch.Generator draw."""
+def phase_one_upt_step(torch, runtimes, rows: int = 16):
+    """One UPT step (multimodal_fpl) at the runtimes' full width, fp32, card
+    vs CPU: the mixer (plain fp32 attention, no kernel), the text tower over
+    the 10 class prompts at the full 77 tokens and the vision tower over a
+    batch of `rows` token sequences with the 4-token prompt (T = 54 at
+    ViT-B/32, 261 at ViT-L/14); a K1 and a K2 in every layer of both towers.
+    The UPT prompt (coop, vpt and every mixer parameter) is one
+    torch.Generator draw."""
     import numpy as np
 
     from menghini_neurips23_tpu_torch.config import Config
-    from menghini_neurips23_tpu_torch.models import VIT_B32
     from menghini_neurips23_tpu_torch.models.prompts import (
         build_upt_mixer,
         init_upt_params,
@@ -531,16 +588,17 @@ def phase_one_upt_step(torch, runtimes):
     )
     from menghini_neurips23_tpu_torch.training import MultimodalStrategy
 
-    a = VIT_B32
-    cfg = Config(VIS_ENCODER="ViT-B/32", MODEL="multimodal_fpl", COMPUTE_DTYPE="float32",
+    a = runtimes["cuda"].arch
+    cfg = Config(VIS_ENCODER=a.name, MODEL="multimodal_fpl", COMPUTE_DTYPE="float32",
                  BATCH_SIZE=16, OPTIM_SEED=1)
     p = init_upt_params(torch.Generator().manual_seed(7), cfg, a)
     mixer = build_upt_mixer(a, cfg, p["mixer"], "cpu")
     prompt = mixer_parts(mixer) + [p["coop"].numpy(), None, p["vpt"].numpy()]
     rng = np.random.default_rng(1)
-    tokens = rng.normal(0, 1, (16, 1 + a.num_patches, a.vision_width)).astype(np.float32)
+    tokens = rng.normal(0, 1, (rows, 1 + a.num_patches, a.vision_width)).astype(np.float32)
     one_step_card_vs_cpu(torch, runtimes, "UPT", MultimodalStrategy, cfg, prompt,
-                         torch.from_numpy(tokens), launches=(24, 24))
+                         torch.from_numpy(tokens),
+                         launches=(a.transformer_layers + a.vision_layers,) * 2)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -589,23 +647,25 @@ def make_dataset(root: str):
     return classes
 
 
-def _config(data_dir: str, artifacts: str, dtype: str, model: str = "clip_baseline"):
+def _config(data_dir: str, artifacts: str, dtype: str, model: str = "clip_baseline",
+            encoder: str = "ViT-B/32"):
     from menghini_neurips23_tpu_torch.config import Config
 
     return Config(
-        DATASET_NAME="MNIST", DATASET_DIR=data_dir, MODEL=model, VIS_ENCODER="ViT-B/32",
+        DATASET_NAME="MNIST", DATASET_DIR=data_dir, MODEL=model, VIS_ENCODER=encoder,
         LEARNING_PARADIGM="ssl", PROMPT_TEMPLATE="a photo of a {}", BATCH_SIZE=256,
         COMPUTE_DTYPE=dtype, OPTIM_SEED=1, SPLIT_SEED=500, ARTIFACT_DIR=artifacts,
     )
 
 
-def phase_main_clip(torch, data_dir: str, work: str, dtype: str):
+def phase_main_clip(torch, data_dir: str, work: str, dtype: str, encoder: str = "ViT-B/32"):
     import numpy as np
 
     from menghini_neurips23_tpu_torch.runners import main_clip
 
-    artifacts = f"{work}/artifacts_{dtype}"
-    cfg = _config(data_dir, artifacts, dtype)
+    enc = encoder.replace("/", "")
+    artifacts = f"{work}/artifacts_{dtype}_{enc}"
+    cfg = _config(data_dir, artifacts, dtype, encoder=encoder)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     resp = main_clip.workflow(cfg.DATASET_DIR, cfg, device="cuda")
@@ -614,16 +674,18 @@ def phase_main_clip(torch, data_dir: str, work: str, dtype: str):
     n = N_CLASSES * N_PER_CLASS
     with open(f"{artifacts}/results_model_clip_baseline.json") as f:
         rec = json.loads(f.readline())
-    with open(f"{artifacts}/evaluation/MNIST_ssl_clip_baseline_ViT-B32_opt_1_spl_500.pickle", "rb") as f:
+    stem = f"MNIST_ssl_clip_baseline_{enc}_opt_1_spl_500.pickle"
+    with open(f"{artifacts}/evaluation/{stem}", "rb") as f:
         pred = pickle.load(f)
     logits = np.asarray(pred["logits"])
+    what = f"main_clip[{encoder}, {dtype}]"
     if rec["model"] != "clip_baseline" or not 0.0 <= rec["accuracy"] <= 1.0:
-        fail(f"main_clip[{dtype}]: bad results line {rec}")
+        fail(f"{what}: bad results line {rec}")
     if logits.shape != (n, N_CLASSES) or not np.isfinite(logits).all():
-        fail(f"main_clip[{dtype}]: logits {logits.shape}, finite={np.isfinite(logits).all()}")
+        fail(f"{what}: logits {logits.shape}, finite={np.isfinite(logits).all()}")
     if len(pred["predictions"]) != n or len(pred["images"]) != n:
-        fail(f"main_clip[{dtype}]: {len(pred['predictions'])} predictions for {n} images")
-    log(f"  main_clip[{dtype}]: accuracy {resp[0]:.4f}, {n} test images, wall {wall:.3f} s "
+        fail(f"{what}: {len(pred['predictions'])} predictions for {n} images")
+    log(f"  {what}: accuracy {resp[0]:.4f}, {n} test images, wall {wall:.3f} s "
         f"({n / wall:.1f} img/s end to end, runtime set-up and decode included)")
     return wall
 
@@ -714,16 +776,16 @@ def phase_serving(torch, data_dir: str, work: str):
 
 # ---------------------------------------------------------------- phase 7
 def train_config(data_dir: str, artifacts: str, paradigm: str, model: str, dtype: str,
-                 epochs: int, step_quantile=None):
-    """The bundled configs/<model>_config.yml with the launcher's environment,
-    `epochs` epochs in `dtype`, artifacts under `artifacts`; for IFPL/GRIP
-    100 / `step_quantile` iterations."""
+                 epochs: int, step_quantile=None, encoder: str = "ViT-B/32"):
+    """The bundled configs/<model>_config.yml with the launcher's environment
+    (VIS_ENCODER `encoder`), `epochs` epochs in `dtype`, artifacts under
+    `artifacts`; for IFPL/GRIP 100 / `step_quantile` iterations."""
     import argparse
 
     from menghini_neurips23_tpu_torch.runners import common
 
     env = dict(DATASET_NAME="MNIST", DATASET_DIR=data_dir, MODEL=model,
-               VIS_ENCODER="ViT-B/32", OPTIM_SEED="1", SPLIT_SEED="500")
+               VIS_ENCODER=encoder, OPTIM_SEED="1", SPLIT_SEED="500")
     args = argparse.Namespace(model_config=f"{model}_config.yml", learning_paradigm=paradigm)
     cfg = common.load_config(args, env=env)
     cfg.EPOCHS, cfg.COMPUTE_DTYPE, cfg.ARTIFACT_DIR = epochs, dtype, artifacts
@@ -787,7 +849,7 @@ class RunLog:
 
 
 def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtype: str,
-                epochs: int, step_quantile=None, schedule=None):
+                epochs: int, step_quantile=None, schedule=None, encoder: str = "ViT-B/32"):
     """main_<paradigm>.workflow for one prompt MODEL (CoOp, VPT or UPT; one
     run, FPL, or IFPL/GRIP iterations) with its bundled config (N_LABEL 2,
     PREFIX_SIZE 16 or UPT's 4 + 4 tokens, N_PSEUDOSHOTS 16, BATCH_SIZE 16,
@@ -806,8 +868,9 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
     from menghini_neurips23_tpu_torch.training import TrainingStrategy
 
     runner = importlib.import_module(f"{PKG}.runners.main_{paradigm}")
-    artifacts = f"{work}/artifacts_{paradigm}_{model}_{dtype}"
-    cfg = train_config(data_dir, artifacts, paradigm, model, dtype, epochs, step_quantile)
+    artifacts = f"{work}/artifacts_{paradigm}_{model}_{dtype}_{encoder.replace('/', '')}"
+    cfg = train_config(data_dir, artifacts, paradigm, model, dtype, epochs, step_quantile,
+                       encoder)
     method = common.MODEL_DISPATCH[model][1]
     iterative = method in ("fixed_iterative_train", "grip_train")
     n_iter = int(100 / cfg.STEP_QUANTILE) if iterative else 1
@@ -852,7 +915,7 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
         TrainingStrategy._apply_step, common.run_strategy = step, run
         TrainingStrategy.train = train
 
-    what = f"train[{paradigm}, {model}]"
+    what = f"train[{paradigm}, {model}, {encoder}]"
     enc = cfg.VIS_ENCODER.replace("/", "")
     stem = f"MNIST_{paradigm}_{model}_{enc}_opt_1_spl_500.pickle"
     strategy = seen["strategy"]
@@ -965,7 +1028,8 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
     torch.cuda.synchronize()
     ev_ms = sorted(a.elapsed_time(b) for a, b in events)
     out = {
-        "paradigm": paradigm, "model": model, "dtype": dtype, "epochs": epochs,
+        "paradigm": paradigm, "model": model, "encoder": encoder, "dtype": dtype,
+        "epochs": epochs,
         "iterations": n_iter, "n_pseudoshots_by_iteration": sched if iterative else None,
         "prompt": [list(np.asarray(x).shape) for x in saved_prompt(cfg, final)],
         "training_rows": rows, "pseudolabel_group_rows": n_group1,
@@ -1114,8 +1178,8 @@ def phase_refresh_profile(torch, strategy, data_dir: str):
 def phase_step_profile(torch, strategy, files, n: int = 20):
     """Where one training step's time goes: `n` steps of the trained strategy
     (lr 0, a fixed batch of the first 16 of `files`) timed on the host clock
-    alone, then again under torch.profiler for the device's busy time and the
-    kernels by name."""
+    alone, with the peak device memory they allocate, then again under
+    torch.profiler for the device's busy time and the kernels by name."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = strategy.device
@@ -1138,7 +1202,10 @@ def phase_step_profile(torch, strategy, files, n: int = 20):
         return (time.perf_counter() - t0) * 1e3 / n
 
     steps()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     wall_ms = steps()
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_wall_ms = steps()
     from torch.autograd import DeviceType
@@ -1157,9 +1224,11 @@ def phase_step_profile(torch, strategy, files, n: int = 20):
             launched += e.count
     busy = sum(kernels.values())
     out = {
-        "model": strategy.config.MODEL, "dtype": strategy.config.COMPUTE_DTYPE,
+        "model": strategy.config.MODEL, "encoder": strategy.config.VIS_ENCODER,
+        "dtype": strategy.config.COMPUTE_DTYPE,
         "class_context": list(ctx.shape), "batch": list(feats.shape), "steps": n,
-        "wall_ms_per_step": wall_ms,
+        "wall_ms_per_step": wall_ms, "resident_bytes": resident,
+        "peak_allocated_bytes": peak,
         "profiled_wall_ms_per_step": prof_wall_ms,
         "device_ops_per_step": launched / n if kernels else None,
         "device_busy_ms_per_step": busy if kernels else None,
@@ -1211,6 +1280,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
     import torch
 
     from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
@@ -1223,12 +1293,19 @@ def main() -> int:
     log("[3] kernels vs plain versions")
     attn_cases, head_cases = phase_kernels(torch)
     bwd_cases = phase_kernels_bwd(torch)
+    phase_device_topk(torch)
     phase_model_reference(torch)
     runtimes = step_runtimes(torch)
     phase_one_step(torch, runtimes)
     phase_one_vpt_step(torch, runtimes)
     phase_one_upt_step(torch, runtimes)
+    # ViT-L/14 at full width, 2 rows: VPT at T = 273 and UPT at T = 261 take
+    # K2's tiled path on the card
+    runtimes = step_runtimes(torch, "ViT-L/14")
+    phase_one_vpt_step(torch, runtimes, rows=2)
+    phase_one_upt_step(torch, runtimes, rows=2)
     del runtimes
+    torch.cuda.empty_cache()
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -1264,11 +1341,15 @@ def main() -> int:
         log("[6] serving")
         walls["serving"] = phase_serving(torch, data_dir, work)
 
-    def training_runs(runs, resume=False):
+    def training_runs(runs, resume=False, encoder="ViT-B/32"):
+        # ViT-B/32 runs keep their keys; other encoders' carry their name
+        at = "" if encoder == "ViT-B/32" else f"@{encoder}"
+
         def run():
             for paradigm, model, dtype, epochs, *iterative in runs:
-                walls[f"{paradigm}_{model}_{dtype}"], trained[f"{paradigm}_{model}"] = phase_train(
-                    torch, data_dir, work, paradigm, model, dtype, epochs, *iterative)
+                walls[f"{paradigm}_{model}_{dtype}{at}"], trained[f"{paradigm}_{model}{at}"] = \
+                    phase_train(torch, data_dir, work, paradigm, model, dtype, epochs, *iterative,
+                                encoder=encoder)
             if resume:
                 walls["resume_check"] = phase_resume(torch, data_dir, work)
         return run
@@ -1287,6 +1368,17 @@ def main() -> int:
          ("ssl", "grip_multimodal", "bfloat16", 5, 25),
          ("trzsl", "iterative_textual_fpl", "float32", 5, 50),
          ("ssl", "multimodal_fpl", "float32", 20)], resume=True))
+    log("[7] ViT-L/14 (zero-shot, UL VPT, SSL UPT)")
+
+    def vit_l14_path():
+        walls["main_clip_bfloat16@ViT-L/14"] = phase_main_clip(
+            torch, data_dir, work, "bfloat16", encoder="ViT-L/14")
+        training_runs([("ul", "visual_fpl", "bfloat16", 5),
+                       ("ssl", "multimodal_fpl", "bfloat16", 5)], encoder="ViT-L/14")()
+
+    # full ViT-L/14 width and depth (24 + 12 layers), bf16, the training
+    # runs cut to 5 epochs: VPT's vision tower at T = 273, UPT's at 261
+    counted("ViT-L/14", tuple(wrappers), vit_l14_path)
     launches = {name: sum(c[name] for c in by_path.values()) for name in wrappers}
     log("phase wall seconds: " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
     log("[8] breakdown")
@@ -1310,6 +1402,10 @@ def main() -> int:
     # one bf16 UPT step: the mixer, the text tower over 10 x 77 tokens and
     # the vision tower over 16 x 54, forward and backward
     phase_step_profile(torch, trained["ssl_grip_multimodal"], train_files)
+    # the same VPT and UPT steps at ViT-L/14: 16 x 273 and 16 x 261 vision
+    # tokens through 24 layers
+    phase_step_profile(torch, trained["ul_visual_fpl@ViT-L/14"], train_files)
+    phase_step_profile(torch, trained["ssl_multimodal_fpl@ViT-L/14"], train_files)
     phase_refresh_profile(torch, trained["ul_grip_visual"], data_dir)
 
     def entry(name, source, replaces, cases, headline):
@@ -1338,6 +1434,7 @@ def main() -> int:
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "menghini_neurips23_tpu"))
     if leaked:
         fail(f"the port imported JAX or the JAX package: {leaked[:5]}")
+    log(f"smoke wall {time.perf_counter() - t_start:.1f} s (kernel builds included)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,10 @@ tensor takes that version, a CUDA tensor launches the kernel or raises.
 
 It runs zero-shot evaluation (runners.main_clip), serving (predict), and
 CoOp, VPT and UPT prompt training with FPL, IFPL and GRIP pseudolabels
-under SSL, UL and TRZSL (runners.main_ssl, main_ul, main_trzsl), through
-the attention forward (K1) and backward (K2) and CLIP-head (K3) kernels.
+under SSL, UL and TRZSL (runners.main_ssl, main_ul, main_trzsl), at
+ViT-B/32 and ViT-L/14, through the attention forward (K1) and backward (K2)
+and CLIP-head (K3) kernels; `doctor` checks a host and `aggregate` averages
+results across seeds.
 Entry points run on CUDA unless the caller passes device="cpu".
 The package imports torch, never jax, and nothing of menghini_neurips23_tpu.
 """

@@ -109,7 +109,7 @@ class Config:
     RESUME: bool = True  # IFPL/GRIP start after the run's latest checkpointed iteration, bit-identical to an uninterrupted run
     PROFILE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
     COMPILE_CACHE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
-    PSEUDO_TOPK: str = "exact"  # exact (reference leaderboard) | device (not in this package yet)
+    PSEUDO_TOPK: str = "exact"  # exact (reference leaderboard) | device (torch.topk on the runtime device, byte-identical)
     GRIP_REFRESH: str = "onepass"  # IFPL/GRIP pseudolabel refresh: onepass scores the pool once | twopass, the reference's two passes (the same pseudolabels)
     FUSED_MAX_BYTES: int = 6_000_000_000  # training features above half this stream per batch instead of staying on the device
     HOST_CACHE_BYTES: int = 4_000_000_000  # byte cap for the per-image host feature LRU

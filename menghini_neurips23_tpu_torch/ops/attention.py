@@ -13,8 +13,8 @@ read the fused layout in place and never write the (B, H, T, T) scores to
 device memory.  On a CPU tensor each takes its plain version,
 `attention_reference` and `attention_bwd_reference`, which perform the same
 arithmetic with PyTorch operators.  There is no other path: anything a
-kernel does not take raises, the backward's T above 128 (ViT-L/14's 257 and
-273) among it.
+kernel does not take raises, T above 320 among it (ViT-L/14's 257, 261 and
+273 are taken: the backward tiles sequences above 128 tokens).
 
 When `qkv` requires grad (and grad mode is on) the call goes through
 `FusedAttention`, a `torch.autograd.Function` that saves only `qkv` and
@@ -43,9 +43,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 _MAX_SMEM_BYTES = 227 * 1024  # per-block shared memory on an H100
 # the backward kernel's longest sequence (kMaxSeq in csrc/attention_bwd.cu,
-# which the wrapper reads from the library); callers that know their T before
-# the first launch refuse early against it
-BWD_MAX_SEQ = 128
+# which the wrapper reads from the library; the forward's range at D = 64);
+# callers that know their T before the first launch refuse early against it
+BWD_MAX_SEQ = 320
 
 _FWD_SIGNATURES = {
     "mnt_attention_fwd": (
@@ -59,13 +59,14 @@ _FWD_SIGNATURES = {
 
 _BWD_SIGNATURES = {
     "mnt_attention_bwd": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p],
         ctypes.c_int,
     ),
     "mnt_attention_bwd_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
     "mnt_attention_bwd_max_seq": ([], ctypes.c_int),
+    "mnt_attention_bwd_workspace": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
     **_cuda.ERROR_STRING,
 }
 
@@ -186,7 +187,10 @@ def attention_bwd(
     """(B, T, 3W) qkv + (B, T, W) output gradient -> (B, T, 3W) dqkv.
 
     CPU tensors take `attention_bwd_reference`; CUDA tensors launch the
-    kernel (counted in `attention_bwd.launches`) or raise."""
+    kernel (counted in `attention_bwd.launches`, one per call) or raise.  Up
+    to 128 tokens a call is one grid launch; above, the tiled path is two
+    (the query side, then the key side), on an fp32 workspace of B*H*T*12
+    bytes allocated here."""
     _check_mask(mask)
     if qkv.device != g.device:
         raise ValueError(f"attention_bwd: qkv on {qkv.device}, g on {g.device}")
@@ -206,9 +210,8 @@ def attention_bwd(
     max_seq = lib.mnt_attention_bwd_max_seq()
     if T > max_seq:
         raise ValueError(
-            f"attention_bwd: T={T} exceeds the kernel's limit of {max_seq} (P and dS of a "
-            "whole (row, head) live in shared memory; a tiled backward for ViT-L/14 is not "
-            "ported yet)"
+            f"attention_bwd: T={T} exceeds the kernel's limit of {max_seq} (the forward "
+            "kernel's range at D = 64)"
         )
     _check_smem("attention_bwd", lib.mnt_attention_bwd_smem(T, D), T)
     dqkv = torch.empty_like(qkv)
@@ -216,9 +219,13 @@ def attention_bwd(
         return dqkv
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        # the tiled path's row statistics, held here until the launch is queued
+        ws_bytes = lib.mnt_attention_bwd_workspace(B, T, heads)
+        ws = (torch.empty(ws_bytes // 4, dtype=torch.float32, device=qkv.device)
+              if ws_bytes else None)
         code = lib.mnt_attention_bwd(
-            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, T, W, heads, D**-0.5,
-            int(mask == "causal"), _DTYPE_CODES[qkv.dtype], stream,
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), None if ws is None else ws.data_ptr(),
+            B, T, W, heads, D**-0.5, int(mask == "causal"), _DTYPE_CODES[qkv.dtype], stream,
         )
     _cuda.check(lib, code, "attention_bwd")
     attention_bwd.launches += 1

@@ -127,24 +127,30 @@ def compute_pseudo_labels(
     k: int,
     filename: str | None = None,
     method: str = "exact",
+    device=None,
 ):
     """Apply top-K selection and mutate `dataset` in place (reference
     protocol, clip_pseudolabels.py:111-117); optionally pickle the result.
 
-    :param method: "exact" = the reference's sequential leaderboard cascade.
-        "device" (a top-k on the device) arrives with a later slice of this
-        package and raises here.
+    :param method: "exact" = the reference's sequential leaderboard cascade;
+        "device" = one torch.topk on `device` (pseudo/device_topk.py).  Both
+        produce byte-identical output: the device path self-gates on the
+        board-overflow condition and takes the exact cascade when the top-k
+        cannot reproduce it.
+    :param device: where "device" ranks (the caller's runtime device); it
+        must be given with that method.
     """
-    if method == "device":
-        raise NotImplementedError(
-            "PSEUDO_TOPK='device' is not in this package yet: the device top-k "
-            "(pseudo/device_topk.py) is ported with the tools slice (M13); use "
-            "PSEUDO_TOPK='exact'"
-        )
     class_ids = [label_to_idx[c] for c in classnames]
     if k <= 0:
-        # degenerate budget: select nothing
+        # degenerate budget: select nothing, whichever backend was asked for
         new_imgs, new_labels = [], []
+    elif method == "device":
+        if device is None:
+            raise ValueError("PSEUDO_TOPK='device' needs the device to rank on")
+        from menghini_neurips23_tpu_torch.pseudo.device_topk import device_topk
+
+        new_imgs, new_labels = device_topk(probs, dataset.filepaths, k, class_ids,
+                                           device=device)
     else:
         new_imgs, new_labels = leaderboard_top_k(probs, dataset.filepaths, k, class_ids)
     dataset.filepaths = new_imgs
@@ -181,12 +187,14 @@ def pseudolabel_top_k(
     classnames: Sequence[str],
     label_to_idx: Dict[str, int],
     probs_fn,
+    device=None,
 ):
     """Cache-or-compute wrapper (reference clip_pseudolabels.py:120-157).
 
     :param probs_fn: () -> (N, C) probabilities over `dataset.filepaths` x
         `classnames`; only called on cache miss (it is the expensive batched
         device pass).
+    :param device: where PSEUDO_TOPK='device' ranks (`compute_pseudo_labels`).
     """
     filename = pseudolabel_cache_path(
         getattr(config, "ARTIFACT_DIR", "."),
@@ -207,5 +215,5 @@ def pseudolabel_top_k(
     probs = probs_fn()
     method = getattr(config, "PSEUDO_TOPK", "exact")
     return compute_pseudo_labels(
-        probs, dataset, classnames, label_to_idx, k, filename, method=method
+        probs, dataset, classnames, label_to_idx, k, filename, method=method, device=device
     )

@@ -11,9 +11,9 @@ prompts at the full 77-token context (causal), and the vision tower over
 the cached pos-embedded patch tokens of the batch with the mixed vpt prompt
 inserted after CLS.  On the card every layer of both towers runs K1 forward
 and K2 backward (ops/attention.py); the mixer's own attention is plain fp32
-PyTorch by design (models/prompts.py `mixer_attention`).  K2 takes T <= 128,
-so a prompted vision sequence longer than that (ViT-L/14: 1 + 256 + 4 =
-261) is refused when the strategy is built.
+PyTorch by design (models/prompts.py `mixer_attention`).  K2 takes T <= 320
+(ViT-L/14's 1 + 256 + 4 = 261 through its tiled path), so a prompted vision
+sequence longer than that is refused when the strategy is built.
 """
 
 from __future__ import annotations

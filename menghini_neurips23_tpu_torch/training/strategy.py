@@ -348,7 +348,7 @@ class TrainingStrategy:
 
         pseudolabel_top_k(
             cfg, cfg.DATASET_NAME, cfg.N_PSEUDOSHOTS, unlabeled_data,
-            pseudo_classes, self.label_to_idx, probs_fn,
+            pseudo_classes, self.label_to_idx, probs_fn, device=self.device,
         )
         return self._merge_pseudo(train_data, unlabeled_data)
 
@@ -631,7 +631,7 @@ class TrainingStrategy:
             probs = self._tuned_probs(pseudo_unseen.filepaths, classes)
         return compute_pseudo_labels(
             probs, pseudo_unseen, classes, self.label_to_idx, cfg.N_PSEUDOSHOTS,
-            method=getattr(cfg, "PSEUDO_TOPK", "exact"),
+            method=getattr(cfg, "PSEUDO_TOPK", "exact"), device=self.device,
         )
 
     @staticmethod

@@ -9,8 +9,9 @@ ViT-B/32), so each step runs only ln_pre -> transformer -> ln_post -> proj
 over (B, 1+L+N, width), with the gradient flowing to the (L, width) prefix
 and, with VPT_DEEP, to the (vision_layers-1, L, width) deep prompts.  On the
 card every vision layer's attention runs K1 forward and K2 backward
-(ops/attention.py).  K2 takes T <= 128, so a prompted sequence longer than
-that (ViT-L/14: 1 + 256 + 16 = 273) is refused when the strategy is built.
+(ops/attention.py).  K2 takes T <= 320 (above 128 through its tiled path:
+ViT-L/14's 1 + 256 + 16 = 273), so a prompted sequence longer than that is
+refused when the strategy is built.
 """
 
 from __future__ import annotations
@@ -68,8 +69,7 @@ class VisualStrategy(TrainingStrategy):
             raise NotImplementedError(
                 f"{self.MODALITY_NAME} at {arch.name}: the prompted vision sequence is 1 + "
                 f"{arch.num_patches} patches + {prefix_len} prompt tokens = {T} "
-                f"tokens, above the attention-backward kernel's limit of {BWD_MAX_SEQ}; "
-                "a tiled backward for T > 128 arrives with the ViT-L/14 slice (ROADMAP)"
+                f"tokens, above the attention kernels' limit of {BWD_MAX_SEQ}"
             )
 
     def _set_prompt(self, prompt):

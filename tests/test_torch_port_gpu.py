@@ -49,15 +49,18 @@ def _require_card():
 
 
 # Ragged lengths around the kernels' 16-row tiles and 128-key chunks, up to
-# K2's limit of 128, at D = 16 (the tiny-test arch), 32 and 64 (B = 1),
-# unmasked and causal: (B, T, W, heads, mask)
+# K2's whole-sequence path's 128, at D = 16 (the tiny-test arch), 32 and 64
+# (B = 1), unmasked and causal: (B, T, W, heads, mask); then the lengths K2
+# tiles (129 ... 320, around its 64-row tiles and chunks, ViT-L/14's 257,
+# 261 and 273, and the limit)
 EDGE_T = (1, 15, 16, 17, 48, 63, 64, 65, 66, 77, 128)
-EDGE_CASES = [
+LONG_EDGE_T = (129, 143, 191, 192, 193, 257, 261, 273, 320)
+EDGE_CASES, LONG_EDGE_CASES = ([
     (b, t, w, w // d, mask)
-    for t in EDGE_T
+    for t in lengths
     for b, w, d in ((3, 32, 16), (2, 64, 32), (1, 128, 64))
     for mask in (None, "causal")
-]
+] for lengths in (EDGE_T, LONG_EDGE_T))
 
 # (B, T, W, heads, mask): tiny-test widths (D=16), D=32, then the main path's
 # shapes - ViT-B/32 vision, the text tower truncated, at Flowers102's 48 and
@@ -84,7 +87,7 @@ ATTN_CASES = [
     (8, 273, 1024, 16, None),
     (2, 129, 64, 2, "causal"),
     (1, 200, 128, 2, None),
-] + EDGE_CASES
+] + EDGE_CASES + LONG_EDGE_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -108,7 +111,8 @@ def test_attention_kernel_matches_plain(case, dtype):
 # or 102 classes, truncated to 24 or at the full 77; UPT's text tower is the
 # (10, 77) case) and the ViT-B/32 vision tower with and without a 16-token
 # VPT prefix (the VPT training batch of 16), then UPT's training batch with
-# its 4-token prompt
+# its 4-token prompt; ViT-L/14's VPT (T = 273) and UPT (T = 261) training
+# batches and its plain vision tower (T = 257), which K2 tiles
 BWD_CASES = [
     (4, 12, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -122,7 +126,10 @@ BWD_CASES = [
     (256, 66, 768, 12, None),
     (16, 66, 768, 12, None),
     (16, 54, 768, 12, None),
-] + EDGE_CASES
+    (16, 273, 1024, 16, None),
+    (16, 261, 1024, 16, None),
+    (4, 257, 1024, 16, None),
+] + EDGE_CASES + LONG_EDGE_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -144,7 +151,8 @@ def test_attention_bwd_kernel_matches_plain(case, dtype):
 
 
 @pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[3], BWD_CASES[7], BWD_CASES[9],
-                                  BWD_CASES[10], BWD_CASES[4], BWD_CASES[11]],
+                                  BWD_CASES[10], BWD_CASES[4], BWD_CASES[11], BWD_CASES[12],
+                                  (2, 200, 128, 2, "causal")],
                          ids=lambda c: "x".join(map(str, c)))
 def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
     """fp32: K1 forward + K2 backward through `FusedAttention` against
@@ -165,7 +173,8 @@ def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", [(256, 66, 768, 12, None), (102, 77, 512, 8, "causal")],
+@pytest.mark.parametrize("case", [(256, 66, 768, 12, None), (102, 77, 512, 8, "causal"),
+                                  (16, 273, 1024, 16, None), (2, 200, 128, 2, "causal")],
                          ids=lambda c: "x".join(map(str, c)))
 def test_attention_bwd_kernel_is_deterministic(case, dtype):
     """No atomics: two launches on the same inputs give the same bits."""
@@ -182,11 +191,11 @@ def test_attention_bwd_kernel_is_deterministic(case, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_attention_bwd_raises_above_its_limit(dtype):
-    """K2 takes T <= 128 (EDGE_T's last length passes above); 129 raises."""
+    """K2 takes T <= 320 (LONG_EDGE_T's last length passes above); 321 raises."""
     _require_card()
-    qkv = torch.randn(1, 129, 3 * 128, device="cuda").to(dtype)
-    g = torch.randn(1, 129, 128, device="cuda").to(dtype)
-    with pytest.raises(ValueError, match="T=129 exceeds the kernel's limit of 128"):
+    qkv = torch.randn(1, 321, 3 * 128, device="cuda").to(dtype)
+    g = torch.randn(1, 321, 128, device="cuda").to(dtype)
+    with pytest.raises(ValueError, match="T=321 exceeds the kernel's limit of 320"):
         attention_bwd(qkv, g, "causal", 2)
 
 
@@ -265,9 +274,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     a = qkv.clone().requires_grad_(True)
     (grad,) = torch.autograd.grad(fused_attention(a, None, 2).sum(), a)
     assert grad.shape == qkv.shape and torch.isfinite(grad).all()
-    with pytest.raises(ValueError, match="shared memory"):  # ViT-L/14's T = 257 does not fit K2
-        attention_bwd(torch.randn(1, 257, 3 * 1024, device="cuda"),
-                      torch.randn(1, 257, 1024, device="cuda"), None, 16)
+    # ViT-L/14's T = 257 takes K2's tiled path; 321 is past every kernel's limit
+    long = attention_bwd(torch.randn(1, 257, 3 * 1024, device="cuda"),
+                         torch.randn(1, 257, 1024, device="cuda"), None, 16)
+    assert long.shape == (1, 257, 3 * 1024) and torch.isfinite(long).all()
+    with pytest.raises(ValueError, match="exceeds the kernel's limit of 320"):
+        attention_bwd(torch.randn(1, 321, 3 * 1024, device="cuda"),
+                      torch.randn(1, 321, 1024, device="cuda"), None, 16)
     with pytest.raises(ValueError, match="contiguous"):
         attention_bwd(qkv, torch.randn(8, 2, 32, device="cuda").transpose(0, 1), None, 2)
     with pytest.raises(ValueError, match="dtype"):
@@ -332,10 +345,11 @@ def test_deep_vpt_step_on_card_matches_cpu():
         assert not np.array_equal(c, p)
 
 
-def test_visual_strategy_refuses_vit_l14_on_the_card_at_construction():
-    """ViT-L/14 VPT (T = 1 + 256 + 16 = 273) is above the backward kernel's
-    128: the strategy raises when it is built on the card, before any launch,
-    against the same limit the kernel library reports."""
+def test_visual_strategy_takes_vit_l14_on_the_card_and_refuses_above_its_limit():
+    """ViT-L/14 VPT (T = 1 + 256 + 16 = 273) takes K2's tiled path: the
+    strategy builds on the card.  A prefix that makes T = 321 raises when the
+    strategy is built, before any launch, against the limit the kernel
+    library reports."""
     _require_card()
     from types import SimpleNamespace
 
@@ -346,11 +360,14 @@ def test_visual_strategy_refuses_vit_l14_on_the_card_at_construction():
     from menghini_neurips23_tpu_torch.training import VisualStrategy
 
     lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
-    assert lib.mnt_attention_bwd_max_seq() == BWD_MAX_SEQ
-    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", PREFIX_SIZE=16)
+    assert lib.mnt_attention_bwd_max_seq() == BWD_MAX_SEQ == 320
     rt = SimpleNamespace(arch=VIT_L14, device=torch.device("cuda"))
+    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", PREFIX_SIZE=16)
+    strat = VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
+    assert strat.prefix.shape == (16, 1024) and strat.prefix.device.type == "cuda"
+    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", PREFIX_SIZE=64)
     launches = (fused_attention.launches, attention_bwd.launches)
-    with pytest.raises(NotImplementedError, match="= 273 tokens.*ViT-L/14 slice"):
+    with pytest.raises(NotImplementedError, match="= 321 tokens.*limit of 320"):
         VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
     assert (fused_attention.launches, attention_bwd.launches) == launches
 

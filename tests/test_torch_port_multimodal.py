@@ -64,7 +64,11 @@ from menghini_neurips23_tpu_torch.training import (
 )
 from menghini_neurips23_tpu_torch.training import multimodal as port_multimodal
 from tests.test_torch_port_paradigms import RUNNERS, _listing, _load, _margins, ckpt, runtimes  # noqa: F401
-from tests.torch_port_fixtures import native_build_outside_checkout  # noqa: F401
+from tests.torch_port_fixtures import (  # noqa: F401
+    L14_GRID,
+    l14_grid_runtimes,
+    native_build_outside_checkout,
+)
 
 torch.set_num_threads(2)
 
@@ -330,6 +334,37 @@ def test_upt_train_step_matches_jax(runtimes, tmp_path, momentum, deep):
     assert all(p.grad is None for p in pstrat.runtime.model.parameters())
 
 
+def test_upt_step_above_128_tokens_matches_jax(l14_grid_runtimes, tmp_path):
+    """ViT-L/14's patch grid with UPT's 4-token vision prompt: the 261-token
+    vision sequence that K2 tiles on the card (and the (3, 77) causal text
+    tower), two batches through the port's step and the JAX package's
+    `_make_step`: loss, correct count and every parameter after every step."""
+    jstrat, pstrat = _strategies(l14_grid_runtimes, tmp_path, VIS_ENCODER=L14_GRID,
+                                 MOMENTUM=0.9, DECAY=0.1)
+    arch = pstrat.runtime.arch
+    assert 1 + arch.num_patches + pstrat.config.VISION_PREFIX_SIZE == 261
+    for s in (jstrat, pstrat):
+        s._w0, s._w1 = 2.0, 1.0
+    ids = np.asarray(jstrat._train_text_class_ids(CLASSES))
+    ctx = pstrat._class_context(CLASSES)
+    step = jstrat._make_step(len(CLASSES))
+    jstrat._init_opt_state()
+    pstrat._init_opt_state()
+    rng = np.random.default_rng(7)
+    for i in range(2):
+        toks = rng.normal(0, 1, (8, 1 + arch.num_patches, arch.vision_width)).astype(np.float32)
+        labels = rng.integers(0, 3, 8).astype(np.int32)
+        group = rng.integers(0, 2, 8).astype(np.int32)
+        valid = np.ones(8, np.float32)
+        want = jstrat._apply_step(step, ids, 0.1, toks, labels, group, valid, apply=True)
+        got = pstrat._apply_step(ctx, 0.1, torch.from_numpy(toks), torch.from_numpy(labels),
+                                 torch.from_numpy(group), torch.from_numpy(valid), apply=True)
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-7)
+        assert got[1] == want[1]
+        _leaves_close(pstrat.epoch_parameters(), jax.tree.map(np.asarray,
+                                                              jstrat.epoch_parameters()), 1e-5)
+
+
 def test_multimodal_strategy_init_aliases_and_memo(runtimes, tmp_path, mnist_fixture):
     """fp32 leaves that require grad (the mixer's too), the aliases, and a
     logits memo that misses after every applied step and every load."""
@@ -481,24 +516,26 @@ def test_multimodal_workflow_matches_jax(tmp_path, mnist_fixture, runtimes, ckpt
 
 # ----------------------------------------------------- kernel-limit refusal
 def test_upt_refuses_vit_l14_on_cuda_at_construction(monkeypatch):
-    """On CUDA (faked present here) UPT at ViT-L/14 (T = 1 + 256 + 4 = 261)
-    raises when the strategy is built, before any prompt is drawn or kernel
-    launched, naming the tiled backward; ViT-B/32 (T = 54) passes; the CPU
-    takes ViT-L/14."""
+    """On CUDA (faked present here) UPT at ViT-L/14 with its 4-token vision
+    prompt (T = 1 + 256 + 4 = 261) passes the kernels' limit of 320, and so
+    does ViT-B/32 (T = 54); a 64-token vision prompt (T = 321) raises when
+    the strategy is built, before any prompt is drawn or kernel launched,
+    naming the limit.  The CPU takes it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="multimodal_fpl")
-    launches = (fused_attention.launches, attention_bwd.launches)
-    rt = SimpleNamespace(arch=VIT_L14, device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError,
-                       match=r"UPT at ViT-L/14.*= 261 tokens.*limit of 128.*ViT-L/14 slice"):
-        MultimodalStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
-    assert (fused_attention.launches, attention_bwd.launches) == launches
-    strat = object.__new__(MultimodalStrategy)
-    strat.config = Config(VIS_ENCODER="ViT-B/32", MODEL="multimodal_fpl")
-    strat.runtime = SimpleNamespace(arch=VIT_B32, device=torch.device("cuda"))
     from menghini_neurips23_tpu_torch.training.visual import VisualStrategy
 
-    VisualStrategy._refuse_long_sequences(strat, strat.config.VISION_PREFIX_SIZE)  # T = 54
+    for arch in (VIT_L14, VIT_B32):
+        strat = object.__new__(MultimodalStrategy)
+        strat.config = Config(VIS_ENCODER=arch.name, MODEL="multimodal_fpl")
+        strat.runtime = SimpleNamespace(arch=arch, device=torch.device("cuda"))
+        VisualStrategy._refuse_long_sequences(strat, strat.config.VISION_PREFIX_SIZE)  # 261, 54
+    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="multimodal_fpl", TEXT_PREFIX_SIZE=64,
+                 VISION_PREFIX_SIZE=64)
+    launches = (fused_attention.launches, attention_bwd.launches)
+    rt = SimpleNamespace(arch=VIT_L14, device=torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match=r"UPT at ViT-L/14.*= 321 tokens.*limit of 320"):
+        MultimodalStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
+    assert (fused_attention.launches, attention_bwd.launches) == launches
     cpu = MultimodalStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"],
                              runtime=SimpleNamespace(arch=VIT_L14, device=torch.device("cpu")))
-    assert cpu.epoch_parameters()[7].shape == (4, VIT_L14.vision_width)
+    assert cpu.epoch_parameters()[7].shape == (64, VIT_L14.vision_width)

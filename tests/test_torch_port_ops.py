@@ -40,8 +40,10 @@ torch.set_num_threads(2)
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5), "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
 
+# T = 273: ViT-L/14's VPT sequence, which the forward kernel takes in two
+# sweeps and the backward kernel tiles on the card
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
-@pytest.mark.parametrize("T", [17, 24])
+@pytest.mark.parametrize("T", [17, 24, 273])
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_attention_plain_matches_jax_kernel(mask, T, dtype):
     jdt, tdt, tol = _DTYPES[dtype]
@@ -53,8 +55,10 @@ def test_attention_plain_matches_jax_kernel(mask, T, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
+# T = 129 and 273: the lengths K2 tiles on the card (the first past 128,
+# ViT-L/14's VPT sequence)
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
-@pytest.mark.parametrize("T", [12, 24])
+@pytest.mark.parametrize("T", [12, 24, 129, 273])
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_attention_bwd_plain_matches_jax_vjp(mask, T, dtype):
     """K2's plain version against the JAX package's custom VJP, whose `_bwd`

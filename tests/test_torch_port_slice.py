@@ -271,12 +271,18 @@ def test_main_template_rejects_what_this_slice_lacks(tmp_path, mnist_fixture, mo
 
 
 def test_device_topk_raises_naming_its_slice(tmp_path):
+    """PSEUDO_TOPK='device' ranks on the device its caller names (the
+    runtime's): without one it raises, naming what it lacks; on the CPU it
+    selects what the exact leaderboard selects."""
     from menghini_neurips23_tpu_torch.pseudo import compute_pseudo_labels
 
     ds = dataset_object("MNIST")(["0/a.png"], str(tmp_path), labels=None, label_map={"0": 0})
-    with pytest.raises(NotImplementedError, match="device top-k"):
+    with pytest.raises(ValueError, match="PSEUDO_TOPK='device' needs the device"):
         compute_pseudo_labels(np.ones((1, 1), np.float32), ds, ["0"], {"0": 0}, 1,
                               method="device")
+    compute_pseudo_labels(np.ones((1, 1), np.float32), ds, ["0"], {"0": 0}, 1,
+                          method="device", device="cpu")
+    assert ds.filepaths == [f"{tmp_path}/0/a.png"] and ds.labels == [0]
 
 
 FRAMED = ("EuroSAT", "DTD", "RESICS45", "FGVCAircraft", "MNIST", "Flowers102")

@@ -49,7 +49,11 @@ from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_atte
 from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 from menghini_neurips23_tpu_torch.training import VisualFPL, VisualPrompt, VisualStrategy, strategy_class
 from tests.test_torch_parity import _make_state_dict
-from tests.torch_port_fixtures import native_build_outside_checkout  # noqa: F401
+from tests.torch_port_fixtures import (  # noqa: F401
+    L14_GRID,
+    l14_grid_runtimes,
+    native_build_outside_checkout,
+)
 
 torch.set_num_threads(2)
 
@@ -255,6 +259,41 @@ def test_vpt_train_step_matches_jax(runtimes, tmp_path, accum, momentum, deep):
     assert all(p.grad is None for p in pstrat.runtime.model.parameters())
 
 
+def test_vpt_step_above_128_tokens_matches_jax(l14_grid_runtimes, tmp_path):
+    """ViT-L/14's patch grid with its 16-token prefix and deep prompts: the
+    273-token sequence that K2 tiles on the card, two batches through the
+    port's step (its plain backward here) and the JAX package's
+    `_make_step`: loss, correct count and prompts after every step."""
+    jstrat, pstrat = _strategies(l14_grid_runtimes, tmp_path, VIS_ENCODER=L14_GRID,
+                                 PREFIX_SIZE=16, MOMENTUM=0.9, DECAY=0.1, VPT_DEEP=True)
+    arch = pstrat.runtime.arch
+    assert 1 + arch.num_patches + 16 == 273
+    for s in (jstrat, pstrat):
+        s._w0, s._w1 = 2.0, 1.0
+    ctx = np.asarray(jstrat._train_text_class_ids(CLASSES))
+    step = jstrat._make_step(len(CLASSES))
+    jstrat._init_opt_state()
+    pstrat._init_opt_state()
+    start = pstrat.epoch_parameters()
+    rng = np.random.default_rng(6)
+    for i in range(2):
+        toks = rng.normal(0, 1, (8, 1 + arch.num_patches, arch.vision_width)).astype(np.float32)
+        labels = rng.integers(0, 3, 8).astype(np.int32)
+        group = rng.integers(0, 2, 8).astype(np.int32)
+        valid = np.ones(8, np.float32)
+        want = jstrat._apply_step(step, ctx, 0.1, toks, labels, group, valid, apply=True)
+        got = pstrat._apply_step(
+            torch.from_numpy(ctx), 0.1, torch.from_numpy(toks), torch.from_numpy(labels),
+            torch.from_numpy(group), torch.from_numpy(valid), apply=True,
+        )
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-7)
+        assert got[1] == want[1]
+        for g, w in zip(pstrat.epoch_parameters(), jstrat.epoch_parameters()):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-5)
+    assert [g.shape for g in pstrat.epoch_parameters()] == [(16, 32), (1, 16, 32)]
+    assert all(not np.allclose(g, s) for g, s in zip(pstrat.epoch_parameters(), start))
+
+
 def test_prompted_feature_memo_follows_every_prompt_change(runtimes, tmp_path, mnist_fixture):
     """The optimizer updates the prompt in place: every applied step, and
     every load, must make the next `image_features` call recompute."""
@@ -339,29 +378,41 @@ def _stub_runtime(arch, device):
 
 @pytest.mark.parametrize("arch, prefix", [(VIT_L14, 16), (VIT_B32, 80)], ids=["ViT-L/14", "ViT-B/32-L80"])
 def test_vpt_refuses_sequences_above_the_backward_kernel_at_construction(monkeypatch, arch, prefix):
-    """On CUDA (faked present here) a prompted vision sequence above K2's 128
-    raises when the strategy is built, before any prompt is drawn or kernel
-    launched; the CPU's plain versions take it."""
+    """On CUDA (faked present here) the prompted vision sequence passes the
+    kernels' limit of 320 at ViT-L/14's 1 + 256 + 16 = 273 and at ViT-B/32
+    with an 80-token prefix (130, past the 128 K2 takes whole: its tiled
+    path); a prefix that makes it 321 raises when the strategy is built,
+    before any prompt is drawn or kernel launched.  The CPU's plain versions
+    take every length."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cfg = Config(VIS_ENCODER=arch.name, MODEL="visual_fpl", PREFIX_SIZE=prefix)
-    launches = (fused_attention.launches, attention_bwd.launches)
     T = 1 + arch.num_patches + prefix
-    with pytest.raises(NotImplementedError, match=rf"= {T} tokens.*limit of 128.*ViT-L/14 slice"):
+    assert T in (273, 130)
+    strat = object.__new__(VisualStrategy)
+    strat.config = Config(VIS_ENCODER=arch.name, MODEL="visual_fpl", PREFIX_SIZE=prefix)
+    strat.runtime = _stub_runtime(arch, "cuda")
+    strat._refuse_long_sequences()  # does not raise
+    long = prefix + 321 - T
+    cfg = Config(VIS_ENCODER=arch.name, MODEL="visual_fpl", PREFIX_SIZE=long)
+    launches = (fused_attention.launches, attention_bwd.launches)
+    with pytest.raises(NotImplementedError, match=r"= 321 tokens.*limit of 320"):
         VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=_stub_runtime(arch, "cuda"))
     assert (fused_attention.launches, attention_bwd.launches) == launches
     strat = VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=_stub_runtime(arch, "cpu"))
-    assert strat.epoch_parameters()[0].shape == (prefix, arch.vision_width)
+    assert strat.epoch_parameters()[0].shape == (long, arch.vision_width)
 
 
 def test_vpt_at_vit_b32_passes_the_limit_on_cuda(monkeypatch):
-    """ViT-B/32 with the bundled 16-token prefix: T = 66 <= 128."""
+    """ViT-B/32 with the bundled 16-token prefix: T = 66; T = 129 (K2's
+    tiled path) and 320, the limit itself, pass; 321 raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     strat = object.__new__(VisualStrategy)
     strat.config = Config(VIS_ENCODER="ViT-B/32", MODEL="visual_fpl", PREFIX_SIZE=16)
     strat.runtime = _stub_runtime(VIT_B32, "cuda")
     strat._refuse_long_sequences()  # does not raise
-    strat.config.PREFIX_SIZE = 78  # T = 128, the limit itself
-    strat._refuse_long_sequences()
     strat.config.PREFIX_SIZE = 79  # T = 129
-    with pytest.raises(NotImplementedError, match="= 129 tokens"):
+    strat._refuse_long_sequences()
+    strat.config.PREFIX_SIZE = 270  # T = 320, the limit itself
+    strat._refuse_long_sequences()
+    strat.config.PREFIX_SIZE = 271  # T = 321
+    with pytest.raises(NotImplementedError, match="= 321 tokens"):
         strat._refuse_long_sequences()
