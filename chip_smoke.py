@@ -19,9 +19,10 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      prints ptxas's register report; fails if any entry point spills
      registers
   3. kernels: each kernel against its plain version on the card, fp32 and
-     bf16, at the main path's shapes (K1 and K2 also at ViT-L/14's, where
-     K2 takes its tiled path; K3 also at pseudolabel pools of 65,536 rows;
-     two K2 launches must give the same bits), with CUDA-event
+     bf16, at the main path's shapes (K1 and K2 also at ViT-L/14's and up
+     to K2's limit of 320 tokens, where K2 keeps no T x T tile; K3 also at
+     pseudolabel pools of 65,536 rows; two K2 launches must give the same
+     bits; each K2 case names its block's warps), with CUDA-event
      times of the kernel, the plain version and, for attention,
      scaled_dot_product_attention as a yardstick (forward alone; forward +
      backward through autograd beside the K1 + K2 pair - the port never
@@ -54,7 +55,8 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      each timed alone; one bf16 training step of textual_fpl (10 and 102
      classes), of visual_fpl and of grip_multimodal (UPT), and of ViT-L/14's
      visual_fpl and multimodal_fpl, on the host clock (with peak device
-     memory) and under torch.profiler (device busy time, kernels by name); one GRIP
+     memory) and under torch.profiler (device busy time, kernels by name, K2's
+     time and share of the busy time); one GRIP
      refresh of grip_visual over the 640-image pool, split into its parts
 Phases 4-6 (the zero-shot path), the SSL CoOp runs, the UL/TRZSL VPT runs,
 the IFPL/GRIP/UPT runs with the resume check and the ViT-L/14 runs of phase
@@ -326,24 +328,30 @@ def phase_kernels_bwd(torch):
     autograd and SDPA's forward + backward through autograd."""
     import torch.nn.functional as F
 
+    from menghini_neurips23_tpu_torch.ops import _cuda
     from menghini_neurips23_tpu_torch.ops.attention import (
+        _BWD_SIGNATURES,
+        _DTYPE_CODES,
         attention_bwd,
         attention_bwd_reference,
         fused_attention,
     )
 
+    lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
     # the CoOp text tower (C = 10 or 102 classes, truncated 24 or full 77;
     # UPT's text tower is the (10, 77) case; Flowers102's (102, 48)), the VPT
     # vision tower (16 prompt tokens; the training batch of 16 and a batch of
     # 256), UPT's vision tower (4 prompt tokens, the training batch) and the
-    # plain ViT-B/32 one; then the lengths K2 tiles: ViT-L/14's VPT (T = 273)
-    # and UPT (T = 261) training batches and a ragged T = 129
+    # plain ViT-B/32 one; then the lengths above 128 tokens: ViT-L/14's VPT
+    # (T = 273) and UPT (T = 261) training batches, a ragged T = 129, and
+    # 288 and 320 (the limit), where T pads to no extra 16-row tile
     shapes = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
         (102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
         (16, 54, 768, 12, None), (256, 50, 768, 12, None),
         (16, 273, 1024, 16, None), (16, 261, 1024, 16, None), (16, 129, 1024, 16, None),
+        (16, 288, 1024, 16, None), (16, 320, 1024, 16, None),
     ]
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for B, T, W, H, mask in shapes:
@@ -368,18 +376,19 @@ def phase_kernels_bwd(torch):
             plain = device_ms(torch, lambda: attention_bwd_reference(qkv, grad, mask, H))
             pair = device_ms(torch, lambda: torch.autograd.grad(
                 fused_attention(leaf, mask, H), leaf, grad))
-            lib = device_ms(torch, lambda: torch.autograd.grad(
+            sdpa = device_ms(torch, lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(*heads, is_causal=causal), heads, g_heads))
             size = qkv.element_size()
             pairs = T * (T + 1) // 2 if causal else T * T  # key/query pairs computed
             # reads qkv (3W) and g (W), writes dqkv (3W); five T x T x D products
             b_ms, b_by = bound(B * T * 7 * W * size, 10 * B * H * D * pairs, dname)
-            case = dict(shape=[B, T, W, H], mask=mask, dtype=dname, max_abs_err=err,
-                        tol=tol, rtol=tol, bit_identical=same, ms=ms, plain_ms=plain,
-                        pair_ms=pair,
-                        library_ms=lib, library="autograd.grad of scaled_dot_product_attention "
-                        "(forward + backward)", bound_ms=b_ms, bound_by=b_by,
-                        bound_share=b_ms / ms)
+            case = dict(shape=[B, T, W, H], mask=mask, dtype=dname,
+                        warps=lib.mnt_attention_bwd_warps(T, D, _DTYPE_CODES[dt]),
+                        max_abs_err=err, tol=tol, rtol=tol, bit_identical=same, ms=ms,
+                        plain_ms=plain, pair_ms=pair, library_ms=sdpa,
+                        library="autograd.grad of scaled_dot_product_attention "
+                        "(forward + backward)", sdpa_ratio=ms / sdpa, bound_ms=b_ms,
+                        bound_by=b_by, bound_share=b_ms / ms)
             cases.append(case)
             log("  attention_bwd " + json.dumps(case))
             if not ok:
@@ -1223,6 +1232,7 @@ def phase_step_profile(torch, strategy, files, n: int = 20):
             kernels[e.key[:70]] = kernels.get(e.key[:70], 0.0) + us / 1e3 / n
             launched += e.count
     busy = sum(kernels.values())
+    k2 = sum(ms for name, ms in kernels.items() if "attention_bwd" in name)
     out = {
         "model": strategy.config.MODEL, "encoder": strategy.config.VIS_ENCODER,
         "dtype": strategy.config.COMPUTE_DTYPE,
@@ -1234,6 +1244,9 @@ def phase_step_profile(torch, strategy, files, n: int = 20):
         "device_busy_ms_per_step": busy if kernels else None,
         # the busy time against the wall without the profiler's overhead
         "device_idle_share": 1 - busy / wall_ms if kernels else None,
+        # K2's kernels (every launch of attention_bwd.cu), by the same sums
+        "attention_bwd_ms_per_step": k2 if kernels else None,
+        "attention_bwd_share_of_busy": k2 / busy if kernels else None,
         "top_kernels_ms_per_step": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8]),
     }
     log("  training step profile: " + json.dumps(out))
@@ -1300,7 +1313,7 @@ def main() -> int:
     phase_one_vpt_step(torch, runtimes)
     phase_one_upt_step(torch, runtimes)
     # ViT-L/14 at full width, 2 rows: VPT at T = 273 and UPT at T = 261 take
-    # K2's tiled path on the card
+    # K2 above 128 tokens on the card
     runtimes = step_runtimes(torch, "ViT-L/14")
     phase_one_vpt_step(torch, runtimes, rows=2)
     phase_one_upt_step(torch, runtimes, rows=2)

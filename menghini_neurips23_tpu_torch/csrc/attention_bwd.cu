@@ -53,30 +53,49 @@
 // - causal rows skip whole key tiles above the diagonal, and pass 2 skips
 //   the query tiles above it; masked and padded entries give P = dS = 0.
 //
-// Tiled design, 128 < T <= 320 (ViT-L/14: VPT's 273, UPT's 261, 257): P_lp
+// Above 128 tokens (ViT-L/14: VPT's 273, UPT's 261, 257), up to 320: P_lp
 // and dS of a whole (row, head) no longer fit a block (2 * 288 * 296 * 2 B =
-// 341 KB at T = 273), so the work splits into two launches of 4-warp blocks
-// over 64-row tiles, each streaming the other side's rows through shared
-// memory in 64-row chunks (rows past T zero-filled), with no atomics:
-// - query side, grid (batch row x head, query tile): sweep 1 over the key
-//   chunks takes each row's max m and sum l (rescaled from chunk to chunk,
-//   as K1's sweep 1); sweep 2 forms P = exp(S - m) / l and dP = g . v^T in
-//   fp32 and r = rowsum(dP * P); sweep 3 forms them again, rounds dS and
-//   accumulates dq = dS . k.  It writes dq and (m, l, r) of every row, fp32,
-//   to a (B, H, 3, T) workspace that the wrapper allocates;
-// - key side, grid (batch row x head, key tile): over the query chunks in a
-//   fixed order (causal: from the block's own diagonal), it recomputes the
-//   transposed tile S^T = k . q^T, forms P from the stored m and l, dv +=
-//   P_lp^T . g, then dS from the stored r and dk += dS^T . q.  Scores,
-//   P and dS are formed by the same expressions on both sides;
+// 341 KB at T = 273), so no T x T tile is kept; the softmax statistics are
+// taken in one sweep and the rest is recomputed from them:
+// - sweep 1 over 64-key chunks (fp32: 32) keeps each query row's online max
+//   m, sum l = sum exp(s - m) and rho = sum exp(s - m) * dP, rescaling l and
+//   rho alike when m grows, and ends with r = rho / l (= rowsum(dP * P));
+//   sweep 2 forms P = exp(s - m) / l and dP again, rounds dS and
+//   accumulates dq = dS . k;
+// - the key side, a warp per 16 keys, forms the transposed tile S^T =
+//   k . q^T and dP^T = v . g^T, P from the query row's statistics, dv +=
+//   P_lp^T . g, dS from its r, dk += dS^T . q, over the query rows in a fixed order
+//   (causal: from its own diagonal).  Scores, P and dS are formed by the
+//   same expressions on both sides;
 // - the rounding points are the ones above: P normalised in fp32 before it
-//   is rounded for dv, r from the fp32 P and dP, dS rounded before dq and
-//   dk (no rowsum(dO * O) shortcut: O is rounded);
-// - bf16: every product on the tensor cores, the key side entirely in
-//   registers (S^T and dP^T in the accumulator layout are the A fragments of
-//   P_lp^T . g and dS^T . q); fp32: FFMA register tiles as above, with dS
-//   (query side) and P, then dS (key side) of the warp's 16 rows passing
-//   through a per-warp buffer.
+//   is rounded for dv, r from the fp32 P and dP, dS rounded before dq and dk
+//   (no rowsum(dO * O) shortcut: O is rounded); one owner per output, no
+//   atomics;
+// - bf16, one launch: a block per (batch row, head) holds q, k, v and g of
+//   all round32(T) rows in shared memory (4 * 320 * 72 * 2 B = 184 KB at
+//   T = 320, D = 64, plus 8 bytes of statistics a row), staged with
+//   16-byte cp.async in groups (q and g of the first round's rows and the
+//   first key chunk, then one group per key chunk, which lands while sweep
+//   1 runs, then the other rows' q and g); phase A, a warp per 16 query
+//   rows, runs the two sweeps and leaves each row's base-2 log-sum-exp and
+//   r * D^-0.5 in shared memory; phase B, after one barrier, a warp per 16
+//   keys reads q, g and the statistics where they lie.  The warps are as
+//   few as keep every warp's count of 16-row tiles at its least (T = 273:
+//   9 warps of 2 tiles; at most 10, which ptxas fits in 168 registers).
+//   Every product on the tensor cores; the key side's S^T and dP^T in the
+//   accumulator layout are the A fragments of P_lp^T . g and dS^T . q, so
+//   no T x T tile touches shared memory.  What bounds it on an H100 is the
+//   fp32 work per score (three exponentials of every (query, key) pair, and
+//   the rounding of P and dS), not the tensor cores: P = 2^(s * c - lse)
+//   costs one FFMA and one MUFU operation, dS one FFMA and one multiply;
+// - fp32, two launches of 4-warp blocks over 64-row tiles (a resident head
+//   would take 348 KB): the query side streams 32-key chunks of k and v
+//   through a 3-stage cp.async ring (chunk c + 2 lands while c computes)
+//   and writes dq and each row's (m, 1/l, r) to a (B, H, 3, round64(T))
+//   workspace; the key side streams 32-query chunks of q, g and their
+//   statistics through the same ring.  Full-fp32 FFMA register tiles, with
+//   dS (query side) and P, then dS (key side) of the warp's 16 rows passing
+//   through a per-warp buffer; about 95 KB a block, two blocks an SM.
 // T above 320 raises (K1's forward takes no more at D = 64).
 
 #include "attention_common.cuh"
@@ -87,9 +106,18 @@ using bf16 = __nv_bfloat16;
 using namespace mnt;
 
 constexpr int kMaxSeq = 320;       // the longest T (K1's forward range at D = 64)
-constexpr int kWholeMaxSeq = 128;  // up to here one block holds a whole (row, head)
-constexpr int kTile = 64;          // tiled path: rows per block and per chunk
-constexpr int kTileThreads = 128;  // ... a warp per 16 rows
+constexpr int kWholeMaxSeq = 128;  // up to here one block holds a whole (row, head) and P, dS
+// T > 128, bf16: the most warps a block takes (10 fit ptxas's 168 registers;
+// scripts/k2_resident_warps.py measures other counts on the card), and keys
+// per staging group and sweep-1 step
+constexpr int kResidentWarps = 10;
+constexpr int kChunk = 64;
+// T > 128, fp32: rows per block, a warp per 16 of them, rows per streamed
+// chunk, chunks in the ring
+constexpr int kTile = 64;
+constexpr int kTileThreads = 128;
+constexpr int kSub = 32;
+constexpr int kStages = 3;
 
 size_t bf16_smem(int seq, int D) {
   const size_t tp = round16(seq);
@@ -467,17 +495,7 @@ attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ grad,
       }
 }
 
-// ------------------------------------------------------------ tiled path
-
-// One layout for both sides: four 64-row tiles, the key side's (m, 1/l, r)
-// of a query chunk, and for fp32 a 16 x (kTile + 4) buffer per warp.
-size_t tiled_bf16_smem(int D) {
-  return 4 * kTile * (size_t)(D + 8) * sizeof(bf16) + 3 * kTile * sizeof(float);
-}
-
-size_t tiled_f32_smem(int D) {
-  return (4 * kTile * (size_t)(D + 4) + 3 * kTile + 4 * 16 * (kTile + 4)) * sizeof(float);
-}
+// ------------------------------------------------------------ T > 128
 
 // c[t] = A . B over D for the 16 rows n0 .. n0 + 15 of `rows` (B[k][n] =
 // rows[n][k]): two n8 accumulator tiles from the warp's A fragments.
@@ -497,23 +515,341 @@ __device__ __forceinline__ void dots_bf16(float (&c)[2][4], const uint32_t (&af)
   }
 }
 
-// acc[i][jj] = sum_d a[4ry + i][d] * b[8jj + kx][d]: the warp's 16 rows of
-// `a` against the kTile rows of `b`, both row-major with D + 4 floats a row.
+// wait until at most n (0 .. 5) of the committed cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    default: cp_async_wait<5>(); break;
+  }
+}
+
+// bf16: the whole (row, head) resident, q, g, k and v of round32(T) rows
+// (so that 32-row steps stay inside), then each query row's base-2
+// log-sum-exp and r * D^-0.5.
+size_t resident_bf16_smem(int seq, int D) {
+  const size_t tp = (seq + 31) / 32 * 32;
+  return 4 * tp * (D + 8) * sizeof(bf16) + 2 * tp * sizeof(float);
+}
+
+// 2^x, one MUFU operation (ex2.approx.ftz: relative error below 2^-22,
+// results below 2^-126 flushed to 0, 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Warps of the bf16 kernel: at most kResidentWarps, and as few as keep each
+// warp's rounds of 16-row tiles at their least (T = 273: 18 tiles, 9 warps
+// of 2), so that no warp waits at the barrier for one with a round more.
+__host__ __device__ constexpr int resident_warps(int seq) {
+  const int ntiles = round16(seq) / 16, rounds = (ntiles + kResidentWarps - 1) / kResidentWarps;
+  return (ntiles + rounds - 1) / rounds;
+}
+
+// bf16, 128 < T <= 320: one block per (batch row, head), resident_warps(T)
+// warps.  Phase A, a warp per 16 query rows: dq and the row statistics;
+// phase B, a warp per 16 keys: dk and dv, from the statistics phase A left
+// in shared memory.  The softmax is taken in base 2, D^-0.5 * log2(e)
+// folded into the scale: sweep 1 leaves each row's lse = m + log2(l) (+inf
+// past T), so that both sides form P = 2^(s * scale2 - lse) with one FFMA
+// and one MUFU operation, and dS = P * (dP * D^-0.5 - r * D^-0.5) with one
+// more FFMA and a multiply.  Sweep 2 steps 32 keys at a time, so that one
+// 16-key tile's products are in flight while the other's elementwise work
+// runs.  Sweep 1 evaluates the mask on the tiles that cross T or the
+// diagonal, sweep 2 and phase B only on those that cross the diagonal.
 template <int D>
-__device__ __forceinline__ void dots_f32(float (&acc)[4][kTile / 8], const float* a,
-                                         const float* b, int ry, int kx) {
+__global__ void __launch_bounds__(32 * kResidentWarps, 1)
+attention_bwd_resident_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
+                            bf16* __restrict__ dqkv, int seq, int width, int heads,
+                            float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 8;
+  const int nt = blockDim.x, nw = nt / 32;
+  const int tq = round16(seq), tp = (seq + 31) / 32 * 32, ntiles = tq / 16;
+  const int nch = (tp + kChunk - 1) / kChunk;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* gs = qs + tp * LD;
+  bf16* ks = gs + tp * LD;
+  bf16* vs = ks + tp * LD;
+  float* st_lse = reinterpret_cast<float*>(vs + tp * LD);
+  float* st_rs = st_lse + tp;
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t stride = 3 * (size_t)width;
+  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // group 0: q and g of round 0's query rows and the first key chunk's k
+  // and v; group c: key chunk c, which lands while sweep 1 runs over the
+  // chunks before it; group nch: the other query rows' q and g, which land
+  // during round 0
+  const bf16* gbase = grad + (size_t)b * seq * width + h * D;
+  const int rows0 = min(tp, 16 * nw);
+  stage_rows<bf16, D>(qs, LD, base, stride, seq, rows0, tid, nt);
+  stage_rows<bf16, D>(gs, LD, gbase, width, seq, rows0, tid, nt);
+  for (int c = 0; c < nch; ++c) {
+    const int c0 = c * kChunk, pad = min(kChunk, tp - c0);
+    stage_rows<bf16, D>(ks + c0 * LD, LD, base + width + c0 * stride, stride, seq - c0, pad,
+                        tid, nt);
+    stage_rows<bf16, D>(vs + c0 * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
+                        pad, tid, nt);
+    cp_async_commit();
+  }
+  {
+    const int r1 = min(rows0, seq - 1);  // (a row inside the tensor: rows >= seq are zero-filled)
+    stage_rows<bf16, D>(qs + rows0 * LD, LD, base + r1 * stride, stride, seq - rows0,
+                        tp - rows0, tid, nt);
+    stage_rows<bf16, D>(gs + rows0 * LD, LD, gbase + (size_t)r1 * width, width, seq - rows0,
+                        tp - rows0, tid, nt);
+    cp_async_commit();
+  }
+  // the rows no query tile holds (tq .. tp) read as P = dS = 0 in phase B
+  for (int i = tq + tid; i < tp; i += nt) st_lse[i] = INFINITY, st_rs[i] = 0.f;
+  bf16* out = dqkv + (size_t)b * seq * stride + h * D;
+
+  // phase A: query tiles warp, warp + nw, ...; every warp takes part in
+  // round 0's waits for the key chunks
+  for (int round = 0; round * nw < ntiles; ++round) {
+    const int t = warp + round * nw, r0 = 16 * t, row0 = r0 + lane / 4;  // rows row0, row0 + 8
+    const bool mine = t < ntiles;
+    const int kend = causal ? min(seq, r0 + 16) : seq;  // the keys this warp's rows see
+    uint32_t qf[D / 16][4], gf[D / 16][4];
+    // sweep 1, 64 keys at a time: the online max m (of the raw dots: the
+    // scale is positive), sum l and rho = sum of 2^(s * scale2 - m * scale2)
+    // * dP, l and rho rescaled alike when m grows (lane-partial sums over a
+    // quad-uniform m, reduced after the last chunk)
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rho[2] = {0.f, 0.f};
+    if (round == 1) {  // the later query rows have landed
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int c = 0; c < nch; ++c) {
+      if (round == 0) {
+        cp_async_wait_upto(nch - c);
+        __syncthreads();
+      }
+      const int c0 = c * kChunk;
+      if (!mine) continue;
+      if (c == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          load_a(qf[kk], qs, LD, r0, 16 * kk, lane);
+          load_a(gf[kk], gs, LD, r0, 16 * kk, lane);
+        }
+      }
+      if (c0 >= kend) continue;
+      float s[kChunk / 16][2][4], dp[kChunk / 16][2][4];
+#pragma unroll
+      for (int j = 0; j < kChunk / 16; ++j) {
+        const int n0 = c0 + 16 * j;
+        if (n0 < kend) {
+          dots_bf16<D>(s[j], qf, ks, n0, lane);
+          dots_bf16<D>(dp[j], gf, vs, n0, lane);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][u][e] = dp[j][u][e] = 0.f;
+        }
+        if (n0 + 16 > seq || (causal && n0 + 15 > r0)) {  // a tile across T or the diagonal
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = n0 + 8 * u + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
+              const bool valid = n0 < kend && col < seq && (!causal || col <= row);
+              s[j][u][e] = valid ? s[j][u][e] : -INFINITY;
+            }
+        }
+      }
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kChunk / 16; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) cm = fmaxf(cm, fmaxf(s[j][u][2 * e2], s[j][u][2 * e2 + 1]));
+        // key 0 is in every row's first chunk, so mn is finite from there on
+        const float mn = fmaxf(m[e2], group_max<4>(cm)), mn2 = mn * scale2;
+        const float alpha = ex2(m[e2] * scale2 - mn2);
+        float ls = 0.f, rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < kChunk / 16; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 2 * e2; e < 2 * e2 + 2; ++e) {
+              const float p = ex2(fmaf(s[j][u][e], scale2, -mn2));
+              ls += p;
+              rs = fmaf(p, dp[j][u][e], rs);
+            }
+        l[e2] = fmaf(l[e2], alpha, ls);
+        rho[e2] = fmaf(rho[e2], alpha, rs);
+        m[e2] = mn;
+      }
+    }
+    if (!mine) continue;
+    float lse[2], rs[2];
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const float lsum = group_sum<4>(l[e2]);
+      lse[e2] = row0 + 8 * e2 < seq ? fmaf(m[e2], scale2, log2f(lsum)) : INFINITY;  // padded: P = 0
+      rs[e2] = group_sum<4>(rho[e2]) / lsum * scale;
+    }
+    // sweep 2, two 16-key tiles a step: P and dP in fp32, dS rounded
+    // straight into the A fragments of dq = dS . k.  Only the causal mask
+    // is evaluated: keys past T have zero k rows, so their dS adds exact
+    // zeros to dq, and rows past T have lse = +inf, so P = 0
+    float dq[D / 8][4] = {};
+    for (int n1 = 0; n1 < kend; n1 += 32) {
+      float s[2][2][4], dp[2][2][4];
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        dots_bf16<D>(s[w], qf, ks, n1 + 16 * w, lane);
+        dots_bf16<D>(dp[w], gf, vs, n1 + 16 * w, lane);
+      }
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const int n0 = n1 + 16 * w;
+        const bool edge = causal && n0 + 15 > r0;  // a tile across the diagonal
+        uint32_t a[4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n0 + 8 * u + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
+            const bool valid = !edge || col <= row;
+            const float p = valid ? ex2(fmaf(s[w][u][e], scale2, -lse[e >> 1])) : 0.f;
+            v[e] = p * fmaf(dp[w][u][e], scale, -rs[e >> 1]);
+          }
+          a[2 * u] = pack_bf16(v[0], v[1]);
+          a[2 * u + 1] = pack_bf16(v[2], v[3]);
+        }
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t bk[4];
+          load_b_cols(bk, ks, LD, n0, 16 * dd, lane);
+          mma_bf16(dq[2 * dd], a, bk[0], bk[1]);
+          mma_bf16(dq[2 * dd + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int row = row0 + 8 * e2;
+      if (row < seq) {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(out + row * stride + 8 * n + 2 * (lane & 3)) =
+              pack_bf16(dq[n][2 * e2], dq[n][2 * e2 + 1]);
+      }
+      if ((lane & 3) == 0) st_lse[row] = lse[e2], st_rs[row] = rs[e2];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every row's q, g and statistics are in shared memory
+
+  // phase B: key tiles warp, warp + nw, ..., a 16-query tile a step (the
+  // next tile's S^T and dP^T start while this one's dv and dk run); S^T and
+  // dP^T in the accumulator layout are the A fragments of P_lp^T . g and
+  // dS^T . q.  Only the causal mask is evaluated: queries past T have
+  // lse = +inf, so P = dS = 0, and keys past T own dk and dv rows that are
+  // never written
+  for (int t = warp; t < ntiles; t += nw) {
+    const int j0 = 16 * t, key0 = j0 + lane / 4;  // keys key0 and key0 + 8
+    uint32_t kf[D / 16][4], vf[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      load_a(kf[kk], ks, LD, j0, 16 * kk, lane);
+      load_a(vf[kk], vs, LD, j0, 16 * kk, lane);
+    }
+    float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+    for (int i0 = causal ? j0 : 0; i0 < seq; i0 += 16) {
+      float s[2][4], dp[2][4];
+      dots_bf16<D>(s, kf, qs, i0, lane);   // S^T: (key, query)
+      dots_bf16<D>(dp, vf, gs, i0, lane);  // dP^T
+      const bool edge = causal && j0 + 15 > i0;  // a tile across the diagonal
+      uint32_t ap[4], ad[4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int q0 = i0 + 8 * u + 2 * (lane & 3);  // queries q0, q0 + 1
+        const float2 lq = *reinterpret_cast<const float2*>(st_lse + q0);
+        const float2 rq = *reinterpret_cast<const float2*>(st_rs + q0);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * (e >> 1), q = q0 + (e & 1);
+          const bool valid = !edge || key <= q;
+          const float lv = e & 1 ? lq.y : lq.x, rv = e & 1 ? rq.y : rq.x;
+          p[e] = valid ? ex2(fmaf(s[u][e], scale2, -lv)) : 0.f;
+          ds[e] = p[e] * fmaf(dp[u][e], scale, -rv);
+        }
+        ap[2 * u] = pack_bf16(p[0], p[1]);
+        ap[2 * u + 1] = pack_bf16(p[2], p[3]);
+        ad[2 * u] = pack_bf16(ds[0], ds[1]);
+        ad[2 * u + 1] = pack_bf16(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t bg[4], bq[4];
+        load_b_cols(bg, gs, LD, i0, 16 * dd, lane);
+        load_b_cols(bq, qs, LD, i0, 16 * dd, lane);
+        mma_bf16(dv[2 * dd], ap, bg[0], bg[1]);
+        mma_bf16(dv[2 * dd + 1], ap, bg[2], bg[3]);
+        mma_bf16(dk[2 * dd], ad, bq[0], bq[1]);
+        mma_bf16(dk[2 * dd + 1], ad, bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int row = key0 + 8 * e2;
+      if (row >= seq) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = 8 * n + 2 * (lane & 3);
+        *reinterpret_cast<uint32_t*>(out + row * stride + width + col) =
+            pack_bf16(dk[n][2 * e2], dk[n][2 * e2 + 1]);
+        *reinterpret_cast<uint32_t*>(out + row * stride + 2 * width + col) =
+            pack_bf16(dv[n][2 * e2], dv[n][2 * e2 + 1]);
+      }
+    }
+  }
+}
+
+// fp32: the block's 64 rows of two operands, a ring of kStages chunks of
+// two 32-row operands (and, on the key side, the chunk's query statistics),
+// and a 16 x (kSub + 4) buffer per warp; both sides use this layout.
+size_t tiled_f32_smem(int D) {
+  const size_t ring = 2 * kSub * (size_t)(D + 4) + 3 * kSub;
+  return (2 * kTile * (size_t)(D + 4) + kStages * ring + 4 * 16 * (kSub + 4)) * sizeof(float);
+}
+
+// the workspace's rows per (batch row, head): T rounded up to the query tile
+__host__ __device__ constexpr int stats_rows(int seq) { return (seq + kTile - 1) / kTile * kTile; }
+
+// acc[i][jj] = sum_d a[4ry + i][d] * b[8jj + kx][d]: the warp's 16 rows of
+// `a` against the 8 * NS rows of `b`, both row-major with D + 4 floats a row.
+template <int D, int NS>
+__device__ __forceinline__ void dots_f32(float (&acc)[4][NS], const float* a, const float* b,
+                                         int ry, int kx) {
   constexpr int LD = D + 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int jj = 0; jj < kTile / 8; ++jj) acc[i][jj] = 0.f;
-#pragma unroll 2
+    for (int jj = 0; jj < NS; ++jj) acc[i][jj] = 0.f;
+#pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float x[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) load_vec<4>(x[i], a + (4 * ry + i) * LD + d);
 #pragma unroll
-    for (int jj = 0; jj < kTile / 8; ++jj) {
+    for (int jj = 0; jj < NS; ++jj) {
       float y[4];
       load_vec<4>(y, b + (8 * jj + kx) * LD + d);
 #pragma unroll
@@ -525,13 +861,14 @@ __device__ __forceinline__ void dots_f32(float (&acc)[4][kTile / 8], const float
 }
 
 // acc[i][c] += sum_{j < n} w[4ry + i][j] * b[j][col c]: the lane's 4 rows of
-// the warp's (16, kTile + 4) buffer against the first n (a multiple of 4)
-// rows of a chunk, in the lane's Cols<D> columns.
-template <int D>
+// the warp's (16, LDW) buffer against the first n (a multiple of 4) rows of
+// a chunk, in the lane's Cols<D> columns.
+template <int D, int LDW>
 __device__ __forceinline__ void rows_times_f32(float (&acc)[4][D / 8], const float* w,
                                                const float* b, int n, int ry, int kx) {
   using C = Cols<D>;
-  constexpr int LD = D + 4, LDW = kTile + 4;
+  constexpr int LD = D + 4;
+#pragma unroll 2
   for (int j = 0; j < n; j += 4) {
     float p[4][4];
 #pragma unroll
@@ -551,310 +888,71 @@ __device__ __forceinline__ void rows_times_f32(float (&acc)[4][D / 8], const flo
   }
 }
 
-// Query side, bf16.  Block (batch row x head, 64-row query tile), a warp
-// per 16 rows; the key chunks stream through ks / vs.
+// Query side, fp32.  Block (batch row x head, 64-row query tile), a warp
+// per 16 rows, lane (ry, kx) holding rows r0 + 4ry + i against keys
+// c0 + 8jj + kx; the key chunks stream through the ring, sweep 1 (the
+// statistics) and sweep 2 (dS, dq) one after the other, so that chunk
+// step + 2 is staged while step computes.
 template <int D>
-__global__ void __launch_bounds__(kTileThreads, 1)
-attention_bwd_q_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
-                     bf16* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
-                     int heads, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // the block's query rows
-  bf16* gs = qs + kTile * LD;
-  bf16* ks = gs + kTile * LD;  // the chunk's keys
-  bf16* vs = ks + kTile * LD;
-
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads, rb = kTile * blockIdx.y;
-  const size_t stride = 3 * (size_t)width;
-  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  stage_rows<bf16, D>(qs, LD, base + rb * stride, stride, min(kTile, seq - rb), kTile, tid,
-                      kTileThreads);
-  stage_rows<bf16, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width,
-                      min(kTile, seq - rb), kTile, tid, kTileThreads);
-  cp_async_commit();
-
-  const int r0 = rb + 16 * warp, row0 = r0 + lane / 4;  // rows row0 and row0 + 8
-  const bool active = r0 < seq;
-  const int kend = causal ? min(seq, r0 + 16) : seq;  // the keys this warp's rows see
-  const int nch = ((causal ? min(seq, rb + kTile) : seq) + kTile - 1) / kTile;
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, r[2] = {0.f, 0.f};
-  float inv_l[2] = {0.f, 0.f}, dq[D / 8][4] = {};
-  for (int step = 0; step < 3 * nch; ++step) {
-    const int sweep = step / nch, c0 = (step % nch) * kTile, nk = min(kTile, seq - c0);
-    __syncthreads();  // every warp is done with the last chunk
-    stage_rows<bf16, D>(ks, LD, base + width + c0 * stride, stride, nk, kTile, tid,
-                        kTileThreads);
-    if (sweep > 0)
-      stage_rows<bf16, D>(vs, LD, base + 2 * width + c0 * stride, stride, nk, kTile, tid,
-                          kTileThreads);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active) continue;
-    if (step == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        load_a(qf[kk], qs, LD, 16 * warp, 16 * kk, lane);
-        load_a(gf[kk], gs, LD, 16 * warp, 16 * kk, lane);
-      }
-    }
-    if (sweep == 1 && c0 == 0) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) inv_l[e] = row0 + 8 * e < seq ? 1.f / l[e] : 0.f;
-    }
-    if (sweep == 2 && c0 == 0) {
-      r[0] = group_sum<4>(r[0]);
-      r[1] = group_sum<4>(r[1]);
-    }
-    if (c0 >= kend) continue;
-    if (sweep == 0) {  // the row max and sum over this chunk
-      float s[kTile / 8][4];
-#pragma unroll
-      for (int j = 0; j < kTile / 16; ++j) {
-        const int n0 = c0 + 16 * j;
-        float c[2][4] = {};
-        if (n0 < kend) dots_bf16<D>(c, qf, ks, 16 * j, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = n0 + 8 * t + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
-            const bool valid = n0 < kend && col < seq && (!causal || col <= row);
-            s[2 * j + t][e] = valid ? c[t][e] * scale : -INFINITY;
-          }
-      }
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        float cm = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < kTile / 8; ++n)
-          cm = fmaxf(cm, fmaxf(s[n][2 * e2], s[n][2 * e2 + 1]));
-        const float mn = fmaxf(m[e2], group_max<4>(cm));
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < kTile / 8; ++n)
-          sum += expf(s[n][2 * e2] - mn) + expf(s[n][2 * e2 + 1] - mn);
-        l[e2] = l[e2] * expf(m[e2] - mn) + group_sum<4>(sum);
-        m[e2] = mn;
-      }
-      continue;
-    }
-    // sweeps 2 and 3, a 16-key tile at a time: P and dP in fp32
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      const int n0 = c0 + 16 * j;
-      if (n0 >= kend) break;
-      float s[2][4], dp[2][4];
-      dots_bf16<D>(s, qf, ks, 16 * j, lane);
-      dots_bf16<D>(dp, gf, vs, 16 * j, lane);
-      uint32_t a[4];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        float v[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n0 + 8 * t + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
-          const bool valid = col < seq && (!causal || col <= row);
-          const float p = valid ? expf(s[t][e] * scale - m[e >> 1]) * inv_l[e >> 1] : 0.f;
-          if (sweep == 1) r[e >> 1] = fmaf(dp[t][e], p, r[e >> 1]);
-          v[e] = p * (dp[t][e] - r[e >> 1]) * scale;
-        }
-        a[2 * t] = pack_bf16(v[0], v[1]);
-        a[2 * t + 1] = pack_bf16(v[2], v[3]);
-      }
-      if (sweep == 1) continue;
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t bk[4];
-        load_b_cols(bk, ks, LD, 16 * j, 16 * dd, lane);
-        mma_bf16(dq[2 * dd], a, bk[0], bk[1]);
-        mma_bf16(dq[2 * dd + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-  if (!active) return;
-  bf16* out = dqkv + (size_t)b * seq * stride + h * D;
-  float* st = stats + (size_t)blockIdx.x * 3 * seq;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int row = row0 + 8 * e;
-    if (row >= seq) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + row * stride + 8 * n + 2 * (lane & 3)) =
-          pack_bf16(dq[n][2 * e], dq[n][2 * e + 1]);
-    if ((lane & 3) == 0) st[row] = m[e], st[seq + row] = l[e], st[2 * seq + row] = r[e];
-  }
-}
-
-// Key side, bf16.  Block (batch row x head, 64-row key tile), a warp per 16
-// keys; the query chunks and their (m, 1/l, r) stream through qs / gs / ws.
-template <int D>
-__global__ void __launch_bounds__(kTileThreads, 1)
-attention_bwd_kv_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
-                      bf16* __restrict__ dqkv, const float* __restrict__ stats, int seq,
-                      int width, int heads, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 8;
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // the block's keys
-  bf16* vs = ks + kTile * LD;
-  bf16* qs = vs + kTile * LD;  // the chunk's queries
-  bf16* gs = qs + kTile * LD;
-  float* ws = reinterpret_cast<float*>(gs + kTile * LD);  // their m, 1/l, r
-
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads, jb = kTile * blockIdx.y;
-  const size_t stride = 3 * (size_t)width;
-  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
-  const bf16* gbase = grad + (size_t)b * seq * width + h * D;
-  const float* st = stats + (size_t)blockIdx.x * 3 * seq;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  stage_rows<bf16, D>(ks, LD, base + width + jb * stride, stride, min(kTile, seq - jb), kTile,
-                      tid, kTileThreads);
-  stage_rows<bf16, D>(vs, LD, base + 2 * width + jb * stride, stride, min(kTile, seq - jb),
-                      kTile, tid, kTileThreads);
-  cp_async_commit();
-
-  const int j0 = jb + 16 * warp, key0 = j0 + lane / 4;  // keys key0 and key0 + 8
-  const bool active = j0 < seq;
-  const int first = causal ? blockIdx.y : 0, nch = (seq + kTile - 1) / kTile;
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  for (int c = first; c < nch; ++c) {
-    const int i0c = c * kTile, nq = min(kTile, seq - i0c);
-    __syncthreads();  // every warp is done with the last chunk
-    stage_rows<bf16, D>(qs, LD, base + i0c * stride, stride, nq, kTile, tid, kTileThreads);
-    stage_rows<bf16, D>(gs, LD, gbase + (size_t)i0c * width, width, nq, kTile, tid,
-                        kTileThreads);
-    cp_async_commit();
-    for (int i = tid; i < kTile; i += kTileThreads) {
-      const bool ok = i < nq;
-      ws[i] = ok ? st[i0c + i] : 0.f;
-      ws[kTile + i] = ok ? 1.f / st[seq + i0c + i] : 0.f;
-      ws[2 * kTile + i] = ok ? st[2 * seq + i0c + i] : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active) continue;
-    if (c == first) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        load_a(kf[kk], ks, LD, 16 * warp, 16 * kk, lane);
-        load_a(vf[kk], vs, LD, 16 * warp, 16 * kk, lane);
-      }
-    }
-#pragma unroll 1
-    for (int t = 0; t < kTile / 16; ++t) {
-      const int i0 = i0c + 16 * t;
-      if (i0 >= seq) break;
-      if (causal && i0 + 15 < j0) continue;  // every query of the tile is before these keys
-      float s[2][4], dp[2][4];
-      dots_bf16<D>(s, kf, qs, 16 * t, lane);  // S^T: (key, query)
-      dots_bf16<D>(dp, vf, gs, 16 * t, lane);  // dP^T
-      uint32_t ap[4], ad[4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * (e >> 1), qi = 16 * t + 8 * u + 2 * (lane & 3) + (e & 1);
-          const int q = i0c + qi;
-          const bool valid = key < seq && q < seq && (!causal || key <= q);
-          p[e] = valid ? expf(s[u][e] * scale - ws[qi]) * ws[kTile + qi] : 0.f;
-          ds[e] = p[e] * (dp[u][e] - ws[2 * kTile + qi]) * scale;
-        }
-        ap[2 * u] = pack_bf16(p[0], p[1]);
-        ap[2 * u + 1] = pack_bf16(p[2], p[3]);
-        ad[2 * u] = pack_bf16(ds[0], ds[1]);
-        ad[2 * u + 1] = pack_bf16(ds[2], ds[3]);
-      }
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t bg[4], bq[4];
-        load_b_cols(bg, gs, LD, 16 * t, 16 * dd, lane);
-        load_b_cols(bq, qs, LD, 16 * t, 16 * dd, lane);
-        mma_bf16(dv[2 * dd], ap, bg[0], bg[1]);
-        mma_bf16(dv[2 * dd + 1], ap, bg[2], bg[3]);
-        mma_bf16(dk[2 * dd], ad, bq[0], bq[1]);
-        mma_bf16(dk[2 * dd + 1], ad, bq[2], bq[3]);
-      }
-    }
-  }
-  if (!active) return;
-  bf16* out = dqkv + (size_t)b * seq * stride + h * D;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int row = key0 + 8 * e;
-    if (row >= seq) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = 8 * n + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(out + row * stride + width + col) =
-          pack_bf16(dk[n][2 * e], dk[n][2 * e + 1]);
-      *reinterpret_cast<uint32_t*>(out + row * stride + 2 * width + col) =
-          pack_bf16(dv[n][2 * e], dv[n][2 * e + 1]);
-    }
-  }
-}
-
-// Query side, fp32: lane (ry, kx) holds rows r0 + 4ry + i against keys
-// c0 + 8jj + kx; dS of the warp's rows passes through its buffer for dq.
-template <int D>
-__global__ void __launch_bounds__(kTileThreads, 1)
+__global__ void __launch_bounds__(kTileThreads, 2)
 attention_bwd_q_f32(const float* __restrict__ qkv, const float* __restrict__ grad,
                     float* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
                     int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using C = Cols<D>;
-  constexpr int LD = D + 4, NS = kTile / 8, LDW = kTile + 4;
+  constexpr int LD = D + 4, NS = kSub / 8, LDW = kSub + 4, RING = 2 * kSub * LD + 3 * kSub;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
   float* qs = reinterpret_cast<float*>(smem_raw);  // the block's query rows
   float* gs = qs + kTile * LD;
-  float* ks = gs + kTile * LD;  // the chunk's keys
-  float* vs = ks + kTile * LD;
-  float* ws = vs + kTile * LD + 3 * kTile + warp * 16 * LDW;  // the warp's dS
+  float* ring = gs + kTile * LD;  // stage: the chunk's keys, then its values
+  float* ws = ring + kStages * RING + warp * 16 * LDW;  // the warp's dS
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads, rb = kTile * blockIdx.y;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
-  stage_rows<float, D>(qs, LD, base + rb * stride, stride, min(kTile, seq - rb), kTile, tid,
-                       kTileThreads);
-  stage_rows<float, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width,
-                       min(kTile, seq - rb), kTile, tid, kTileThreads);
-  cp_async_commit();
-
   const int r0 = rb + 16 * warp, row0 = r0 + 4 * ry;  // rows row0 .. row0 + 3
   const bool active = r0 < seq;
   const int kend = causal ? min(seq, r0 + 16) : seq;
-  const int nch = ((causal ? min(seq, rb + kTile) : seq) + kTile - 1) / kTile;
-  float m[4], l[4], r[4], inv_l[4], dq[4][C::kPer] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = r[i] = inv_l[i] = 0.f;
-  for (int step = 0; step < 3 * nch; ++step) {
-    const int sweep = step / nch, c0 = (step % nch) * kTile, nk = min(kTile, seq - c0);
-    __syncthreads();
-    stage_rows<float, D>(ks, LD, base + width + c0 * stride, stride, nk, kTile, tid,
+  const int nch = ((causal ? min(seq, rb + kTile) : seq) + kSub - 1) / kSub, steps = 2 * nch;
+  auto stage = [&](int step) {
+    const int c0 = (step % nch) * kSub;
+    float* dst = ring + (step % kStages) * RING;
+    stage_rows<float, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kSub, tid,
                          kTileThreads);
-    if (sweep > 0)
-      stage_rows<float, D>(vs, LD, base + 2 * width + c0 * stride, stride, nk, kTile, tid,
-                           kTileThreads);
+    stage_rows<float, D>(dst + kSub * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
+                         kSub, tid, kTileThreads);
+  };
+  stage_rows<float, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
+  stage_rows<float, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width, seq - rb,
+                       kTile, tid, kTileThreads);
+  stage(0);
+  cp_async_commit();
+  stage(1);
+  cp_async_commit();
+
+  float m[4], l[4], rho[4], inv_l[4], r[4], dq[4][C::kPer] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = rho[i] = inv_l[i] = r[i] = 0.f;
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<1>();  // this step's chunk has landed
+    __syncthreads();     // ... for every thread; and step - 1's stage is free
+    if (step + 2 < steps) stage(step + 2);
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
     if (!active) continue;
-    if (sweep == 1 && c0 == 0) {
+    if (step == nch) {  // sweep 1 is done: reduce over the row's 8 lanes
 #pragma unroll
-      for (int i = 0; i < 4; ++i) inv_l[i] = row0 + i < seq ? 1.f / l[i] : 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const float lsum = group_sum<8>(l[i]);
+        inv_l[i] = row0 + i < seq ? 1.f / lsum : 0.f;  // padded rows: P = 0
+        r[i] = group_sum<8>(rho[i]) / lsum;
+      }
     }
-    if (sweep == 2 && c0 == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) r[i] = group_sum<8>(r[i]);
-    }
+    const int c0 = (step % nch) * kSub;
     if (c0 >= kend) continue;
-    float s[4][NS];
-    dots_f32<D>(s, qs + 16 * warp * LD, ks, ry, kx);
+    const float* ks = ring + (step % kStages) * RING;
+    const float* vs = ks + kSub * LD;
+    float s[4][NS], dp[4][NS];
+    dots_f32<D, NS>(s, qs + 16 * warp * LD, ks, ry, kx);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -863,129 +961,148 @@ attention_bwd_q_f32(const float* __restrict__ qkv, const float* __restrict__ gra
         const bool valid = col < seq && (!causal || col <= row0 + i);
         s[i][jj] = valid ? s[i][jj] * scale : -INFINITY;
       }
-    if (sweep == 0) {
+    dots_f32<D, NS>(dp, gs + 16 * warp * LD, vs, ry, kx);
+    if (step < nch) {  // sweep 1: online m, l, rho (key 0 keeps m finite)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float cm = -INFINITY;
 #pragma unroll
         for (int jj = 0; jj < NS; ++jj) cm = fmaxf(cm, s[i][jj]);
-        const float mn = fmaxf(m[i], group_max<8>(cm));
-        float sum = 0.f;
+        const float mn = fmaxf(m[i], group_max<8>(cm)), alpha = expf(m[i] - mn);
+        float ls = 0.f, rs = 0.f;
 #pragma unroll
-        for (int jj = 0; jj < NS; ++jj) sum += expf(s[i][jj] - mn);
-        l[i] = l[i] * expf(m[i] - mn) + group_sum<8>(sum);
+        for (int jj = 0; jj < NS; ++jj) {
+          const float p = expf(s[i][jj] - mn);
+          ls += p;
+          rs = fmaf(p, dp[i][jj], rs);
+        }
+        l[i] = fmaf(l[i], alpha, ls);
+        rho[i] = fmaf(rho[i], alpha, rs);
         m[i] = mn;
       }
       continue;
     }
-    float dp[4][NS];
-    dots_f32<D>(dp, gs + 16 * warp * LD, vs, ry, kx);
+    // sweep 2: dS of the warp's rows through its buffer, then dq += dS . k
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const float p = expf(s[i][jj] - m[i]) * inv_l[i];
-        if (sweep == 1) {
-          r[i] = fmaf(dp[i][jj], p, r[i]);
-        } else {
-          ws[(4 * ry + i) * LDW + 8 * jj + kx] = p * (dp[i][jj] - r[i]) * scale;
-        }
+        ws[(4 * ry + i) * LDW + 8 * jj + kx] = p * (dp[i][jj] - r[i]) * scale;
       }
-    if (sweep == 2) {
-      __syncwarp();
-      rows_times_f32<D>(dq, ws, ks, (min(kTile, kend - c0) + 3) / 4 * 4, ry, kx);
-      __syncwarp();
-    }
+    __syncwarp();
+    rows_times_f32<D, LDW>(dq, ws, ks, (min(kSub, kend - c0) + 3) / 4 * 4, ry, kx);
+    __syncwarp();
   }
-  if (!active) return;
+  // dq, and (m, 1/l, r) of every row of the tile (zeros past the warps
+  // that hold a row), which the key side reads
   float* out = dqkv + (size_t)b * seq * stride + h * D;
-  float* st = stats + (size_t)blockIdx.x * 3 * seq;
+  const int tw = stats_rows(seq);
+  float* st = stats + (size_t)blockIdx.x * 3 * tw;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + i;
-    if (row >= seq) continue;
+    if (active && row < seq) {
 #pragma unroll
-    for (int u = 0; u < C::kRuns; ++u)
-      store_vec<C::kVec>(out + row * stride + C::col(u, kx), dq[i] + u * C::kVec);
-    if (kx == 0) st[row] = m[i], st[seq + row] = l[i], st[2 * seq + row] = r[i];
+      for (int u = 0; u < C::kRuns; ++u)
+        store_vec<C::kVec>(out + row * stride + C::col(u, kx), dq[i] + u * C::kVec);
+    }
+    if (kx == 0) {
+      st[row] = active ? m[i] : 0.f;
+      st[tw + row] = inv_l[i];
+      st[2 * tw + row] = r[i];
+    }
   }
 }
 
 // Key side, fp32: lane (ry, kx) holds keys j0 + 4ry + t against queries
-// i0c + 8jj + kx; P, then dS, of the warp's keys pass through its buffer.
+// i0c + 8jj + kx; the query chunks and their statistics stream through the
+// ring (chunk c + 2 staged while c computes); P, then dS, of the warp's
+// keys pass through its buffer.
 template <int D>
-__global__ void __launch_bounds__(kTileThreads, 1)
+__global__ void __launch_bounds__(kTileThreads, 2)
 attention_bwd_kv_f32(const float* __restrict__ qkv, const float* __restrict__ grad,
                      float* __restrict__ dqkv, const float* __restrict__ stats, int seq,
                      int width, int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using C = Cols<D>;
-  constexpr int LD = D + 4, NS = kTile / 8, LDW = kTile + 4;
+  constexpr int LD = D + 4, NS = kSub / 8, LDW = kSub + 4, RING = 2 * kSub * LD + 3 * kSub;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
   float* ks = reinterpret_cast<float*>(smem_raw);  // the block's keys
   float* vs = ks + kTile * LD;
-  float* qs = vs + kTile * LD;  // the chunk's queries
-  float* gs = qs + kTile * LD;
-  float* sts = gs + kTile * LD;  // their m, 1/l, r
-  float* ws = sts + 3 * kTile + warp * 16 * LDW;  // the warp's P, then dS
+  float* ring = vs + kTile * LD;  // stage: the chunk's queries, g rows, then (m, 1/l, r)
+  float* ws = ring + kStages * RING + warp * 16 * LDW;  // the warp's P, then dS
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads, jb = kTile * blockIdx.y;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
   const float* gbase = grad + (size_t)b * seq * width + h * D;
-  const float* st = stats + (size_t)blockIdx.x * 3 * seq;
-  stage_rows<float, D>(ks, LD, base + width + jb * stride, stride, min(kTile, seq - jb), kTile,
-                       tid, kTileThreads);
-  stage_rows<float, D>(vs, LD, base + 2 * width + jb * stride, stride, min(kTile, seq - jb),
-                       kTile, tid, kTileThreads);
+  const int tw = stats_rows(seq);
+  const float* st = stats + (size_t)blockIdx.x * 3 * tw;
+  // causal: query chunks before the block's first key see none of its keys
+  const int first = causal ? jb / kSub : 0, nch = (seq + kSub - 1) / kSub;
+  auto stage = [&](int c) {
+    const int i0c = c * kSub;
+    float* dst = ring + ((c - first) % kStages) * RING;
+    stage_rows<float, D>(dst, LD, base + i0c * stride, stride, seq - i0c, kSub, tid,
+                         kTileThreads);
+    stage_rows<float, D>(dst + kSub * LD, LD, gbase + (size_t)i0c * width, width, seq - i0c,
+                         kSub, tid, kTileThreads);
+    // the statistics rows run to stats_rows(seq) >= i0c + kSub
+    for (int idx = tid; idx < 3 * kSub / 4; idx += kTileThreads) {
+      const int a = idx / (kSub / 4), o = 4 * (idx % (kSub / 4));
+      cp_async16(dst + 2 * kSub * LD + a * kSub + o, st + a * tw + i0c + o, true);
+    }
+  };
+  stage_rows<float, D>(ks, LD, base + width + jb * stride, stride, seq - jb, kTile, tid,
+                       kTileThreads);
+  stage_rows<float, D>(vs, LD, base + 2 * width + jb * stride, stride, seq - jb, kTile, tid,
+                       kTileThreads);
+  stage(first);
+  cp_async_commit();
+  if (first + 1 < nch) stage(first + 1);
   cp_async_commit();
 
   const int j0 = jb + 16 * warp, key0 = j0 + 4 * ry;  // keys key0 .. key0 + 3
   const bool active = j0 < seq;
-  const int first = causal ? blockIdx.y : 0, nch = (seq + kTile - 1) / kTile;
   float dk[4][C::kPer] = {}, dv[4][C::kPer] = {};
   for (int c = first; c < nch; ++c) {
-    const int i0c = c * kTile, nq = min(kTile, seq - i0c);
+    cp_async_wait<1>();
     __syncthreads();
-    stage_rows<float, D>(qs, LD, base + i0c * stride, stride, nq, kTile, tid, kTileThreads);
-    stage_rows<float, D>(gs, LD, gbase + (size_t)i0c * width, width, nq, kTile, tid,
-                         kTileThreads);
+    if (c + 2 < nch) stage(c + 2);
     cp_async_commit();
-    for (int i = tid; i < kTile; i += kTileThreads) {
-      const bool ok = i < nq;
-      sts[i] = ok ? st[i0c + i] : 0.f;
-      sts[kTile + i] = ok ? 1.f / st[seq + i0c + i] : 0.f;
-      sts[2 * kTile + i] = ok ? st[2 * seq + i0c + i] : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active) continue;
-    const int n4 = (nq + 3) / 4 * 4;
+    const int i0c = c * kSub;
+    // (causal: every query of the chunk is before the warp's keys)
+    if (!active || (causal && i0c + kSub <= j0)) continue;
+    const float* qs = ring + ((c - first) % kStages) * RING;
+    const float* gs = qs + kSub * LD;
+    const float* sts = gs + kSub * LD;  // m, 1/l, r of the chunk's queries
+    const int n4 = (min(kSub, seq - i0c) + 3) / 4 * 4;
     float s[4][NS];
-    dots_f32<D>(s, ks + 16 * warp * LD, qs, ry, kx);  // S^T: (key, query)
+    dots_f32<D, NS>(s, ks + 16 * warp * LD, qs, ry, kx);  // S^T: (key, query)
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const int qi = 8 * jj + kx, key = key0 + t;
-        const bool valid = key < seq && qi < nq && (!causal || key <= i0c + qi);
+        const bool valid = key < seq && i0c + qi < seq && (!causal || key <= i0c + qi);
         ws[(4 * ry + t) * LDW + qi] =
-            valid ? expf(s[t][jj] * scale - sts[qi]) * sts[kTile + qi] : 0.f;
+            valid ? expf(s[t][jj] * scale - sts[qi]) * sts[kSub + qi] : 0.f;
       }
     __syncwarp();
-    rows_times_f32<D>(dv, ws, gs, n4, ry, kx);
+    rows_times_f32<D, LDW>(dv, ws, gs, n4, ry, kx);
     __syncwarp();
-    dots_f32<D>(s, vs + 16 * warp * LD, gs, ry, kx);  // dP^T
+    dots_f32<D, NS>(s, vs + 16 * warp * LD, gs, ry, kx);  // dP^T
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const int qi = 8 * jj + kx;
         float* e = ws + (4 * ry + t) * LDW + qi;
-        *e = *e * (s[t][jj] - sts[2 * kTile + qi]) * scale;
+        *e = *e * (s[t][jj] - sts[2 * kSub + qi]) * scale;
       }
     __syncwarp();
-    rows_times_f32<D>(dk, ws, qs, n4, ry, kx);
+    rows_times_f32<D, LDW>(dk, ws, qs, n4, ry, kx);
     __syncwarp();
   }
   if (!active) return;
@@ -1003,37 +1120,42 @@ attention_bwd_kv_f32(const float* __restrict__ qkv, const float* __restrict__ gr
   }
 }
 
-// The tiled path: the query side (dq and the row statistics), then the key
-// side (dk, dv), on one stream.
+template <typename Kernel>
+cudaError_t set_smem_shared_carveout(Kernel kernel, size_t bytes) {
+  cudaError_t e = set_smem(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  // two blocks of the fp32 tiled kernels share an SM only with the largest carveout
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// T > 128: bf16 in one launch (the resident kernel); fp32 in two, the
+// query side (dq and the row statistics), then the key side (dk, dv), on
+// one stream.
 template <int D>
 cudaError_t launch_tiled(const void* qkv, const void* grad, void* dqkv, float* stats, int B,
                          int seq, int width, int heads, float scale, int causal, int dtype,
                          cudaStream_t stream) {
   cudaError_t e;
-  const dim3 grid(B * heads, (seq + kTile - 1) / kTile);
-  if (dtype == 0) {
-    const size_t smem = tiled_f32_smem(D);
-    if ((e = set_smem(attention_bwd_q_f32<D>, smem)) != cudaSuccess) return e;
-    if ((e = set_smem(attention_bwd_kv_f32<D>, smem)) != cudaSuccess) return e;
-    attention_bwd_q_f32<D><<<grid, kTileThreads, smem, stream>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(grad),
-        static_cast<float*>(dqkv), stats, seq, width, heads, scale, causal);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    attention_bwd_kv_f32<D><<<grid, kTileThreads, smem, stream>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(grad),
-        static_cast<float*>(dqkv), stats, seq, width, heads, scale, causal);
-  } else {
-    const size_t smem = tiled_bf16_smem(D);
-    if ((e = set_smem(attention_bwd_q_bf16<D>, smem)) != cudaSuccess) return e;
-    if ((e = set_smem(attention_bwd_kv_bf16<D>, smem)) != cudaSuccess) return e;
-    attention_bwd_q_bf16<D><<<grid, kTileThreads, smem, stream>>>(
+  if (dtype == 1) {
+    const size_t smem = resident_bf16_smem(seq, D);
+    if ((e = set_smem(attention_bwd_resident_bf16<D>, smem)) != cudaSuccess) return e;
+    attention_bwd_resident_bf16<D><<<B * heads, 32 * resident_warps(seq), smem, stream>>>(
         static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad), static_cast<bf16*>(dqkv),
-        stats, seq, width, heads, scale, causal);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    attention_bwd_kv_bf16<D><<<grid, kTileThreads, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad), static_cast<bf16*>(dqkv),
-        stats, seq, width, heads, scale, causal);
+        seq, width, heads, scale, causal);
+    return cudaGetLastError();
   }
+  const dim3 grid(B * heads, stats_rows(seq) / kTile);
+  const size_t smem = tiled_f32_smem(D);
+  if ((e = set_smem_shared_carveout(attention_bwd_q_f32<D>, smem)) != cudaSuccess) return e;
+  if ((e = set_smem_shared_carveout(attention_bwd_kv_f32<D>, smem)) != cudaSuccess) return e;
+  attention_bwd_q_f32<D><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(grad), static_cast<float*>(dqkv),
+      stats, seq, width, heads, scale, causal);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attention_bwd_kv_f32<D><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(grad), static_cast<float*>(dqkv),
+      stats, seq, width, heads, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1079,31 +1201,43 @@ extern "C" {
 // types'); the wrapper checks it, and T <= mnt_attention_bwd_max_seq(),
 // before launching.
 size_t mnt_attention_bwd_smem(int seq, int head_dim) {
-  if (seq > kWholeMaxSeq) return std::max(tiled_bf16_smem(head_dim), tiled_f32_smem(head_dim));
+  if (seq > kWholeMaxSeq) {
+    return std::max(resident_bf16_smem(seq, head_dim), tiled_f32_smem(head_dim));
+  }
   return std::max(bf16_smem(seq, head_dim), f32_smem(seq, head_dim));
 }
 
 // The longest sequence the kernels take.
 int mnt_attention_bwd_max_seq() { return kMaxSeq; }
 
-// Bytes of fp32 workspace a call needs: the tiled path's (m, l, r) of every
-// (row, head, query), 0 up to 128 tokens.
-size_t mnt_attention_bwd_workspace(int B, int seq, int heads) {
-  return seq > kWholeMaxSeq ? 3 * sizeof(float) * (size_t)B * heads * seq : 0;
+// Warps per block of the kernel that takes (seq, head_dim, dtype).
+int mnt_attention_bwd_warps(int seq, int head_dim, int dtype) {
+  if (seq > kWholeMaxSeq) return dtype == 1 ? resident_warps(seq) : kTileThreads / 32;
+  const int tp = round16(seq);
+  return tp / 16 * (dtype == 0 ? f32_split(key_capacity(tp), head_dim) : 1);
+}
+
+// Bytes of fp32 workspace a call needs: fp32's (m, 1/l, r) of every
+// (row, head, query) above 128 tokens, rows rounded up to 64; 0 otherwise.
+size_t mnt_attention_bwd_workspace(int B, int seq, int heads, int dtype) {
+  return seq > kWholeMaxSeq && dtype == 0
+             ? 3 * sizeof(float) * (size_t)B * heads * stats_rows(seq)
+             : 0;
 }
 
 // qkv: (B, seq, 3*width) contiguous; grad: (B, seq, width) contiguous;
 // dqkv: (B, seq, 3*width) contiguous; all of one type, 16-byte aligned.
-// workspace: mnt_attention_bwd_workspace(B, seq, heads) bytes (may be null
-// when that is 0).  scale: D^-0.5 as the caller rounds it to float32.
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// workspace: mnt_attention_bwd_workspace(B, seq, heads, dtype) bytes,
+// 16-byte aligned (may be null when that is 0).  scale: D^-0.5 as the
+// caller rounds it to float32.  dtype: 0 = float32, 1 = bfloat16.  Returns
+// a cudaError_t (0 on success).
 int mnt_attention_bwd(const void* qkv, const void* grad, void* dqkv, void* workspace, int B,
                       int seq, int width, int heads, float scale, int causal, int dtype,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tiled = seq > kWholeMaxSeq;
   if ((dtype != 0 && dtype != 1) || heads <= 0 || width % heads || seq > kMaxSeq ||
-      (tiled && workspace == nullptr)) {
+      (tiled && dtype == 0 && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* ws = static_cast<float*>(workspace);

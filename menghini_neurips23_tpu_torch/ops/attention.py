@@ -14,7 +14,8 @@ device memory.  On a CPU tensor each takes its plain version,
 `attention_reference` and `attention_bwd_reference`, which perform the same
 arithmetic with PyTorch operators.  There is no other path: anything a
 kernel does not take raises, T above 320 among it (ViT-L/14's 257, 261 and
-273 are taken: the backward tiles sequences above 128 tokens).
+273 are taken: above 128 tokens the backward keeps no T x T tile, in bf16
+holding the head's q, k, v and g in shared memory).
 
 When `qkv` requires grad (and grad mode is on) the call goes through
 `FusedAttention`, a `torch.autograd.Function` that saves only `qkv` and
@@ -66,7 +67,10 @@ _BWD_SIGNATURES = {
     ),
     "mnt_attention_bwd_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
     "mnt_attention_bwd_max_seq": ([], ctypes.c_int),
-    "mnt_attention_bwd_workspace": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
+    "mnt_attention_bwd_warps": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "mnt_attention_bwd_workspace": (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_size_t
+    ),
     **_cuda.ERROR_STRING,
 }
 
@@ -187,9 +191,9 @@ def attention_bwd(
     """(B, T, 3W) qkv + (B, T, W) output gradient -> (B, T, 3W) dqkv.
 
     CPU tensors take `attention_bwd_reference`; CUDA tensors launch the
-    kernel (counted in `attention_bwd.launches`, one per call) or raise.  Up
-    to 128 tokens a call is one grid launch; above, the tiled path is two
-    (the query side, then the key side), on an fp32 workspace of B*H*T*12
+    kernel (counted in `attention_bwd.launches`, one per call) or raise.  A
+    call is one grid launch, except fp32 above 128 tokens: two (the query
+    side, then the key side), on an fp32 workspace of B*H*round64(T)*12
     bytes allocated here."""
     _check_mask(mask)
     if qkv.device != g.device:
@@ -219,8 +223,8 @@ def attention_bwd(
         return dqkv
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        # the tiled path's row statistics, held here until the launch is queued
-        ws_bytes = lib.mnt_attention_bwd_workspace(B, T, heads)
+        # fp32's row statistics above 128 tokens, held here until the launch is queued
+        ws_bytes = lib.mnt_attention_bwd_workspace(B, T, heads, _DTYPE_CODES[qkv.dtype])
         ws = (torch.empty(ws_bytes // 4, dtype=torch.float32, device=qkv.device)
               if ws_bytes else None)
         code = lib.mnt_attention_bwd(

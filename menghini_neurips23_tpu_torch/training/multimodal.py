@@ -12,7 +12,7 @@ the cached pos-embedded patch tokens of the batch with the mixed vpt prompt
 inserted after CLS.  On the card every layer of both towers runs K1 forward
 and K2 backward (ops/attention.py); the mixer's own attention is plain fp32
 PyTorch by design (models/prompts.py `mixer_attention`).  K2 takes T <= 320
-(ViT-L/14's 1 + 256 + 4 = 261 through its tiled path), so a prompted vision
+(ViT-L/14's 1 + 256 + 4 = 261 above 128 tokens), so a prompted vision
 sequence longer than that is refused when the strategy is built.
 """
 

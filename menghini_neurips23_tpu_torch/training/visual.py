@@ -9,9 +9,9 @@ ViT-B/32), so each step runs only ln_pre -> transformer -> ln_post -> proj
 over (B, 1+L+N, width), with the gradient flowing to the (L, width) prefix
 and, with VPT_DEEP, to the (vision_layers-1, L, width) deep prompts.  On the
 card every vision layer's attention runs K1 forward and K2 backward
-(ops/attention.py).  K2 takes T <= 320 (above 128 through its tiled path:
-ViT-L/14's 1 + 256 + 16 = 273), so a prompted sequence longer than that is
-refused when the strategy is built.
+(ops/attention.py).  K2 takes T <= 320 (ViT-L/14's 1 + 256 + 16 = 273
+among them), so a prompted sequence longer than that is refused when the
+strategy is built.
 """
 
 from __future__ import annotations

@@ -112,7 +112,11 @@ def test_attention_kernel_matches_plain(case, dtype):
 # (10, 77) case) and the ViT-B/32 vision tower with and without a 16-token
 # VPT prefix (the VPT training batch of 16), then UPT's training batch with
 # its 4-token prompt; ViT-L/14's VPT (T = 273) and UPT (T = 261) training
-# batches and its plain vision tower (T = 257), which K2 tiles
+# batches and its plain vision tower (T = 257), which K2 takes above 128
+# tokens; then 288 and 319 at D = 64, around the bf16 kernel's 16-row pad;
+# one (row, head), so that one block has the card to itself; T = 320 at
+# ViT-L/14's width and a causal 305, whose last 32-row chunk of the fp32
+# kernels' ring is short
 BWD_CASES = [
     (4, 12, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -129,6 +133,14 @@ BWD_CASES = [
     (16, 273, 1024, 16, None),
     (16, 261, 1024, 16, None),
     (4, 257, 1024, 16, None),
+    (1, 288, 128, 2, None),
+    (1, 288, 128, 2, "causal"),
+    (1, 319, 128, 2, None),
+    (1, 319, 128, 2, "causal"),
+    (1, 273, 64, 1, None),
+    (1, 273, 64, 1, "causal"),
+    (16, 320, 1024, 16, None),
+    (2, 305, 128, 2, "causal"),
 ] + EDGE_CASES + LONG_EDGE_CASES
 
 
@@ -174,7 +186,8 @@ def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", [(256, 66, 768, 12, None), (102, 77, 512, 8, "causal"),
-                                  (16, 273, 1024, 16, None), (2, 200, 128, 2, "causal")],
+                                  (16, 273, 1024, 16, None), (2, 200, 128, 2, "causal"),
+                                  (16, 320, 1024, 16, None), (1, 273, 64, 1, "causal")],
                          ids=lambda c: "x".join(map(str, c)))
 def test_attention_bwd_kernel_is_deterministic(case, dtype):
     """No atomics: two launches on the same inputs give the same bits."""
@@ -187,6 +200,29 @@ def test_attention_bwd_kernel_is_deterministic(case, dtype):
     second = attention_bwd(qkv, grad, mask, H)
     torch.cuda.synchronize()
     assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
+def test_attention_bwd_reports_its_warps_and_workspace():
+    """Above 128 tokens bf16 runs in one launch with no workspace, its warps
+    sized so that each takes the same number of 16-row tiles (T = 273: 18
+    tiles, 9 warps of 2); fp32 in two launches of 4 warps, on 12 bytes per
+    (row, head, query), queries rounded up to 64."""
+    _require_card()
+    from menghini_neurips23_tpu_torch.ops import _cuda
+    from menghini_neurips23_tpu_torch.ops.attention import _BWD_SIGNATURES
+
+    lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
+    assert lib.mnt_attention_bwd_workspace(16, 273, 16, 1) == 0
+    assert lib.mnt_attention_bwd_workspace(16, 273, 16, 0) == 12 * 16 * 16 * 320
+    assert lib.mnt_attention_bwd_workspace(16, 128, 16, 0) == 0
+    assert lib.mnt_attention_bwd_warps(273, 64, 0) == 4
+    for T in (129, 193, 257, 261, 273, 288, 320):
+        tiles, warps = -(-T // 16), lib.mnt_attention_bwd_warps(T, 64, 1)
+        rounds = -(-tiles // warps)
+        assert 1 <= warps <= 16 and -(-tiles // rounds) == warps, (T, warps)
+    assert lib.mnt_attention_bwd_warps(273, 64, 1) == 9
+    assert lib.mnt_attention_bwd_warps(66, 64, 1) == 5
+    assert lib.mnt_attention_bwd_smem(320, 64) <= 227 * 1024
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -77,6 +77,76 @@ def test_attention_bwd_plain_matches_jax_vjp(mask, T, dtype):
     )
 
 
+def _merged_sweep_bwd(qkv, g, mask, heads, chunk):
+    """K2's schedule above 128 tokens, in plain torch: sweep 1 over `chunk`-key
+    chunks keeps each query row's online max m, sum l = sum exp(s - m) and
+    rho = sum exp(s - m) * dP, rescaling l and rho alike when m grows, and
+    ends with r = rho / l; sweep 2 forms P = exp(s - m) * (1 / l), dS =
+    P (dP - r) D^-0.5 rounded to the input type, dq = dS k, dk = dS^T q and
+    dv = P_lp^T g (P_lp: P rounded to the input type)."""
+    dt = qkv.dtype
+    B, T, three_w = qkv.shape
+    W = three_w // 3
+    D = W // heads
+
+    def split(x):
+        return x.reshape(B, T, heads, D).transpose(1, 2).float()
+
+    q, k, v = (split(t) for t in qkv.split(W, dim=-1))
+    gh = split(g)
+    scale = D**-0.5
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if mask == "causal":
+        s = s.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1), float("-inf"))
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    m = torch.full((B, heads, T, 1), float("-inf"))
+    l = torch.zeros(B, heads, T, 1)
+    rho = torch.zeros(B, heads, T, 1)
+    for c0 in range(0, T, chunk):  # key 0 keeps every row's m finite after chunk 0
+        sc, dpc = s[..., c0:c0 + chunk], dp[..., c0:c0 + chunk]
+        mn = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mn)
+        p = torch.exp(sc - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        rho = rho * alpha + (p * dpc).sum(-1, keepdim=True)
+        m = mn
+    r = rho / l
+    p = torch.exp(s - m) * (1 / l)
+    ds = (p * (dp - r) * scale).to(dt).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
+    return torch.cat([t.transpose(1, 2).reshape(B, T, W).to(dt) for t in (dq, dk, dv)], dim=-1)
+
+
+# T = 129 and 273, as above; chunks of 32 keys (the fp32 kernel's) and 64
+# (the bf16 kernel's)
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("T", [129, 273])
+@pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
+def test_attention_bwd_merged_sweep_matches_jax_vjp(mask, T, dtype):
+    """The one-sweep statistics (online m, l and rho, r = rho / l) that K2
+    runs above 128 tokens, emulated in plain torch, against the JAX
+    package's custom VJP (its Pallas `_bwd`, interpreted off-TPU) and
+    against K2's plain version, at the tolerances of the test above."""
+    jdt, tdt, tol = _DTYPES[dtype]
+    B, H, D = 8, 2, 16
+    rng = np.random.default_rng(200 + T)
+    qkv = rng.normal(0, 1, (B, T, 3 * H * D)).astype(np.float32)
+    g = rng.normal(0, 1, (B, T, H * D)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jax_fused_attention(x, mask, H), jnp.asarray(qkv).astype(jdt))
+    (want,) = vjp(jnp.asarray(g).astype(jdt))
+    qkv_t, g_t = torch.from_numpy(qkv).to(tdt), torch.from_numpy(g).to(tdt)
+    plain = attention_bwd_reference(qkv_t, g_t, mask, H).float().numpy()
+    for chunk in (32, 64):
+        got = _merged_sweep_bwd(qkv_t, g_t, mask, H, chunk)
+        assert got.dtype == tdt and got.shape == (B, T, 3 * H * D)
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=tol, atol=tol
+        )
+        np.testing.assert_allclose(got.float().numpy(), plain, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_fused_attention_cpu_gradient_matches_autograd_of_plain(mask):
     """Through `FusedAttention` on the CPU (plain forward + plain backward)
