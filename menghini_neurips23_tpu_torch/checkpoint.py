@@ -18,6 +18,11 @@ parameter dicts kept as dicts; it loads with `weights_only=True`.  The JAX
 package writes orbax checkpoints there instead, so neither package resumes
 the other's runs.  A directory is written as `iter_<n>.tmp` and renamed
 when complete.  One process writes; there is no process group.
+
+Inside an iteration, the whole-run trainer split by FUSED_EPOCH_CHUNK saves
+its carry at every chunk boundary (`save_chunk_state`, the JAX package's
+checkpoint.py:145-227): `chunk_<fingerprint>.pt` beside the iteration
+directories, one `torch.save` file written to a .tmp name and renamed.
 """
 
 from __future__ import annotations
@@ -146,3 +151,80 @@ def clear_run_checkpoints(config):
     base = _ckpt_dir(config)
     if os.path.isdir(base):
         shutil.rmtree(base)
+
+
+# --------------------------------------------------------------- chunk states
+# A run of the whole-run trainer split into FUSED_EPOCH_CHUNK-epoch chunks
+# (strategy._fused_chunked_call) fetches its stats at every chunk boundary;
+# with CHECKPOINT_ITER it also persists its carry there, so a kill costs at
+# most one chunk instead of a whole IFPL/GRIP iteration.  The state is keyed
+# by a fingerprint of everything that determines the computation (the
+# permutation and lr schedules, the epoch and chunk counts, the initial
+# carry): a resumed run, whose restored RNG stream and prompt re-init counter
+# reproduce those inputs exactly, picks up the saved carry; any divergent run
+# misses the key and recomputes.
+
+def chunk_fingerprint(perms, lrs, epochs: int, chunk: int, carry0) -> str:
+    """sha256 over perms, lrs, "epochs/chunk" and every leaf of the initial
+    carry (dtype, shape, bytes; dicts by sorted key), first 32 hex digits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(perms).tobytes())
+    h.update(np.ascontiguousarray(lrs).tobytes())
+    h.update(f"{epochs}/{chunk}".encode())
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for t in tree for x in leaves(t)]
+        return [np.asarray(tree)]
+
+    for arr in leaves(carry0):
+        h.update(str(arr.dtype).encode())
+        h.update(str(arr.shape).encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()[:32]
+
+
+def _chunk_path(config, fingerprint: str) -> str:
+    return os.path.join(_ckpt_dir(config), f"chunk_{fingerprint}.pt")
+
+
+def save_chunk_state(config, fingerprint: str, next_start: int, carry, outs_list) -> str:
+    """Persist the carry after a chunk - (prompt, mom, gacc, best_metric,
+    best_prompt), host arrays - and the per-chunk (3, chunk) stats so far."""
+    path = _chunk_path(config, fingerprint)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({"fmt": 2, "next_start": int(next_start), "carry": _to_tensors(carry),
+                "outs_list": _to_tensors(outs_list)}, tmp)
+    os.replace(tmp, path)
+    log.info("checkpointed fused chunk (next epoch %d) -> %s", next_start, path)
+    return path
+
+
+def load_chunk_state(config, fingerprint: str) -> Optional[dict]:
+    """The saved state for `fingerprint` with numpy leaves, or None (none
+    saved, or unreadable: the run recomputes the iteration)."""
+    path = _chunk_path(config, fingerprint)
+    if not os.path.exists(path):
+        return None
+    try:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:  # truncated or corrupt: recompute from scratch
+        log.warning("could not restore chunk state %s: %s", path, e)
+        return None
+    if state.get("fmt") != 2:
+        log.warning("ignoring chunk state %s with another format", path)
+        return None
+    state["carry"] = _to_numpy(state["carry"])
+    state["outs_list"] = _to_numpy(state["outs_list"])
+    return state
+
+
+def clear_chunk_state(config, fingerprint: str):
+    path = _chunk_path(config, fingerprint)
+    if os.path.exists(path):
+        os.remove(path)

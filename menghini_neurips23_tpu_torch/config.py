@@ -100,24 +100,24 @@ class Config:
     s_EPOCHS: int = 0
 
     # Framework knobs (no reference equivalent).  The same names as the JAX
-    # package's Config, so one YAML file configures both; knobs that serve
-    # only the JAX package's fused trainer are read here without effect.
+    # package's Config, so one YAML file configures both; FUSED_* take the
+    # JAX package's meanings for this package's whole-run trainer.
     COMPUTE_DTYPE: str = "float32"  # float32 | bfloat16
     CACHE_FEATURES: bool = True  # precompute frozen-tower features
-    FUSED_TRAIN: bool = True  # read, no effect: every run takes the per-step loop (no whole-run form yet)
+    FUSED_TRAIN: bool = True  # run all epochs as the whole-run trainer (CUDA graphs of the step and the epoch end on the card); False = the per-step loop
     CHECKPOINT_ITER: bool = True  # write a resume state after each IFPL/GRIP iteration (ARTIFACT_DIR/checkpoints/<run>/iter_<n>/, torch.save + manifest.json)
     RESUME: bool = True  # IFPL/GRIP start after the run's latest checkpointed iteration, bit-identical to an uninterrupted run
     PROFILE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
     COMPILE_CACHE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
     PSEUDO_TOPK: str = "exact"  # exact (reference leaderboard) | device (torch.topk on the runtime device, byte-identical)
     GRIP_REFRESH: str = "onepass"  # IFPL/GRIP pseudolabel refresh: onepass scores the pool once | twopass, the reference's two passes (the same pseudolabels)
-    FUSED_MAX_BYTES: int = 6_000_000_000  # training features above half this stream per batch instead of staying on the device
+    FUSED_MAX_BYTES: int = 6_000_000_000  # training features above half this stream per batch through the per-step loop instead of staying on the device
     HOST_CACHE_BYTES: int = 4_000_000_000  # byte cap for the per-image host feature LRU
     DECODE_CACHE_BYTES: int = 2_000_000_000  # byte cap for decoded uint8 images (0 = off); GRIP refreshes re-read the pool every iteration
-    FUSED_REMAT: bool = False  # read, no effect: the JAX fused trainer's recompute switch
+    FUSED_REMAT: bool = False  # whole-run trainer: recompute the VPT/UPT towers in the backward (torch.utils.checkpoint; memory vs FLOPs)
     FUSED_ATTENTION: str = "auto"  # read for compatibility; on CUDA the attention kernel always runs
-    FUSED_EPOCH_CHUNK: int = 0  # read, no effect: epochs per JAX fused program
-    FUSED_BUCKETS: int = 2  # read, no effect: pads the JAX fused trainer's GRIP shapes; the per-step loop takes each iteration's exact size
+    FUSED_EPOCH_CHUNK: int = 0  # >0: the whole-run trainer fetches stats (and with CHECKPOINT_ITER saves a resumable carry) every this many epochs
+    FUSED_BUCKETS: int = 2  # GRIP train-set shape ladder depth (1 = one full-pool shape; 0 = exact per-iteration shapes); padding is masked, so this trades captures for padded steps
     TEXT_TRUNCATE: bool = True  # drop text-context positions after the last EOT (exact under causal attention). False = always run all 77 positions like the reference
     PRECAST_WEIGHTS: bool = True  # bf16 compute only: cast the transformer matmul weights to bf16 once at load (the same rounding as casting at every use)
     UPT_FP16_QUIRK: bool = False  # UPT: round the mixer output through fp16, as the reference UPTModel does (off: the mixer stays fp32)

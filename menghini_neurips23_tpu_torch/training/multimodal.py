@@ -65,19 +65,38 @@ class MultimodalStrategy(TrainingStrategy):
         self._init_opt_state()
         self._bump_prompt_version()
 
-    def _prompt_params(self):
-        return list(self.prompt.values()) + list(self.mixer.parameters())
+    _FUSED_VAL_ROWS = 256  # the vision tower over the validation set, as _predict_logits
+
+    def _get_prompt_tree(self):
+        """coop, vpt (and deep), then the mixer's parameters as "mixer.<name>"."""
+        return {**self.prompt,
+                **{f"mixer.{k}": v for k, v in self.mixer.named_parameters()}}
+
+    def _set_prompt_tree(self, tree):
+        prompt = {k: v for k, v in tree.items() if not k.startswith("mixer.")}
+        prompt["mixer"] = {k[len("mixer."):]: v for k, v in tree.items()
+                           if k.startswith("mixer.")}
+        self._set_prompt(prompt)
 
     @staticmethod
     def _normalized(x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         return x / x.norm(dim=-1, keepdim=True)
 
-    def _logits(self, class_ctx, feats):
-        tf, img = upt_features(self.runtime.model, self.mixer, self.prompt, class_ctx,
-                               tokens=feats)
-        scale = torch.exp(self.runtime.model.logit_scale)
-        return scale * self._normalized(img) @ self._normalized(tf).T
+    def _logits_fn(self):
+        model, mixer, norm = self.runtime.model, self.mixer, self._normalized
+
+        def fn(tree, token_ids, tokens):
+            # the mixer's structure with the tree's parameters
+            params = {k[len("mixer."):]: v for k, v in tree.items() if k.startswith("mixer.")}
+
+            def mix(coop, vpt):
+                return torch.func.functional_call(mixer, params, (coop, vpt))
+
+            tf, img = upt_features(model, mix, tree, token_ids, tokens=tokens)
+            return torch.exp(model.logit_scale) * norm(img) @ norm(tf).T
+
+        return fn
 
     # ------------------------------------------------------------ features
     def _encode_paths(self, paths: Sequence[str]) -> np.ndarray:
@@ -97,11 +116,6 @@ class MultimodalStrategy(TrainingStrategy):
             lambda: build_prompt_token_ids(
                 self.runtime.tokenizer, class_list, self.config.TEXT_PREFIX_SIZE
             ),
-        )
-
-    def _class_context(self, class_list: Sequence[str]) -> torch.Tensor:
-        return torch.tensor(
-            self._train_text_class_ids(class_list), dtype=torch.long, device=self.device
         )
 
     # ----------------------------------------------------------- inference

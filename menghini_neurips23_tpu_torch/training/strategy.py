@@ -6,20 +6,37 @@ sites, and this module follows that reconstruction:
 
 - frozen-tower work is hoisted out of the epoch loop: CoOp computes the image
   features ONCE per training-set composition (the reference re-runs the
-  frozen image tower every batch, textual_prompt.py:100) and keeps them as one
-  device tensor, VPT likewise the pos-embedded patch tokens; each step
-  gathers its batch there;
-- one step = forward logits, the two-group loss / ACCUMULATION_ITER,
-  `.backward()` into the prompt's `.grad` (which sums across accumulation
-  steps), then, when the step applies, `torch.optim.SGD` (weight decay, then
-  momentum, then lr - the reference's update) and zeroed grads;
+  frozen image tower every batch, textual_prompt.py:100), VPT and UPT the
+  pos-embedded patch tokens; each step gathers its batch from them;
+- one step = forward logits through the modality's functional logits hook
+  (`_logits_fn`, on an explicit prompt tree), the two-group loss /
+  ACCUMULATION_ITER, its gradient added into an accumulator, then, when the
+  step applies, SGD by hand (weight decay, then momentum, then lr - the
+  reference's `torch.optim.SGD` update) and a zeroed accumulator
+  (training/fused.py `train_step`);
 - the paradigm deltas (SSL / UL / TRZSL) are one policy: class spaces, loss
   weights, group flags and the val metric (accuracy vs seen/unseen harmonic
   mean);
 - batches are fixed-shape: the last one is padded with index 0, label -1 and
-  valid 0;
-- validation and prediction logits are host-side NumPy fp32, as in the JAX
-  package, so argmax and best-epoch decisions are the same computation.
+  valid 0.
+
+A run takes one of two forms, as in the JAX package:
+- the whole-run trainer (`FUSED_TRAIN`, on by default; `_fused_train`): all
+  epochs' permutations drawn up front, the step and the epoch end run from
+  static device buffers (training/fused.py) - on the card as CUDA graphs
+  replayed EPOCHS x (steps + 1) times with no host sync between epochs -
+  with validation and best-epoch selection on the device.  FUSED_EPOCH_CHUNK
+  splits the run into chunks with one stats fetch each and, with
+  CHECKPOINT_ITER, a resumable carry at every boundary; IFPL/GRIP pad their
+  training sets to a FUSED_BUCKETS ladder so that few shapes are captured
+  (the padding takes buffer rows; only the real batches are replayed);
+- the per-step loop, which the JAX package keeps as its fallback and takes
+  for the same four reasons (FUSED_TRAIN off, an empty training or
+  validation set, features above FUSED_MAX_BYTES/2, an active transform):
+  one step per batch with an `.item()` each, validation with host-side
+  NumPy fp32 logits.  The two forms see the same batches; near-tie argmaxes
+  of the validation may differ (device vs host logits), as they do in the
+  JAX package.
 
 Training strategies (reference semantics):
 - train():                 supervised prompt tuning, or FPL when an
@@ -36,11 +53,6 @@ Training strategies (reference semantics):
 Each IFPL/GRIP iteration saves its prompt and pseudolabels, and a resume
 state (checkpoint.py) that RESUME picks up.
 
-The JAX package's whole-run `lax.scan` trainer (`FUSED_TRAIN`) and its
-shape ladder (`FUSED_BUCKETS`, which only pads that trainer's shapes) have
-no counterpart here: both options are read and have no effect, every run
-takes the per-step loop above.
-
 The zero-shot pseudolabel pass runs on the base class too: it can be built
 without a prompt (`initialize_prompts_parameters` does nothing here).
 """
@@ -52,12 +64,14 @@ import hashlib
 import logging
 import math
 import os
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
 import scipy.stats as st
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from menghini_neurips23_tpu_torch.config import Config
 from menghini_neurips23_tpu_torch.data.datasets import dataset_object
@@ -66,11 +80,17 @@ from menghini_neurips23_tpu_torch.evaluation.persist import save_parameters, sav
 from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs
 from menghini_neurips23_tpu_torch.pseudo.engine import compute_pseudo_labels, pseudolabel_top_k
 from menghini_neurips23_tpu_torch.runtime import ClipRuntime
-from menghini_neurips23_tpu_torch.training.losses import two_group_loss
+from menghini_neurips23_tpu_torch.training.fused import FusedProgram, numpy_tree, train_step
 from menghini_neurips23_tpu_torch.training.schedulers import lr_for_epoch
 from menghini_neurips23_tpu_torch.utils.cache import BoundedFeatureCache
 
 log = logging.getLogger(__name__)
+
+
+def _np_key(a) -> tuple:
+    """Content key for a small host array (shape, dtype and a digest)."""
+    a = np.ascontiguousarray(a)
+    return (a.shape, a.dtype.str, hashlib.blake2b(a.tobytes(), digest_size=16).hexdigest())
 
 
 def _paths_key(paths) -> str:
@@ -86,14 +106,14 @@ def _paths_key(paths) -> str:
 
 
 class EpochData:
-    """Training tensors for one training-set composition.
+    """Training arrays for one training-set composition, on the host.
 
     features is None in STREAMING mode (training set too large to
-    materialize): the loop then fetches per-batch features through the
-    bounded cache instead."""
+    materialize, or an active transform): the per-step loop then fetches
+    per-batch features through the bounded cache instead."""
 
     def __init__(self, features, labels, group, paths):
-        self.features = features  # (N, E) device tensor, or None when streaming
+        self.features = features  # (N, E) or (N, S, W) array, or None when streaming
         self.labels = np.asarray(labels, np.int32)
         self.group = np.asarray(group, np.int32)
         self.paths = list(paths)
@@ -148,9 +168,29 @@ class TrainingStrategy:
         """Create the trainable prompt (modality subclasses); the zero-shot
         base has none."""
 
-    def _prompt_params(self) -> List[torch.Tensor]:
-        """The trainable leaf tensors (modality hook)."""
+    def _get_prompt_tree(self) -> Dict[str, torch.Tensor]:
+        """The trainable leaf tensors by name (modality hook): the live
+        leaves, which the per-step loop updates in place."""
         raise NotImplementedError
+
+    def _prompt_params(self) -> List[torch.Tensor]:
+        """The trainable leaf tensors, in the tree's order."""
+        return list(self._get_prompt_tree().values())
+
+    def _set_prompt_tree(self, tree):
+        """Replace the prompt with `tree` (host or device arrays by the names
+        `_get_prompt_tree` gives); re-initializes the optimizer state and
+        bumps the prompt version (modality hook)."""
+        raise NotImplementedError
+
+    def _logits_fn(self):
+        """A pure function (prompt tree, class context, features) -> (B, C)
+        fp32 logits, differentiable in the tree (modality hook; the JAX
+        package's `_logits_fn`)."""
+        raise NotImplementedError
+
+    # rows per validation chunk in the whole-run trainer (None: all at once)
+    _FUSED_VAL_ROWS: Optional[int] = None
 
     def _encode_paths(self, paths: Sequence[str]) -> np.ndarray:
         """Modality hook: frozen per-image representation for a file list
@@ -166,20 +206,20 @@ class TrainingStrategy:
         token ids for CoOp, frozen text features for VPT."""
         raise NotImplementedError
 
+    def _ctx_host(self, class_list) -> np.ndarray:
+        """The step's class context for `class_list` on the host: int64
+        token ids (CoOp, UPT) or fp32 frozen text features (VPT)."""
+        x = np.asarray(self._train_text_class_ids(class_list))
+        return x.astype(np.int64 if np.issubdtype(x.dtype, np.integer) else np.float32)
+
     def _class_context(self, class_list: Sequence[str]) -> torch.Tensor:
-        """The step's class context for `class_list` as a device tensor
-        (modality hook)."""
-        raise NotImplementedError
+        """The step's class context for `class_list` as a device tensor."""
+        return torch.tensor(self._ctx_host(class_list), device=self.device)
 
     def _bump_prompt_version(self):
         """Invalidate prompted-feature memos: called on every prompt change,
         the optimizer's in-place updates included."""
         self._prompt_version = getattr(self, "_prompt_version", 0) + 1
-
-    def _logits(self, class_ctx: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
-        """(B, C) fp32 logits under the current prompt, differentiable in it
-        (modality hook)."""
-        raise NotImplementedError
 
     def _predict_logits(self, paths: Sequence[str], class_list: Sequence[str]) -> np.ndarray:
         """(N, C) logits for images under the CURRENT prompt parameters."""
@@ -272,38 +312,32 @@ class TrainingStrategy:
 
     # ------------------------------------------------------------- SGD step
     def _init_opt_state(self):
-        """A fresh optimizer over the prompt: zero momentum, no gradient."""
-        cfg = self.config
-        params = self._prompt_params()
-        for p in params:
-            p.grad = None
-        self._opt = torch.optim.SGD(
-            params, lr=cfg.LR, momentum=cfg.MOMENTUM, dampening=0,
-            weight_decay=cfg.DECAY,
-        )
+        """A fresh optimizer state over the prompt: zero momentum and a zero
+        gradient accumulator per leaf."""
+        tree = self._get_prompt_tree()
+        self._mom = {k: torch.zeros_like(v) for k, v in tree.items()}
+        self._gacc = {k: torch.zeros_like(v) for k, v in tree.items()}
 
     def _apply_step(self, class_ctx: torch.Tensor, lr: float, feats: torch.Tensor,
                     labels: torch.Tensor, group: torch.Tensor, valid: torch.Tensor,
                     apply: bool = True) -> Tuple[float, float]:
-        """One step on device tensors: loss / ACCUMULATION_ITER backward into
-        the prompt's grad; with `apply`, one SGD update at `lr` and zeroed
-        grads (the reference's manual accumulation,
-        textual_prompt.py:130-135).  Returns (loss, correct count).
+        """One step of the per-step loop on device tensors, through the same
+        `train_step` as the whole-run trainer: the gradient of loss /
+        ACCUMULATION_ITER into the accumulator; with `apply`, one SGD update
+        at `lr` (the reference's manual accumulation,
+        textual_prompt.py:130-135).  Returns (loss, correct count), which
+        syncs with the host.
 
         The update is in place, so it bumps the prompt version that keys the
         prompted-feature memo."""
-        accum = self.config.ACCUMULATION_ITER
-        logits = self._logits(class_ctx, feats)
-        loss = two_group_loss(logits, labels, group, valid, self._w0, self._w1)
-        (loss / accum).backward()
+        cfg = self.config
+        loss, correct = train_step(
+            self._logits_fn(), self._get_prompt_tree(), self._mom, self._gacc, class_ctx,
+            feats, labels, group, valid, self._w0, self._w1, lr, apply,
+            max(1, cfg.ACCUMULATION_ITER), cfg.DECAY, cfg.MOMENTUM,
+        )
         if apply:
-            for pg in self._opt.param_groups:
-                pg["lr"] = lr
-            self._opt.step()
-            self._opt.zero_grad(set_to_none=True)
             self._bump_prompt_version()
-        with torch.no_grad():
-            correct = ((logits.argmax(1) == labels) * valid).sum()
         return loss.item(), correct.item()
 
     # -------------------------------------------------------------- paradigm
@@ -456,15 +490,21 @@ class TrainingStrategy:
         epoch = self._prepare_epoch_data(train_data, train_classes, only_seen)
         val = self._prepare_val_data(val_data)
 
+        fused = self._fused_train(epoch, val, train_classes)
+        if fused is not None:
+            return fused
+
         best_acc = -1.0
         best_params = self.epoch_parameters()
         class_ctx = self._class_context(train_classes)
         self._init_opt_state()
         bs = self._batch_size()
+        feats = None if epoch.features is None else torch.tensor(epoch.features,
+                                                                 device=self.device)
 
         for e in range(cfg.EPOCHS):
             lr = lr_for_epoch(cfg, e)
-            train_acc, loss = self._run_train_epoch(class_ctx, epoch, lr, bs)
+            train_acc, loss = self._run_train_epoch(class_ctx, epoch, feats, lr, bs)
             val_acc = self._run_validation(val)
             log.info(
                 "epoch %d: loss=%.4f train_acc=%.4f val_acc=%.4f lr=%.5f",
@@ -495,8 +535,7 @@ class TrainingStrategy:
         est = len(paths) * self._feature_item_nbytes()
         if 2 * est > self.config.FUSED_MAX_BYTES:
             return EpochData(None, labels, groups, paths)
-        feats = self._features_for_paths(paths)
-        return EpochData(torch.tensor(feats, device=self.device), labels, groups, paths)
+        return EpochData(self._features_for_paths(paths), labels, groups, paths)
 
     def _prepare_val_data(self, val_data):
         """Validation set; FPL augments it with the pseudo-val split
@@ -518,7 +557,279 @@ class TrainingStrategy:
             class_list = self.seen_classes
         return paths, np.asarray(labels, np.int32), class_list
 
-    def _run_train_epoch(self, class_ctx, epoch: EpochData, lr, bs):
+    # ---------------------------------------------------- whole-run trainer
+    def _fused_train(self, epoch: EpochData, val, train_classes):
+        """Run the whole training - every epoch's steps, its validation and
+        the best-epoch selection - as the program of training/fused.py and
+        return (best metric, best params); or return None, with the JAX
+        package's logged reason, to take the per-step loop (JAX
+        strategy.py:629-766).  The strategy keeps the final epoch's prompt,
+        as the reference does, with a fresh optimizer state and a new prompt
+        version; the returned params are the best epoch's."""
+        cfg = self.config
+        reason = None
+        if not cfg.FUSED_TRAIN:
+            reason = "FUSED_TRAIN disabled"
+        elif len(epoch) == 0:
+            reason = "empty training set"
+        elif len(val[0]) == 0:
+            reason = "empty validation set (per-epoch metric drives best-val selection)"
+        elif epoch.features is None:
+            if self._active_transform is not None:
+                reason = (
+                    "an active dataset transform must be re-applied every epoch (reference "
+                    "data/dataset.py:64-79); the host loop re-encodes per batch"
+                )
+            else:
+                est = len(epoch) * self._feature_item_nbytes()
+                reason = (
+                    f"training features (~{est/1e9:.1f} GB) exceed FUSED_MAX_BYTES/2 "
+                    f"({cfg.FUSED_MAX_BYTES/2e9:.1f} GB); the host loop streams them per batch"
+                )
+        if reason is not None:
+            log.warning(
+                "fused training unavailable (%s): falling back to the dispatch-per-step "
+                "host loop - expect a large slowdown on high-latency device links",
+                reason,
+            )
+            return None
+        t0 = time.perf_counter()
+        inp = self._fused_train_inputs(epoch, val)
+        chunk = cfg.FUSED_EPOCH_CHUNK
+        pad = (-cfg.EPOCHS) % chunk if 0 < chunk < cfg.EPOCHS else 0
+        perms = np.concatenate([inp["perms"], -np.ones((pad, inp["perms"].shape[1]), np.int64)])
+        lrs = np.concatenate([inp["lrs"], np.zeros(pad, np.float32)])
+        tree = self._get_prompt_tree()
+        ctx, ctx_val = self._ctx_host(train_classes), self._ctx_host(inp["val_class_list"])
+        key = (
+            inp["bs"], len(perms), inp["n_slot"], inp["feats"].shape[1:], ctx.shape,
+            ctx_val.shape, len(inp["val_labels"]), inp["trzsl_hmean"],
+            tuple((k, tuple(v.shape)) for k, v in tree.items()),
+        )
+        prog = self._fused_program(key, inp, len(perms))
+        pad_row = -np.ones((1, perms.shape[1]), np.int64)  # the warm-up's batch
+        self._memo_seq_n = getattr(self, "_memo_seq_n", 0) + 1
+        w = np.asarray([self._w0, self._w1], np.float32)
+        val_is_seen = np.isin(inp["val_labels"], inp["seen_ids"]).astype(np.float32)
+        flat = {
+            "labels": inp["labels"], "groups": inp["groups"], "lrs": np.append(lrs, np.float32(0)),
+            "apply_flags": inp["apply_flags"], "val_labels": inp["val_labels"],
+            "val_global": inp["val_global"], "val_is_seen": val_is_seen, "w": w,
+            "n_real": np.asarray(inp["n"], np.float32),
+            "n_epochs": np.asarray(cfg.EPOCHS, np.int64),
+            "ctx_train": ctx, "ctx_val": ctx_val,
+        }
+        prog.memo_put({
+            **{name: (_np_key(a), a) for name, a in flat.items()},
+            # frozen-tower features per path are fixed for the strategy's
+            # lifetime (an active transform never reaches here)
+            "feats": (_paths_key(epoch.paths), inp["feats"], inp["n_slot"]),
+            "val_feats": (_paths_key(val[0]), inp["val_feats"], len(inp["val_labels"])),
+            # fresh every call (new draws from the RNG stream): never memoized
+            "perms": (("seq", self._memo_seq_n), np.concatenate([perms, pad_row])),
+        })
+        fresh = prog.graphs is None
+        zeros = {k: np.zeros(tuple(v.shape), np.float32) for k, v in tree.items()}
+        # best-so-far: -inf and the initial prompt (any real epoch's metric
+        # strictly beats -inf, so it is never returned)
+        stats, best_np, final_np = self._fused_chunked_call(
+            prog, (tree, zeros, zeros, -np.inf, tree), perms, lrs, cfg.EPOCHS, inp["real_steps"])
+        metrics, train_accs, losses = stats
+        for e in range(cfg.EPOCHS):
+            log.info("epoch %d: loss=%.4f train_acc=%.4f val_acc=%.4f lr=%.5f",
+                     e, losses[e], train_accs[e], metrics[e], lrs[e])
+        best = int(np.argmax(metrics))
+        self._set_prompt_tree(best_np)
+        best_params = self.epoch_parameters()
+        self._set_prompt_tree(final_np)
+        log.info(
+            "fused train: %d epochs, best epoch %d val=%.4f (final train_acc=%.4f loss=%.4f)",
+            cfg.EPOCHS, best, metrics[best], float(train_accs[-1]), float(losses[-1]),
+        )
+        self._fused_info = {
+            "epochs": cfg.EPOCHS, "steps_per_epoch": inp["real_steps"],
+            "slot_steps": prog.steps, "graphs": prog.graphs is not None,
+            "captured": fresh and prog.graphs is not None, "capture_s": prog.capture_s,
+            "pool_bytes": prog.pool_bytes,
+            "launches_per_step": prog.per_step, "launches_per_epoch_end": prog.per_epoch_end,
+            "stats": stats, "run_s": time.perf_counter() - t0,
+        }
+        if not getattr(self, "_fused_keep", False):
+            self._fused_free()
+        return float(metrics[best]), best_params
+
+    def _fused_program(self, key, inp, epochs_padded: int) -> FusedProgram:
+        """The program for shape `key`: the cached one, or a new one after
+        the last shape's graphs and buffers are freed (one shape at a time:
+        IFPL/GRIP keep theirs across iterations, `train()` frees it at its
+        end otherwise)."""
+        cfg = self.config
+        cache = getattr(self, "_fused_cache", None)
+        if cache is None:
+            cache = self._fused_cache = {}
+        key = key + (cfg.ACCUMULATION_ITER, cfg.DECAY, cfg.MOMENTUM, cfg.FUSED_REMAT)
+        prog = cache.get(key)
+        if prog is not None:
+            return prog
+        cache.clear()
+        logits_fn = train_fn = self._logits_fn()
+        if cfg.FUSED_REMAT and self.MODALITY != "text":
+            # recompute the towers in the backward (the JAX package's
+            # jax.checkpoint); CLIP draws no random numbers, and reading the
+            # RNG state is illegal during capture
+            def train_fn(tree, ctx, feats):
+                return checkpoint(logits_fn, tree, ctx, feats, use_reentrant=False,
+                                  preserve_rng_state=False)
+        cache[key] = prog = FusedProgram(
+            self.device, logits_fn, train_fn, steps=inp["steps"], bs=inp["bs"],
+            n_slot=inp["n_slot"], epochs_padded=epochs_padded, trzsl=inp["trzsl_hmean"],
+            val_rows=self._FUSED_VAL_ROWS, accum=max(1, cfg.ACCUMULATION_ITER),
+            wd=cfg.DECAY, momentum=cfg.MOMENTUM,
+            capture=self.device.type == "cuda" and not getattr(self, "_fused_eager", False),
+        )
+        self._fused_builds = getattr(self, "_fused_builds", 0) + 1
+        return prog
+
+    def _fused_free(self):
+        """Drop the cached program: its graphs, their pool and its buffers."""
+        getattr(self, "_fused_cache", {}).clear()
+
+    def _fused_train_inputs(self, epoch: EpochData, val):
+        """Host-side assembly for the whole-run trainer (JAX
+        strategy.py:924-1025): every epoch's permutation, drawn up front from
+        self._rng in the per-step loop's stream order (so both forms see the
+        same batches), per-epoch lrs, labels and groups padded to `n_slot`
+        (label -1, group 0), the apply-flag cadence and the validation
+        arrays.  The features stay unpadded: their buffer pads itself.
+
+        With `self._fused_bucket_ladder` (IFPL/GRIP), the training set is
+        padded to the smallest rung that holds it, and validation to
+        `self._fused_val_bucket`, so that the iterations share a few shapes;
+        only the `real_steps` batches that hold a real row are run."""
+        cfg = self.config
+        n = len(epoch)
+        bs = self._batch_size()
+        bucket = getattr(self, "_fused_bucket", None)
+        ladder = getattr(self, "_fused_bucket_ladder", None)
+        if ladder:
+            bucket = next((b for b in ladder if b >= n), ladder[-1])
+        n_slot = max(n, bucket) if bucket else n
+        steps = int(np.ceil(n_slot / bs))
+        pad_n = steps * bs
+        # permutation memo keyed by the RNG POSITION: a repeat call at the
+        # same stream position reuses the drawn matrix and fast-forwards the
+        # stream to the post-draw state, so the stream is the same either way
+        rng_pos = repr(self._rng.bit_generator.state)
+        pkey = (n, pad_n, cfg.EPOCHS, rng_pos)
+        pmemo = getattr(self, "_perm_memo", None)
+        if pmemo is not None and pmemo[0] == pkey:
+            perms = pmemo[1]
+            self._rng.bit_generator.state = copy.deepcopy(pmemo[2])
+        else:
+            perms = np.full((cfg.EPOCHS, pad_n), -1, np.int64)
+            for e in range(cfg.EPOCHS):
+                perms[e, :n] = self._rng.permutation(n)
+            perms.setflags(write=False)
+            self._perm_memo = (pkey, perms, copy.deepcopy(self._rng.bit_generator.state))
+        lrs = np.asarray([lr_for_epoch(cfg, e) for e in range(cfg.EPOCHS)], np.float32)
+        labels = np.concatenate([epoch.labels, -np.ones(n_slot - n, np.int32)])
+        groups = np.concatenate([epoch.group, np.zeros(n_slot - n, np.int32)])
+
+        val_paths, val_labels, val_class_list = val
+        val_feats = self._features_for_paths(val_paths)
+        val_labels = np.asarray(val_labels, np.int32)
+        # validation gets a fixed slot too: the FPL pseudo-val split grows
+        # with the GRIP schedule; padded rows carry label -1
+        val_bucket = getattr(self, "_fused_val_bucket", None)
+        if bucket and val_bucket and val_bucket > len(val_labels):
+            val_labels = np.concatenate([val_labels, -np.ones(val_bucket - len(val_labels),
+                                                              np.int32)])
+        # val-class argmax -> global label id
+        val_global = np.asarray([self.label_to_idx[c] for c in val_class_list], np.int64)
+        trzsl_hmean = self.paradigm == "trzsl" and self.val_unseen_files is not None
+        seen_ids = np.asarray(sorted(self.label_to_idx[c] for c in self.seen_classes), np.int32)
+        # optimizer-apply cadence: every ACCUMULATION_ITER real batches and at
+        # the last real batch of the epoch, as in the per-step loop; trailing
+        # all-pad bucket batches never apply
+        accum = max(1, cfg.ACCUMULATION_ITER)
+        real_steps = int(np.ceil(n / bs))
+        apply_flags = np.zeros(steps, np.float32)
+        for si in range(real_steps):
+            if ((si + 1) % accum == 0) or (si + 1 == real_steps):
+                apply_flags[si] = 1.0
+        return {
+            "apply_flags": apply_flags, "steps": steps, "real_steps": real_steps, "bs": bs,
+            "n": n, "n_slot": n_slot,
+            "feats": epoch.features, "labels": labels, "groups": groups, "perms": perms,
+            "lrs": lrs, "val_feats": val_feats, "val_labels": val_labels,
+            "val_class_list": val_class_list, "val_global": val_global,
+            "trzsl_hmean": trzsl_hmean, "seen_ids": seen_ids,
+        }
+
+    def _fused_chunked_call(self, prog: FusedProgram, carry0, perms, lrs, epochs: int,
+                            steps: int):
+        """Run the program's `steps` steps a epoch over all epochs at once,
+        or in FUSED_EPOCH_CHUNK-epoch chunks (JAX strategy.py:1027-1139):
+        `perms` and `lrs` are padded with all-pad epochs to a whole number
+        of chunks, as the JAX package pads them, but those epochs are not
+        run (they would change nothing); each chunk ends in one stats
+        fetch.
+
+        With CHECKPOINT_ITER the carry (prompt, momentum, gacc, best metric,
+        best prompt) and the stats so far are saved at every chunk boundary,
+        keyed by a fingerprint of (perms, lrs, epochs, chunk, initial carry):
+        with RESUME a run whose restored RNG stream and prompt re-init counter
+        reproduce those inputs picks the carry up, bit-identical to an
+        uninterrupted run; any other misses the key.  MNT_FAIL_AFTER_CHUNK=n
+        (environment) raises after chunk n.  One process: no rank has to
+        agree on the resume point.
+
+        :returns: (stats (3, epochs), best-prompt host tree, final-prompt
+            host tree)"""
+        cfg = self.config
+        chunk = cfg.FUSED_EPOCH_CHUNK
+        prog.load_carry(carry0)
+        if chunk <= 0 or chunk >= epochs:
+            prog.run(0, epochs, steps)
+            stats = prog.fetch_stats(0, epochs)
+            return (stats, *prog.fetch_prompts())
+        from menghini_neurips23_tpu_torch.checkpoint import (
+            chunk_fingerprint,
+            clear_chunk_state,
+            load_chunk_state,
+            save_chunk_state,
+        )
+
+        total = len(perms)
+        start, outs = 0, []
+        fp = None
+        if cfg.CHECKPOINT_ITER:
+            prompt, mom, gacc, bm, best = carry0
+            fp = chunk_fingerprint(perms, lrs, epochs, chunk, (
+                numpy_tree(prompt), mom, gacc, np.float32(bm), numpy_tree(best)))
+            state = load_chunk_state(cfg, fp) if cfg.RESUME else None
+            if state is not None:
+                start, outs = state["next_start"], list(state["outs_list"])
+                prog.load_carry(state["carry"])
+                log.info("resuming fused training at epoch %d/%d from chunk checkpoint",
+                         start, epochs)
+        fail_after = int(os.environ.get("MNT_FAIL_AFTER_CHUNK", "0") or 0)
+        for ci, s in enumerate(range(start, total, chunk), 1):
+            stop = min(s + chunk, epochs)
+            prog.run(s, stop, steps)
+            outs.append(prog.fetch_stats(s, stop))
+            if fp is not None and s + chunk < total:
+                save_chunk_state(cfg, fp, s + chunk, prog.carry_numpy(), outs)
+            if fail_after and ci == fail_after:
+                raise RuntimeError(f"fault injection: MNT_FAIL_AFTER_CHUNK={fail_after}")
+        if fp is not None:
+            clear_chunk_state(cfg, fp)
+        stats = np.concatenate(outs, axis=1)
+        return (stats, *prog.fetch_prompts())
+
+    def _run_train_epoch(self, class_ctx, epoch: EpochData, features, lr, bs):
+        """One epoch of the per-step loop; `features` is the epoch's features
+        on the device, or None to stream them per batch."""
         n = len(epoch)
         accum = max(1, self.config.ACCUMULATION_ITER)
         order = self._rng.permutation(n)
@@ -532,12 +843,12 @@ class TrainingStrategy:
             count = len(idx)
             pad = bs - count
             sel = np.concatenate([idx, np.zeros(pad, np.int64)]) if pad else idx
-            if epoch.features is None:  # streaming: fetch through the cache
+            if features is None:  # streaming: fetch through the cache
                 feats = torch.from_numpy(np.ascontiguousarray(
                     self._features_for_paths([epoch.paths[i] for i in sel], stack_memo=False)
                 )).to(dev)
             else:
-                feats = epoch.features[torch.from_numpy(sel).to(dev)]
+                feats = features[torch.from_numpy(sel).to(dev)]
             labels = np.concatenate([epoch.labels[idx], -np.ones(pad, np.int32)])
             valid = np.concatenate([np.ones(count, np.float32), np.zeros(pad, np.float32)])
             # optimizer steps every accum batches or at epoch end (reference
@@ -718,70 +1029,104 @@ class TrainingStrategy:
         original_unlabeled = copy.deepcopy(unlabeled_data)
         original_val = copy.deepcopy(val_data)
 
-        best_overall = -1.0
-        best_params = self.epoch_parameters()
-        start_iter = 1
-        if cfg.RESUME:
-            state = latest_iteration_state(cfg)
-            if state is not None and state["iteration"] < num_iter:
-                start_iter = state["iteration"] + 1
-                best_overall = state["best_metric"]
-                best_params = state["best_params"]
-                self.load_parameters(best_params)
-                # the permutation RNG stream and the prompt re-init counter:
-                # the resumed run is bit-identical to an uninterrupted one
-                if state.get("rng_state") is not None:
-                    self._rng.bit_generator.state = state["rng_state"]
-                if state.get("reinit") is not None:
-                    self._reinit = int(state["reinit"])
-                log.info(
-                    "resuming from checkpointed iteration %d (best=%.4f)",
-                    state["iteration"], best_overall,
-                )
-            elif state is not None:
-                log.info("run already complete at iteration %d", state["iteration"])
-                self.load_parameters(state["best_params"])
-                return state["best_metric"], state["best_params"]
+        # the GRIP shape ladder (JAX strategy.py:1310-1342): each iteration's
+        # training set is padded to the smallest of FUSED_BUCKETS rungs, a
+        # linear ladder up to the full pool plus the labeled shots, so the
+        # growing sets share at most FUSED_BUCKETS shapes - on the card, that
+        # many captures.  The padding is masked, so the math is unchanged,
+        # and costs no compute: a run replays only its real batches.
+        # FUSED_BUCKETS=0, IFPL and GRIP without ALL_UNLABELED (whose sets
+        # hardly change size) take each iteration's exact shape.  Validation
+        # gets a fixed slot (its pseudo-val share grows with the schedule).
+        max_bucket = pool_size + len(train_data.filepaths)
+        n_buckets = int(getattr(cfg, "FUSED_BUCKETS", 2))
+        if not grow or n_buckets <= 0 or not cfg.ALL_UNLABELED:
+            self._fused_bucket_ladder = None
+            self._fused_bucket = None
+        else:
+            self._fused_bucket_ladder = [
+                int(math.ceil(max_bucket * j / n_buckets)) for j in range(1, n_buckets + 1)
+            ]
+            self._fused_bucket = max_bucket
+        max_pseudo_val = pool_size - int(pool_size * cfg.ratio_train_val)
+        self._fused_val_bucket = (
+            None if self._fused_bucket is None
+            else len(val_data.filepaths) + max_pseudo_val + 1
+        )
+        # the whole-run trainer's program (its graphs on the card) stays
+        # cached across iterations while its shape holds
+        self._fused_keep = True
+        try:
+            best_overall = -1.0
+            best_params = self.epoch_parameters()
+            start_iter = 1
+            if cfg.RESUME:
+                state = latest_iteration_state(cfg)
+                if state is not None and state["iteration"] < num_iter:
+                    start_iter = state["iteration"] + 1
+                    best_overall = state["best_metric"]
+                    best_params = state["best_params"]
+                    self.load_parameters(best_params)
+                    # the permutation RNG stream and the prompt re-init counter:
+                    # the resumed run is bit-identical to an uninterrupted one
+                    if state.get("rng_state") is not None:
+                        self._rng.bit_generator.state = state["rng_state"]
+                    if state.get("reinit") is not None:
+                        self._reinit = int(state["reinit"])
+                    log.info(
+                        "resuming from checkpointed iteration %d (best=%.4f)",
+                        state["iteration"], best_overall,
+                    )
+                elif state is not None:
+                    log.info("run already complete at iteration %d", state["iteration"])
+                    self.load_parameters(state["best_params"])
+                    return state["best_metric"], state["best_params"]
 
-        for niter in range(start_iter, num_iter + 1):
-            if grow:
-                # ALL_UNLABELED=False freezes N_PSEUDOSHOTS at the iteration-1
-                # value: the reference only grows it inside
-                # `if self.config.ALL_UNLABELED` (pseudo_iterative.py:113-125).
-                # The shared config changes in place: the artifact and cache
-                # names read it.
-                k = niter if cfg.ALL_UNLABELED else 1
-                cfg.N_PSEUDOSHOTS = self._grip_pseudoshots(k, num_samples, n_unseen, pool_size)
-            log.info("iteration %d/%d: N_PSEUDOSHOTS=%d", niter, num_iter, cfg.N_PSEUDOSHOTS)
-            if niter == 1:
-                train_data = self.create_training_dataset(train_data, unlabeled_data)
-            else:
-                refreshed = self.get_pseudo_labels(unlabeled_data)
-                train_data = self._merge_pseudo(copy.deepcopy(original_train), refreshed)
-            # fresh prompts each iteration (paper section 4)
-            self.initialize_prompts_parameters()
-            acc, params = self.train(train_data, copy.deepcopy(original_val), None,
-                                     only_seen=False)
-            save_parameters(params, cfg, iteration=niter)
-            save_pseudo_labels(train_data.filepaths, train_data.labels, cfg, iteration=niter)
-            if acc > best_overall:
-                best_overall = acc
-                best_params = params
-            # the next refresh scores the pool with the best prompt so far
-            self.load_parameters(best_params)
-            if cfg.CHECKPOINT_ITER:
-                save_iteration_state(
-                    cfg, niter, cfg.N_PSEUDOSHOTS, best_overall, best_params,
-                    rng_state=self._rng.bit_generator.state,
-                    reinit=getattr(self, "_reinit", None),
-                )
-            fail_after = int(os.environ.get("MNT_FAIL_AFTER_ITER", "0") or 0)
-            if fail_after and niter == fail_after:
-                raise RuntimeError(f"fault injection: MNT_FAIL_AFTER_ITER={fail_after}")
-            # restore the full pool for the next refresh (the engine mutates it)
-            unlabeled_data = copy.deepcopy(original_unlabeled)
-            train_data = copy.deepcopy(original_train)
-        return best_overall, best_params
+            for niter in range(start_iter, num_iter + 1):
+                if grow:
+                    # ALL_UNLABELED=False freezes N_PSEUDOSHOTS at the iteration-1
+                    # value: the reference only grows it inside
+                    # `if self.config.ALL_UNLABELED` (pseudo_iterative.py:113-125).
+                    # The shared config changes in place: the artifact and cache
+                    # names read it.
+                    k = niter if cfg.ALL_UNLABELED else 1
+                    cfg.N_PSEUDOSHOTS = self._grip_pseudoshots(k, num_samples, n_unseen, pool_size)
+                log.info("iteration %d/%d: N_PSEUDOSHOTS=%d", niter, num_iter, cfg.N_PSEUDOSHOTS)
+                if niter == 1:
+                    train_data = self.create_training_dataset(train_data, unlabeled_data)
+                else:
+                    refreshed = self.get_pseudo_labels(unlabeled_data)
+                    train_data = self._merge_pseudo(copy.deepcopy(original_train), refreshed)
+                # fresh prompts each iteration (paper section 4)
+                self.initialize_prompts_parameters()
+                acc, params = self.train(train_data, copy.deepcopy(original_val), None,
+                                         only_seen=False)
+                save_parameters(params, cfg, iteration=niter)
+                save_pseudo_labels(train_data.filepaths, train_data.labels, cfg, iteration=niter)
+                if acc > best_overall:
+                    best_overall = acc
+                    best_params = params
+                # the next refresh scores the pool with the best prompt so far
+                self.load_parameters(best_params)
+                if cfg.CHECKPOINT_ITER:
+                    save_iteration_state(
+                        cfg, niter, cfg.N_PSEUDOSHOTS, best_overall, best_params,
+                        rng_state=self._rng.bit_generator.state,
+                        reinit=getattr(self, "_reinit", None),
+                    )
+                fail_after = int(os.environ.get("MNT_FAIL_AFTER_ITER", "0") or 0)
+                if fail_after and niter == fail_after:
+                    raise RuntimeError(f"fault injection: MNT_FAIL_AFTER_ITER={fail_after}")
+                # restore the full pool for the next refresh (the engine mutates it)
+                unlabeled_data = copy.deepcopy(original_unlabeled)
+                train_data = copy.deepcopy(original_train)
+            return best_overall, best_params
+        finally:
+            self._fused_bucket = None
+            self._fused_bucket_ladder = None
+            self._fused_val_bucket = None
+            self._fused_keep = False
+            self._fused_free()
 
     # -------------------------------------------------------------- inference
     def load_model_eval(self, iteration=None):

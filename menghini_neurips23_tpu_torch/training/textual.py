@@ -50,15 +50,22 @@ class TextualStrategy(TrainingStrategy):
         self._init_opt_state()
         self._bump_prompt_version()
 
-    def _prompt_params(self):
-        return [self.prefix]
+    def _get_prompt_tree(self):
+        return {"prefix": self.prefix}
 
-    def _logits(self, class_ctx, feats):
+    def _set_prompt_tree(self, tree):
+        self._set_prefix(tree["prefix"])
+
+    def _logits_fn(self):
         model = self.runtime.model
-        scale = torch.exp(model.logit_scale)
-        tf = coop_text_features(model, self.prefix, class_ctx).float()
-        tf = tf / tf.norm(dim=-1, keepdim=True)
-        return scale * feats.float() @ tf.T
+
+        def fn(tree, token_ids, feats):
+            scale = torch.exp(model.logit_scale)
+            tf = coop_text_features(model, tree["prefix"], token_ids).float()
+            tf = tf / tf.norm(dim=-1, keepdim=True)
+            return scale * feats.float() @ tf.T
+
+        return fn
 
     # ------------------------------------------------------------ features
     def _encode_paths(self, paths: Sequence[str]) -> np.ndarray:
@@ -77,11 +84,6 @@ class TextualStrategy(TrainingStrategy):
             return truncate_context(ids) if self.config.TEXT_TRUNCATE else ids
 
         return self._memoized_token_ids(class_list, build)
-
-    def _class_context(self, class_list: Sequence[str]) -> torch.Tensor:
-        return torch.tensor(
-            self._train_text_class_ids(class_list), dtype=torch.long, device=self.device
-        )
 
     # ----------------------------------------------------------- inference
     def text_features(self, class_list: Sequence[str]) -> np.ndarray:

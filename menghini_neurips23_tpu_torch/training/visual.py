@@ -85,17 +85,26 @@ class VisualStrategy(TrainingStrategy):
     def prefix(self) -> torch.Tensor:
         return self.prompt["prefix"]
 
-    def _prompt_params(self):
-        return list(self.prompt.values())
+    _FUSED_VAL_ROWS = 256  # the vision tower over the validation set, as image_features
 
-    def _logits(self, class_ctx, feats):
+    def _get_prompt_tree(self):
+        return dict(self.prompt)
+
+    def _set_prompt_tree(self, tree):
+        self._set_prompt(tree)
+
+    def _logits_fn(self):
         model = self.runtime.model
-        scale = torch.exp(model.logit_scale)
-        img = vpt_image_features(
-            model, self.prompt["prefix"], tokens=feats, deep_prompts=self.prompt.get("deep")
-        ).float()
-        img = img / img.norm(dim=-1, keepdim=True)
-        return scale * img @ class_ctx.T
+
+        def fn(tree, text_feats, tokens):
+            scale = torch.exp(model.logit_scale)
+            img = vpt_image_features(
+                model, tree["prefix"], tokens=tokens, deep_prompts=tree.get("deep")
+            ).float()
+            img = img / img.norm(dim=-1, keepdim=True)
+            return scale * img @ text_feats.T
+
+        return fn
 
     # ------------------------------------------------------------ features
     def _encode_paths(self, paths: Sequence[str]) -> np.ndarray:
@@ -112,9 +121,6 @@ class VisualStrategy(TrainingStrategy):
         return self._memoized_token_ids(
             class_list, lambda: self._zero_shot_text_features(class_list)
         )
-
-    def _class_context(self, class_list: Sequence[str]) -> torch.Tensor:
-        return torch.tensor(self._train_text_class_ids(class_list), device=self.device)
 
     # ----------------------------------------------------------- inference
     def image_features(self, paths: Sequence[str], batch: int = 256) -> np.ndarray:

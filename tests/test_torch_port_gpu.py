@@ -466,3 +466,181 @@ def test_upt_step_on_card_matches_cpu():
     for g, c, p in zip(leaves(pg), leaves(pc), leaves(prompt)):
         np.testing.assert_allclose(g, c, rtol=0, atol=1e-4)
     assert not np.array_equal(leaves(pc)[-1], leaves(prompt)[-1])  # vpt moved
+
+
+# ------------------------------------------------------- whole-run trainer
+FUSED_CLASSES = [str(i) for i in range(5)]
+
+
+def _fused_strategy(name, eager=False, epochs=3, **cfg_kw):
+    """A tiny-test strategy on the card whose frozen features are synthetic
+    (numpy, seeded), with a 40-row training set (3 batches of 16, the last
+    padded) and 24 validation rows, ready for `_fused_train(*args)`."""
+    import numpy as np
+
+    from menghini_neurips23_tpu_torch.config import Config
+    from menghini_neurips23_tpu_torch.runtime import ClipRuntime
+    from menghini_neurips23_tpu_torch.training import (
+        MultimodalStrategy,
+        TextualStrategy,
+        VisualStrategy,
+    )
+    from menghini_neurips23_tpu_torch.training.strategy import EpochData
+
+    cls, kw = {
+        "coop": (TextualStrategy, dict(MODEL="textual_prompt")),
+        "vpt_deep": (VisualStrategy, dict(MODEL="visual_prompt", VPT_DEEP=True)),
+        "upt": (MultimodalStrategy, dict(MODEL="multimodal_prompt")),
+    }[name]
+    cfg = Config(VIS_ENCODER="tiny-test", COMPUTE_DTYPE="float32", BATCH_SIZE=16, EPOCHS=epochs,
+                 PREFIX_SIZE=4, TEXT_PREFIX_SIZE=2, VISION_PREFIX_SIZE=2, TRANSFORMER_DIM=16,
+                 LR=0.5, MOMENTUM=0.9, OPTIM_SEED=1, WARMUP_EPOCHS=0, **kw, **cfg_kw)
+    rt = ClipRuntime(cfg, device="cuda")
+    l2i = {c: i for i, c in enumerate(FUSED_CLASSES)}
+    strat = cls(cfg, l2i, FUSED_CLASSES, FUSED_CLASSES, FUSED_CLASSES, runtime=rt)
+    strat._fused_eager = eager
+    a = rt.arch
+    rng = np.random.default_rng(3)
+    shape = (a.embed_dim,) if name == "coop" else (1 + a.num_patches, a.vision_width)
+    table = rng.normal(0, 1, (64,) + shape).astype(np.float32)
+    paths = [f"row{i}" for i in range(64)]
+    row = {p: i for i, p in enumerate(paths)}
+    strat._features_for_paths = lambda ps, **k: table[[row[p] for p in ps]]
+    labels = rng.integers(0, len(FUSED_CLASSES), 64)
+    epoch = EpochData(table[:40], labels[:40], np.zeros(40, np.int32), paths[:40])
+    val = (paths[40:], labels[40:].astype(np.int32), FUSED_CLASSES)
+    return strat, (epoch, val, FUSED_CLASSES)
+
+
+def test_fused_warmup_leaves_the_carry_unchanged():
+    """Capturing warms up on the all-padding row: the prompt, momentum,
+    accumulator and best-so-far come out bit for bit as they went in."""
+    _require_card()
+    import numpy as np
+
+    strat, args = _fused_strategy("vpt_deep")
+    strat._fused_keep = True
+    strat._fused_train(*args)  # a trained carry: nonzero momentum and best
+    (prog,) = strat._fused_cache.values()
+    before = prog.carry_numpy()
+    assert np.abs(before[1]["prefix"]).max() > 0
+    prog.capture()
+    after = prog.carry_numpy()
+    assert prog.graphs is not None
+    for b, a in zip(before, after):
+        for k in (b if isinstance(b, dict) else [None]):
+            x, y = (b[k], a[k]) if k is not None else (b, a)
+            np.testing.assert_array_equal(x, y)
+    strat._fused_free()
+
+
+def _fused_leaves(tree):
+    import numpy as np
+
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _fused_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _fused_leaves(t)]
+    return [np.asarray(tree)]
+
+
+def _captured_vs_eager(name, **cfg_kw):
+    """One `_fused_train` of `name` captured and one eager, on the card, from
+    the same prompt and RNG state: stats and prompts within 1e-6, and the
+    launch counts each adds.  Returns the captured run's record."""
+    import numpy as np
+
+    out = {}
+    for eager in (False, True):
+        strat, args = _fused_strategy(name, eager=eager, **cfg_kw)
+        strat._ctx_host(FUSED_CLASSES)  # VPT's frozen text features: outside the count
+        f0, b0 = fused_attention.launches, attention_bwd.launches
+        acc, best = strat._fused_train(*args)
+        torch.cuda.synchronize()
+        info = strat._fused_info
+        out[eager] = (acc, best, strat.epoch_parameters(), info,
+                      (fused_attention.launches - f0, attention_bwd.launches - b0))
+    (acc_g, best_g, final_g, info_g, n_g), (acc_e, best_e, final_e, info_e, n_e) = (
+        out[False], out[True])
+    assert info_g["graphs"] and not info_e["graphs"]
+    assert acc_g == acc_e
+    np.testing.assert_allclose(info_g["stats"], info_e["stats"], rtol=0, atol=1e-6)
+    assert info_g["stats"].shape == (3, info_g["epochs"])
+    for g, e in zip(_fused_leaves(best_g) + _fused_leaves(final_g),
+                    _fused_leaves(best_e) + _fused_leaves(final_e)):
+        np.testing.assert_allclose(g, e, rtol=0, atol=1e-6)
+    # launches: the eager run counts each launch; the captured one counts
+    # its warm-up (2 x one step + one epoch end) and captured x replays;
+    # 3 real steps and 3 real epochs are run (a chunked run's padded epoch
+    # is not)
+    ps, pe = info_g["launches_per_step"], info_g["launches_per_epoch_end"]
+    per_epoch = [3 * s + e for s, e in zip(ps, pe)]
+    assert all(s > 0 for s in ps) and all(e > 0 for e in pe[:1]) and pe[1] == 0
+    assert list(n_e) == [3 * p for p in per_epoch]
+    assert list(n_g) == [3 * p + 2 * (s + e) for p, s, e in zip(per_epoch, ps, pe)]
+    return info_g
+
+
+@pytest.mark.parametrize("name", ["coop", "vpt_deep", "upt"])
+def test_fused_captured_replay_equals_eager_run(name):
+    """The captured graphs replayed against the same two functions run
+    eagerly on the card, from the same prompt and RNG state: stats and
+    prompts within 1e-6 (the same kernels on the same inputs: 0 expected);
+    and the launch counts a replay adds equal what the eager run counts."""
+    _require_card()
+    _captured_vs_eager(name)
+
+
+@pytest.mark.parametrize("name,remat,chunk", [
+    ("vpt_deep", True, 0), ("upt", True, 0), ("coop", False, 2), ("vpt_deep", True, 2),
+])
+def test_fused_remat_and_chunks_captured_equal_eager(tmp_path, name, remat, chunk):
+    """FUSED_REMAT (torch.utils.checkpoint inside the captured step: the
+    vision tower's forward runs again in the backward) and FUSED_EPOCH_CHUNK
+    = 2 over 3 epochs (two chunks, one padded epoch, chunk states written and
+    cleared) under capture, against the same run eager on the card."""
+    _require_card()
+    info = _captured_vs_eager(name, FUSED_REMAT=remat, FUSED_EPOCH_CHUNK=chunk,
+                              CHECKPOINT_ITER=True, ARTIFACT_DIR=str(tmp_path))
+    if remat:  # K1 per step: the forward and its recomputation
+        plain, args = _fused_strategy(name)
+        plain._ctx_host(FUSED_CLASSES)
+        plain._fused_train(*args)
+        assert info["launches_per_step"][0] > plain._fused_info["launches_per_step"][0]
+    assert not list(tmp_path.glob("checkpoints/*/chunk_*.pt"))
+
+
+def test_fused_chunk_kill_and_resume_on_the_card(tmp_path, monkeypatch):
+    """Deep VPT under capture, FUSED_EPOCH_CHUNK=2 over 4 epochs, killed by
+    MNT_FAIL_AFTER_CHUNK=1 after its first chunk's state is saved from the
+    card; a fresh strategy resumes it at epoch 2 and ends as an
+    uninterrupted captured run (stats and prompts within 1e-6)."""
+    _require_card()
+    import numpy as np
+
+    kw = dict(epochs=4, FUSED_EPOCH_CHUNK=2, CHECKPOINT_ITER=True, RESUME=True)
+    whole, args = _fused_strategy("vpt_deep", ARTIFACT_DIR=str(tmp_path / "a"), **kw)
+    acc_a, best_a = whole._fused_train(*args)
+    stats_a, final_a = whole._fused_info["stats"], whole.epoch_parameters()
+    cut, args = _fused_strategy("vpt_deep", ARTIFACT_DIR=str(tmp_path / "b"), **kw)
+    monkeypatch.setenv("MNT_FAIL_AFTER_CHUNK", "1")
+    with pytest.raises(RuntimeError, match="MNT_FAIL_AFTER_CHUNK=1"):
+        cut._fused_train(*args)
+    monkeypatch.delenv("MNT_FAIL_AFTER_CHUNK")
+    assert len(list(tmp_path.glob("b/checkpoints/*/chunk_*.pt"))) == 1
+    resumed, args = _fused_strategy("vpt_deep", ARTIFACT_DIR=str(tmp_path / "b"), **kw)
+    resumed._ctx_host(FUSED_CLASSES)  # VPT's frozen text features: outside the count
+    f0 = fused_attention.launches
+    acc_c, best_c = resumed._fused_train(*args)
+    info = resumed._fused_info
+    assert info["graphs"] and acc_c == acc_a
+    np.testing.assert_allclose(info["stats"], stats_a, rtol=0, atol=1e-6)
+    for c, a in zip(_fused_leaves(best_c) + _fused_leaves(resumed.epoch_parameters()),
+                    _fused_leaves(best_a) + _fused_leaves(final_a)):
+        np.testing.assert_allclose(c, a, rtol=0, atol=1e-6)
+    # the resumed run replays epochs 2 and 3 only (plus its warm-up)
+    ps, pe = info["launches_per_step"], info["launches_per_epoch_end"]
+    assert fused_attention.launches - f0 == 2 * (3 * ps[0] + pe[0]) + 2 * (ps[0] + pe[0])
+    assert not list(tmp_path.glob("b/checkpoints/*/chunk_*.pt"))
