@@ -22,9 +22,10 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      registers
   3. kernels: each kernel against its plain version on the card, fp32 and
      bf16, at the main path's shapes (K1 and K2 also at ViT-L/14's and up
-     to K2's limit of 320 tokens, where K2 keeps no T x T tile; K3 also at
-     pseudolabel pools of 65,536 rows; two K2 launches must give the same
-     bits; each K2 case names its block's warps), with CUDA-event
+     to 320 tokens, where K2 keeps no T x T tile, and past it at T = 321,
+     337, 384, 577 and 1024, where both stream K and V through shared
+     memory; K3 also at pseudolabel pools of 65,536 rows; two K2 launches
+     must give the same bits; each K2 case names its block's warps), with CUDA-event
      times of the kernel, the plain version and, for attention,
      scaled_dot_product_attention as a yardstick (forward alone; forward +
      backward through autograd beside the K1 + K2 pair - the port never
@@ -34,7 +35,8 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      forward on the card against the same weights on the CPU; one CoOp, one
      deep VPT and one UPT training step at ViT-B/32 width, and one deep VPT
      and one UPT step at ViT-L/14 width (2 rows), on the card against the
-     same step on the CPU; the whole-run trainer at ViT-B/32 width, fp32, 3
+     same step on the CPU (and one deep VPT step at ViT-L/14 with an 80-token
+     prompt, T = 337); the whole-run trainer at ViT-B/32 width, fp32, 3
      epochs (CoOp, deep VPT, UPT on synthetic features, and deep VPT with
      FUSED_REMAT and FUSED_EPOCH_CHUNK=2, UPT with FUSED_REMAT): its captured
      graphs against its functions run eagerly on the card (within 1e-6) and
@@ -56,8 +58,9 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      (main_ssl grip_textual bf16 uninterrupted, cut after iteration 1 by
      MNT_FAIL_AFTER_ITER, resumed); then at ViT-L/14 (24 + 12 layers, W
      1024 / 768), bf16: main_clip, main_ul visual_fpl and main_ssl
-     multimodal_fpl, 5 epochs each; each run must log one `fused train:`
-     line per training run, with its graphs captured
+     multimodal_fpl, 5 epochs each, and main_ul visual_fpl with an 80-token
+     prompt (T = 337, K1 and K2 streamed), 3 epochs; each run must log one
+     `fused train:` line per training run, with its graphs captured
   8. breakdown: set-up, host decode and device encode of the bf16 pass,
      each timed alone; one bf16 training step of textual_fpl (10 and 102
      classes), of visual_fpl and of grip_multimodal (UPT), and of ViT-L/14's
@@ -71,14 +74,24 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      grip_visual over the 640-image pool, split into its parts; and
      textual_fpl, visual_fpl and grip_visual (bf16) again in the per-step
      loop, their run walls beside the whole-run trainer's
+  9. distributed (run between 7 and 8): NCCL at world size 1 (the card is one GPU, and NCCL
+     refuses two ranks on one device): main_ssl textual_fpl and visual_fpl
+     bf16, 10 epochs, without a process group and in a one-rank NCCL group
+     (file:// store), where the frozen passes gather through NCCL and each
+     step's graph holds the gradient all-reduce; the two runs' artifacts
+     must be the same bits and their K1/K2 launches the same; the step
+     wall with and without the collective, and the NCCL kernels the
+     profiler sees in the group's step-graph replays
 Phases 4-6 (the zero-shot path), the SSL CoOp runs, the UL/TRZSL VPT runs,
-the IFPL/GRIP/UPT runs with the resume check and the ViT-L/14 runs of phase
-7 (four training paths) each run with every launch count set to 0 just
-before and read just after; a kernel the path runs must show a launch.  A
-graph replay passes no Python counter: each capture records what it
-launched, and every replay loop adds captured x replays.  Then one JSON
-line listing each kernel with its launches (the sum over the paths, and by
-path), and last the device line {"ok": true, "device": {...}}.
+the IFPL/GRIP/UPT runs with the resume check, the ViT-L/14 runs and the
+ViT-L/14 80-token VPT run of phase 7 (five training paths), and phase 9
+each run with every launch count set to 0 just before and read just after;
+a kernel the path runs must show a launch (the streamed forms of K1 and K2
+count apart, and the 80-token path must launch them).  A graph replay
+passes no Python counter: each capture records what it launched, and every
+replay loop adds captured x replays.  Then one JSON line listing each
+kernel with its launches (the sum over the paths, and by path), and last
+the device line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -120,6 +133,16 @@ STEP_LOSS_RTOL = 1e-5  # ... and the loss (relative)
 FUSED_FORM_TOL = 1e-6
 
 N_CLASSES, N_PER_CLASS, RES = 10, 64, 224
+# Past RESIDENT_MAX_SEQ tokens K1 and K2 stream K and V through shared
+# memory; the kernel phase holds them there at ViT-L/14's width (16 heads of
+# 64): 321, ViT-L/14 with an 80-token prompt (337, the main path's), 384,
+# ViT-L/14@336's 577 and 1024, with B chosen so that each case's plain
+# version takes a millisecond or more (337 keeps the training batch of 16)
+RESIDENT_MAX_SEQ = 320
+LONG_SHAPES = [(48, 321, 1024, 16, None), (16, 337, 1024, 16, None),
+               (32, 384, 1024, 16, None), (16, 577, 1024, 16, None),
+               (8, 1024, 1024, 16, None)]
+VPT_LONG_PREFIX = 80  # ViT-L/14: T = 1 + 256 + 80 = 337
 # GRIP over UL's 640-image pool and 10 classes: N(k) = int(k * 64 / 10)
 GRIP_SCHEDULE = [6, 12, 19, 25, 32, 38, 44, 51, 57, 64]
 
@@ -258,7 +281,7 @@ def phase_kernels(torch):
     ] + [(102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
          (16, 54, 768, 12, None), (256, 54, 768, 12, None),
          (8, 257, 1024, 16, None), (8, 273, 1024, 16, None),
-         (16, 273, 1024, 16, None), (16, 261, 1024, 16, None)]
+         (16, 273, 1024, 16, None), (16, 261, 1024, 16, None)] + LONG_SHAPES
     for dname, dt in dtypes.items():
         for B, T, W, H, mask in shapes:
             D = W // H
@@ -278,7 +301,8 @@ def phase_kernels(torch):
             b_ms, b_by = bound(B * T * 4 * W * size, 4 * B * H * D * pairs, dname)
             case = dict(shape=[B, T, W, H], mask=mask, dtype=dname, max_abs_err=err,
                         tol=ATTN_TOL[dname], ms=ms, eager_ms=eager, plain_ms=plain,
-                        library_ms=lib, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
+                        library_ms=lib, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                        streamed=T > RESIDENT_MAX_SEQ)
             attn_cases.append(case)
             log("  attention_fwd " + json.dumps(case))
             if not ok:
@@ -366,13 +390,14 @@ def phase_kernels_bwd(torch):
     # 256), UPT's vision tower (4 prompt tokens, the training batch) and the
     # plain ViT-B/32 one; then the lengths above 128 tokens: ViT-L/14's VPT
     # (T = 273) and UPT (T = 261) training batches, a ragged T = 129, and
-    # 288 and 320 (the limit), where T pads to no extra 16-row tile
+    # 288 and 320 (the last length bf16 holds resident), where T pads to no
+    # extra 16-row tile; then LONG_SHAPES, which both kernels stream
     shapes = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
         (102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
         (16, 54, 768, 12, None), (256, 50, 768, 12, None),
         (16, 273, 1024, 16, None), (16, 261, 1024, 16, None), (16, 129, 1024, 16, None),
         (16, 288, 1024, 16, None), (16, 320, 1024, 16, None),
-    ]
+    ] + LONG_SHAPES
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for B, T, W, H, mask in shapes:
             D = W // H
@@ -408,7 +433,7 @@ def phase_kernels_bwd(torch):
                         plain_ms=plain, pair_ms=pair, library_ms=sdpa,
                         library="autograd.grad of scaled_dot_product_attention "
                         "(forward + backward)", sdpa_ratio=ms / sdpa, bound_ms=b_ms,
-                        bound_by=b_by, bound_share=b_ms / ms)
+                        bound_by=b_by, bound_share=b_ms / ms, streamed=T > RESIDENT_MAX_SEQ)
             cases.append(case)
             log("  attention_bwd " + json.dumps(case))
             if not ok:
@@ -573,11 +598,12 @@ def phase_one_step(torch, runtimes):
                          torch.from_numpy(feats))
 
 
-def phase_one_vpt_step(torch, runtimes, rows: int = 16):
+def phase_one_vpt_step(torch, runtimes, rows: int = 16, prefix: int = 16):
     """One deep VPT step (visual_fpl, VPT_DEEP on) at the runtimes' full
     width, fp32, card vs CPU: the vision tower over a batch of `rows` token
-    sequences with the 16-token prefix (T = 66 at ViT-B/32, 273 at ViT-L/14)
-    and every later layer's deep prompts, against 10 frozen text features."""
+    sequences with a `prefix`-token prompt (16: T = 66 at ViT-B/32, 273 at
+    ViT-L/14; 80 at ViT-L/14: T = 337, which K1 and K2 stream) and every
+    later layer's deep prompts, against 10 frozen text features."""
     import numpy as np
 
     from menghini_neurips23_tpu_torch.config import Config
@@ -586,17 +612,17 @@ def phase_one_vpt_step(torch, runtimes, rows: int = 16):
 
     a = runtimes["cuda"].arch
     cfg = Config(VIS_ENCODER=a.name, MODEL="visual_fpl", COMPUTE_DTYPE="float32",
-                 BATCH_SIZE=16, OPTIM_SEED=1, VPT_DEEP=True)
+                 BATCH_SIZE=16, OPTIM_SEED=1, VPT_DEEP=True, PREFIX_SIZE=prefix)
     gen = torch.Generator().manual_seed(7)
-    prompt = [init_prefix(gen, 16, a.vision_width).numpy(),
-              init_deep_prefix(gen, a.vision_layers - 1, 16, a.vision_width).numpy()]
+    prompt = [init_prefix(gen, prefix, a.vision_width).numpy(),
+              init_deep_prefix(gen, a.vision_layers - 1, prefix, a.vision_width).numpy()]
     rng = np.random.default_rng(1)
     tokens = rng.normal(0, 1, (rows, 1 + a.num_patches, a.vision_width)).astype(np.float32)
     text = rng.normal(0, 1, (N_CLASSES, a.embed_dim)).astype(np.float32)
     text /= np.linalg.norm(text, axis=1, keepdims=True)
-    one_step_card_vs_cpu(torch, runtimes, "deep VPT", VisualStrategy, cfg, prompt,
-                         torch.from_numpy(tokens), torch.from_numpy(text),
-                         launches=(a.vision_layers,) * 2)
+    one_step_card_vs_cpu(torch, runtimes, f"deep VPT (T = {1 + a.num_patches + prefix})",
+                         VisualStrategy, cfg, prompt, torch.from_numpy(tokens),
+                         torch.from_numpy(text), launches=(a.vision_layers,) * 2)
 
 
 def phase_one_upt_step(torch, runtimes, rows: int = 16):
@@ -998,7 +1024,7 @@ class RunLog:
 
 def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtype: str,
                 epochs: int, step_quantile=None, schedule=None, encoder: str = "ViT-B/32",
-                fused: bool = True):
+                fused: bool = True, prefix=None):
     """main_<paradigm>.workflow for one prompt MODEL (CoOp, VPT or UPT; one
     run, FPL, or IFPL/GRIP iterations) with its bundled config (N_LABEL 2,
     PREFIX_SIZE 16 or UPT's 4 + 4 tokens, N_PSEUDOSHOTS 16, BATCH_SIZE 16,
@@ -1010,7 +1036,8 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
     the default) runs every training run as the whole-run trainer's CUDA
     graphs, and the run must log one `fused train:` line per training run
     with its graphs captured; False takes the per-step loop (its artifacts
-    go to another directory)."""
+    go to another directory).  `prefix` sets a CoOp or VPT prompt's
+    PREFIX_SIZE (its artifacts go to another directory)."""
     import importlib
 
     import numpy as np
@@ -1022,10 +1049,12 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
 
     runner = importlib.import_module(f"{PKG}.runners.main_{paradigm}")
     artifacts = (f"{work}/artifacts_{paradigm}_{model}_{dtype}_{encoder.replace('/', '')}"
-                 + ("" if fused else "_per_step"))
+                 + ("" if fused else "_per_step") + ("" if prefix is None else f"_L{prefix}"))
     cfg = train_config(data_dir, artifacts, paradigm, model, dtype, epochs, step_quantile,
                        encoder)
     cfg.FUSED_TRAIN = fused
+    if prefix is not None:
+        cfg.PREFIX_SIZE = prefix
     method = common.MODEL_DISPATCH[model][1]
     iterative = method in ("fixed_iterative_train", "grip_train")
     n_iter = int(100 / cfg.STEP_QUANTILE) if iterative else 1
@@ -1074,7 +1103,8 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
         TrainingStrategy._apply_step, common.run_strategy = step, run
         TrainingStrategy.train = train
 
-    what = f"train[{paradigm}, {model}, {encoder}{'' if fused else ', per-step loop'}]"
+    what = (f"train[{paradigm}, {model}, {encoder}{'' if fused else ', per-step loop'}"
+            f"{'' if prefix is None else f', PREFIX_SIZE {prefix}'}]")
     enc = cfg.VIS_ENCODER.replace("/", "")
     stem = f"MNIST_{paradigm}_{model}_{enc}_opt_1_spl_500.pickle"
     strategy = seen["strategy"]
@@ -1115,7 +1145,7 @@ def phase_train(torch, data_dir: str, work: str, paradigm: str, model: str, dtyp
             fail(f"{what}: iteration {it + 1}'s final-epoch prompt never moved from its draw")
         shapes = [np.asarray(p).shape for p in saved_prompt(cfg, params)]
         want = ([(4, arch.transformer_width), (4, arch.vision_width)] if cfg.MODALITY == "multi"
-                else [(16, arch.transformer_width if cfg.MODALITY == "text"
+                else [(cfg.PREFIX_SIZE, arch.transformer_width if cfg.MODALITY == "text"
                        else arch.vision_width)])
         if shapes != want or (diff == 0) != (best_epochs[-1] == 0):
             fail(f"{what}: iteration {it + 1} saved a prompt {shapes} (expected {want}) that "
@@ -1432,7 +1462,8 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
     per-step loop's numbers from phase_step_profile on the same strategy.
     The profiled run's K1 and K2 kernels, as the profiler sees them, must
     number what the wrappers' counters add for it (captured x replays; in
-    bf16 every counted launch is one kernel), within the profiler's drops."""
+    bf16 every counted launch is one kernel, but a K2 call above 320 tokens
+    two), within the profiler's drops."""
     import copy
 
     import numpy as np
@@ -1459,10 +1490,12 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
         first_s = run()
         info = dict(strategy._fused_info)
         wall_s = run()
-        c0 = [fused_attention.launches, attention_bwd.launches]
+        c0 = [fused_attention.launches, attention_bwd.launches, attention_bwd.streamed_launches]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prof_s = run()
         counted = [fused_attention.launches - c0[0], attention_bwd.launches - c0[1]]
+        # a streamed K2 call (T > 320) is two kernels, the query and key sides
+        kernels_counted = [counted[0], counted[1] + attention_bwd.streamed_launches - c0[2]]
     finally:
         strategy._fused_keep = False
         strategy._fused_free()
@@ -1485,7 +1518,8 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
         "device_ops_per_step": ops if kernels else None,
         "device_busy_ms_per_step": busy if kernels else None,
         "device_idle_share": 1 - busy / wall_ms if kernels else None,
-        "k1_k2_profiled": seen, "k1_k2_counted": counted, "k1_k2_captured_x_replays": replays,
+        "k1_k2_profiled": seen, "k1_k2_counted": counted,
+        "k1_k2_kernels_counted": kernels_counted, "k1_k2_captured_x_replays": replays,
         "per_step_loop": {k: per_step[k] for k in (
             "wall_ms_per_step", "device_busy_ms_per_step", "device_idle_share",
             "device_ops_per_step")},
@@ -1498,9 +1532,156 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
     # 1,320 K1 launches have been seen): it may see fewer, down to 98%,
     # never more
     if kernels and cfg.COMPUTE_DTYPE == "bfloat16" and not all(
-            0.98 * c <= n <= c for n, c in zip(seen, counted)):
+            0.98 * c <= n <= c for n, c in zip(seen, kernels_counted)):
         fail(f"whole-run trainer profile: the profiler saw {seen} K1/K2 kernels where the "
-             f"counters added {counted}")
+             f"counters added {kernels_counted}")
+
+
+# ---------------------------------------------------------------- phase 9
+def fused_step_wall(torch, strategy, files, epochs: int = 10, profiled: bool = False):
+    """The whole-run trainer on a trained strategy: `epochs` epochs over the
+    first 160 of `files` (10 batches of 16), validating on the next 32,
+    twice (the first run captures, the second is timed on the host clock)
+    and, `profiled`, a third time under torch.profiler.  Returns the second
+    run's wall ms per step (epoch ends included), the step replays, the
+    all-reduces the step graph captured, and the profiled run's all-reduces
+    (captured x replays) and NCCL kernels by name."""
+    import copy
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = strategy.config
+    saved = cfg.EPOCHS, cfg.FUSED_TRAIN, cfg.FUSED_EPOCH_CHUNK
+    cfg.EPOCHS, cfg.FUSED_TRAIN, cfg.FUSED_EPOCH_CHUNK = epochs, True, 0
+    labels = np.random.default_rng(0).choice(
+        [strategy.label_to_idx[c] for c in strategy.classes], 192)
+    train, val = Rows(files[:160], labels[:160]), Rows(files[160:192], labels[160:192])
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        strategy.train(copy.deepcopy(train), copy.deepcopy(val))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    from menghini_neurips23_tpu_torch.parallel import multihost
+
+    strategy._fused_keep = True  # the graphs of the first run serve the next ones
+    nccl = calls = None
+    try:
+        run()
+        info = dict(strategy._fused_info)
+        wall_s = run()
+        if profiled:
+            c0 = multihost.all_reduce_sum_.calls
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+            calls = multihost.all_reduce_sum_.calls - c0
+            nccl = {k: c for k, c in profiled_kernels(prof, 1)[2].items()
+                    if "nccl" in k.lower()}
+    finally:
+        strategy._fused_keep = False
+        strategy._fused_free()
+        cfg.EPOCHS, cfg.FUSED_TRAIN, cfg.FUSED_EPOCH_CHUNK = saved
+    steps = epochs * info["steps_per_epoch"]
+    return {"wall_ms_per_step": wall_s * 1e3 / steps, "step_replays": steps,
+            "graphs": info["graphs"], "stats": info["stats"],
+            "all_reduces_per_step_graph": info["all_reduces_per_step"],
+            "all_reduces_counted": calls, "nccl_kernels": nccl}
+
+
+def _artifact_files(root: str):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs if "checkpoints" not in d)
+
+
+def phase_distributed(torch, data_dir: str, work: str, files):
+    """Data parallelism on the card through NCCL, at world size 1: the card
+    is one GPU, and NCCL refuses two ranks on one device.  main_ssl
+    textual_fpl and visual_fpl (bf16, 10 epochs, ViT-B/32 width) run
+    through the whole-run trainer without a process group, then again in a
+    one-rank NCCL group (a file:// store in the work directory), where the
+    frozen passes gather their rows through NCCL and every training step's
+    graph holds the gradient all-reduce.  The two runs' artifacts must be
+    the same bits, their K1/K2 launches the same; each trained strategy's
+    step is timed with and without the collective, and the profiler counts
+    the NCCL kernels of the group's step-graph replays."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
+    from menghini_neurips23_tpu_torch.parallel import multihost
+
+    log("  NCCL is recorded at world size 1 only: this machine's card is one GPU, and NCCL "
+        "refuses two ranks on one device; no run here has two ranks")
+    runs = (("ssl", "textual_fpl"), ("ssl", "visual_fpl"))
+    results = {}
+    for form in ("no group", "NCCL group"):
+        if form == "NCCL group":
+            store = f"{work}/nccl_store"
+            if os.path.exists(store):
+                os.remove(store)
+            dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                                    world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            if form == "NCCL group":
+                multihost.warm_collectives()
+            for paradigm, model in runs:
+                c0 = (fused_attention.launches, attention_bwd.launches)
+                wall, strategy = phase_train(torch, data_dir, f"{work}/dist_{form[:4]}",
+                                             paradigm, model, "bfloat16", 10)
+                launched = [fused_attention.launches - c0[0], attention_bwd.launches - c0[1]]
+                art = (f"{work}/dist_{form[:4]}/artifacts_{paradigm}_{model}_bfloat16_ViT-B32")
+                timing = fused_step_wall(torch, strategy, files,
+                                         profiled=form == "NCCL group")
+                results[(form, model)] = (wall, launched, art, timing)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    for _, model in runs:
+        (wa, la, aa, ta), (wb, lb, ab, tb) = results[("no group", model)],             results[("NCCL group", model)]
+        files_a, files_b = _artifact_files(aa), _artifact_files(ab)
+        differ = []
+        for rel in files_a:
+            with open(os.path.join(aa, rel), "rb") as f:
+                a = f.read()
+            with open(os.path.join(ab, rel), "rb") as f:
+                b = f.read()
+            if rel.startswith("results_model_"):  # its config names the directory
+                a, b = ({k: v for k, v in json.loads(x).items() if k != "config"}
+                        for x in (a, b))
+            if a != b:
+                differ.append(rel)
+        nccl = tb["nccl_kernels"] or {}
+        allreduce = sum(c for k, c in nccl.items() if "allreduce" in k.lower())
+        rec = {"model": model, "artifacts": len(files_a), "artifacts_differ": differ,
+               "k1_k2_launches": {"no_group": la, "nccl_group": lb},
+               "run_wall_s": {"no_group": wa, "nccl_group": wb},
+               "step_wall_ms": {"no_group": ta["wall_ms_per_step"],
+                                "nccl_group": tb["wall_ms_per_step"]},
+               "step_wall_ratio": tb["wall_ms_per_step"] / ta["wall_ms_per_step"],
+               "step_replays_profiled": tb["step_replays"],
+               "all_reduces_per_step_graph": {"no_group": ta["all_reduces_per_step_graph"],
+                                              "nccl_group": tb["all_reduces_per_step_graph"]},
+               "all_reduces_in_profiled_replays": tb["all_reduces_counted"],
+               "nccl_allreduce_kernels_profiled": allreduce, "nccl_kernels_profiled": nccl,
+               "stats_equal": bool(np.array_equal(ta["stats"], tb["stats"]))}
+        log("  distributed, NCCL world size 1 vs no group: " + json.dumps(rec))
+        if files_a != files_b or differ or la != lb or not rec["stats_equal"]:
+            fail(f"distributed: the NCCL group's run is not the run without a group: {rec}")
+        if not (ta["graphs"] and tb["graphs"]):
+            fail(f"distributed: a run took no graphs: {rec}")
+        # one all-reduce in every step graph (none without a group), so one a
+        # replay; NCCL turns a one-rank in-place sum into no device work, so
+        # the profiler sees no NCCL kernel for it (scripts/nccl_group_check.py
+        # counts them across four cards)
+        if (ta["all_reduces_per_step_graph"], tb["all_reduces_per_step_graph"]) != (0, 1) \
+                or tb["all_reduces_counted"] != tb["step_replays"]:
+            fail(f"distributed: not one all-reduce per step-graph replay: {rec}")
+        if allreduce > tb["step_replays"]:
+            fail(f"distributed: more NCCL all-reduce kernels than step replays: {rec}")
+    return results
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1569,6 +1750,8 @@ def main() -> int:
     runtimes = step_runtimes(torch, "ViT-L/14")
     phase_one_vpt_step(torch, runtimes, rows=2)
     phase_one_upt_step(torch, runtimes, rows=2)
+    # and VPT with an 80-token prompt, T = 337: K1 and K2 stream K and V
+    phase_one_vpt_step(torch, runtimes, rows=2, prefix=VPT_LONG_PREFIX)
     del runtimes
     torch.cuda.empty_cache()
 
@@ -1580,17 +1763,23 @@ def main() -> int:
     log(f"[4] main path: dataset of {len(classes)} classes x {N_PER_CLASS} train + "
         f"{N_PER_CLASS} test {RES}px PNGs written in {time.perf_counter() - t0:.2f} s")
 
-    wrappers = {"attention_fwd": fused_attention, "attention_bwd": attention_bwd,
-                "clip_head": fused_probs}
+    # (wrapper, counter) of each kernel; the streamed forms of K1 and K2
+    # (T > RESIDENT_MAX_SEQ) count apart as well
+    wrappers = {"attention_fwd": (fused_attention, "launches"),
+                "attention_bwd": (attention_bwd, "launches"),
+                "clip_head": (fused_probs, "launches"),
+                "attention_fwd_streamed": (fused_attention, "streamed_launches"),
+                "attention_bwd_streamed": (attention_bwd, "streamed_launches")}
+    resident = ("attention_fwd", "attention_bwd", "clip_head")
     # each main path runs with every count set to 0 just before it and read
     # just after; a kernel the path runs must show at least one launch
     by_path = {}
 
     def counted(path: str, needs, run):
-        for w in wrappers.values():
-            w.launches = 0
+        for w, c in wrappers.values():
+            setattr(w, c, 0)
         run()
-        by_path[path] = {name: w.launches for name, w in wrappers.items()}
+        by_path[path] = {name: getattr(w, c) for name, (w, c) in wrappers.items()}
         log(f"  launches on the {path} path: {json.dumps(by_path[path])}")
         for name in needs:
             if by_path[path][name] <= 0:
@@ -1621,13 +1810,13 @@ def main() -> int:
 
     counted("zero-shot", ("attention_fwd", "clip_head"), zero_shot_path)
     log("[7] training (SSL CoOp)")
-    counted("training (SSL CoOp)", tuple(wrappers), training_runs(
+    counted("training (SSL CoOp)", resident, training_runs(
         [("ssl", "textual_prompt", "float32", 20), ("ssl", "textual_fpl", "bfloat16", 150)]))
     log("[7] training (UL/TRZSL, VPT)")
-    counted("training (UL/TRZSL, VPT)", tuple(wrappers), training_runs(
+    counted("training (UL/TRZSL, VPT)", resident, training_runs(
         [("ul", "visual_fpl", "bfloat16", 150), ("trzsl", "visual_fpl", "float32", 20)]))
     log("[7] training (IFPL/GRIP, UPT)")
-    counted("training (IFPL/GRIP, UPT)", tuple(wrappers), training_runs(
+    counted("training (IFPL/GRIP, UPT)", resident, training_runs(
         [("ul", "grip_visual", "bfloat16", 5, 10, GRIP_SCHEDULE),
          ("ssl", "grip_multimodal", "bfloat16", 5, 25),
          ("trzsl", "iterative_textual_fpl", "float32", 5, 50),
@@ -1642,13 +1831,26 @@ def main() -> int:
 
     # full ViT-L/14 width and depth (24 + 12 layers), bf16, the training
     # runs cut to 5 epochs: VPT's vision tower at T = 273, UPT's at 261
-    counted("ViT-L/14", tuple(wrappers), vit_l14_path)
+    counted("ViT-L/14", resident, vit_l14_path)
+    log("[7] ViT-L/14 VPT with an 80-token prompt (T = 337)")
+    # main_ul visual_fpl bf16, 3 epochs: every step and the prompted
+    # evaluation stream K and V (the zero-shot pass, T = 257, does not)
+    def vit_l14_long_prompt():
+        key = "ul_visual_fpl_bfloat16@ViT-L/14-L80"
+        walls[key], trained[key] = phase_train(
+            torch, data_dir, work, "ul", "visual_fpl", "bfloat16", 3, encoder="ViT-L/14",
+            prefix=VPT_LONG_PREFIX)
+
+    counted("ViT-L/14, 80-token VPT prompt", tuple(wrappers), vit_l14_long_prompt)
+    with open(f"{data_dir}/MNIST/train.txt") as f:
+        train_files = [f"{data_dir}/MNIST/train/{l.split()[0]}" for l in f if l.strip()]
+    log("[9] distributed (NCCL, world size 1)")
+    counted("distributed (NCCL, world size 1)", resident,
+            lambda: phase_distributed(torch, data_dir, work, train_files))
     launches = {name: sum(c[name] for c in by_path.values()) for name in wrappers}
     log("phase wall seconds: " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
     log("[8] breakdown")
     phase_breakdown(torch, data_dir, work)
-    with open(f"{data_dir}/MNIST/train.txt") as f:
-        train_files = [f"{data_dir}/MNIST/train/{l.split()[0]}" for l in f if l.strip()]
     fpl = trained["ssl_textual_fpl"]
     # the same step over Flowers102's 102 class prompts (the paper's widest
     # class list), on the same runtime
@@ -1661,11 +1863,13 @@ def main() -> int:
     # 16 x 66 tokens, forward and backward to the prefix); one bf16 UPT step
     # (the mixer, the text tower over 10 x 77 tokens and the vision tower
     # over 16 x 54); the same VPT and UPT steps at ViT-L/14 (16 x 273 and
-    # 16 x 261 vision tokens through 24 layers)
+    # 16 x 261 vision tokens through 24 layers), and VPT with the 80-token
+    # prompt (16 x 337, K1 and K2 streamed)
     for strategy in (fpl, TextualStrategy(
             fpl.config, {c: i for i, c in enumerate(flowers)}, flowers, flowers, flowers,
             runtime=fpl.runtime), trained["ul_visual_fpl"], trained["ssl_grip_multimodal"],
-            trained["ul_visual_fpl@ViT-L/14"], trained["ssl_multimodal_fpl@ViT-L/14"]):
+            trained["ul_visual_fpl@ViT-L/14"], trained["ssl_multimodal_fpl@ViT-L/14"],
+            trained["ul_visual_fpl_bfloat16@ViT-L/14-L80"]):
         phase_fused_profile(torch, strategy, train_files,
                             phase_step_profile(torch, strategy, train_files))
     phase_refresh_profile(torch, trained["ul_grip_visual"], data_dir)
@@ -1692,13 +1896,25 @@ def main() -> int:
             "cases": cases,
         }
 
+    short_fwd = [c for c in attn_cases if not c["streamed"]]
+    short_bwd = [c for c in bwd_cases if not c["streamed"]]
     kernels = [
         entry("attention_fwd", f"{PKG}/csrc/attention_fwd.cu",
-              "menghini_neurips23_tpu/ops/attention.py:65", attn_cases,
+              "menghini_neurips23_tpu/ops/attention.py:65", short_fwd,
               lambda c: c["shape"] == [256, 50, 768, 12] and c["dtype"] == "bfloat16"),
         entry("attention_bwd", f"{PKG}/csrc/attention_bwd.cu",
-              "menghini_neurips23_tpu/ops/attention.py:96", bwd_cases,
+              "menghini_neurips23_tpu/ops/attention.py:96", short_bwd,
               lambda c: c["shape"] == [10, 24, 512, 8] and c["dtype"] == "bfloat16"),
+        # the same kernels' streamed forms past 320 tokens, headlined at
+        # ViT-L/14 with an 80-token VPT prompt (T = 337, bf16)
+        entry("attention_fwd_streamed", f"{PKG}/csrc/attention_fwd.cu",
+              "menghini_neurips23_tpu/ops/attention.py:65",
+              [c for c in attn_cases if c["streamed"]],
+              lambda c: c["shape"] == [16, 337, 1024, 16] and c["dtype"] == "bfloat16"),
+        entry("attention_bwd_streamed", f"{PKG}/csrc/attention_bwd.cu",
+              "menghini_neurips23_tpu/ops/attention.py:96",
+              [c for c in bwd_cases if c["streamed"]],
+              lambda c: c["shape"] == [16, 337, 1024, 16] and c["dtype"] == "bfloat16"),
         entry("clip_head", f"{PKG}/csrc/clip_head.cu",
               "menghini_neurips23_tpu/ops/clip_head.py:40", head_cases,
               lambda c: c["shape"] == [640, 512, 10] and c["dtype"] == "float32"),

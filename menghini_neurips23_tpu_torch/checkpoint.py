@@ -17,7 +17,10 @@ as a CPU tensor, `None` kept (UPT's missing deep slot) and the UPT mixer's
 parameter dicts kept as dicts; it loads with `weights_only=True`.  The JAX
 package writes orbax checkpoints there instead, so neither package resumes
 the other's runs.  A directory is written as `iter_<n>.tmp` and renamed
-when complete.  One process writes; there is no process group.
+when complete.  In a process group (parallel/) rank 0 writes and clears,
+between two barriers for an iteration state (JAX checkpoint.py:63-105), so
+that no rank goes on before the state exists; every rank reads, so the
+directory must be on a filesystem the ranks share.
 
 Inside an iteration, the whole-run trainer split by FUSED_EPOCH_CHUNK saves
 its carry at every chunk boundary (`save_chunk_state`, the JAX package's
@@ -35,6 +38,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from menghini_neurips23_tpu_torch.parallel.multihost import barrier, is_main_process
 
 log = logging.getLogger(__name__)
 
@@ -93,25 +98,28 @@ def save_iteration_state(
     resumed run bit-identical to an uninterrupted one: without them the
     restarted process would draw fresh permutation streams and prompts."""
     path = os.path.join(_ckpt_dir(config), f"iter_{iteration}")
-    tmp = path + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    torch.save(_to_tensors(best_params), os.path.join(tmp, _PARAMS_FILE))
-    manifest = {
-        "iteration": iteration,
-        "n_pseudoshots": int(n_pseudoshots),
-        "best_metric": float(best_metric),
-        "run": run_key(config),
-        "rng_state": rng_state,
-        "reinit": reinit,
-    }
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.rename(tmp, path)
-    log.info("checkpointed iteration %d -> %s", iteration, path)
+    barrier()  # every rank has finished the iteration
+    if is_main_process():
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        torch.save(_to_tensors(best_params), os.path.join(tmp, _PARAMS_FILE))
+        manifest = {
+            "iteration": iteration,
+            "n_pseudoshots": int(n_pseudoshots),
+            "best_metric": float(best_metric),
+            "run": run_key(config),
+            "rng_state": rng_state,
+            "reinit": reinit,
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        log.info("checkpointed iteration %d -> %s", iteration, path)
+    barrier()  # no rank goes on before the state exists
     return path
 
 
@@ -149,7 +157,7 @@ def latest_iteration_state(config) -> Optional[dict]:
 
 def clear_run_checkpoints(config):
     base = _ckpt_dir(config)
-    if os.path.isdir(base):
+    if is_main_process() and os.path.isdir(base):
         shutil.rmtree(base)
 
 
@@ -194,8 +202,11 @@ def _chunk_path(config, fingerprint: str) -> str:
 
 def save_chunk_state(config, fingerprint: str, next_start: int, carry, outs_list) -> str:
     """Persist the carry after a chunk - (prompt, mom, gacc, best_metric,
-    best_prompt), host arrays - and the per-chunk (3, chunk) stats so far."""
+    best_prompt), host arrays - and the per-chunk (3, chunk) stats so far.
+    Rank 0 writes; every rank holds the same carry."""
     path = _chunk_path(config, fingerprint)
+    if not is_main_process():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     torch.save({"fmt": 2, "next_start": int(next_start), "carry": _to_tensors(carry),
@@ -226,5 +237,5 @@ def load_chunk_state(config, fingerprint: str) -> Optional[dict]:
 
 def clear_chunk_state(config, fingerprint: str):
     path = _chunk_path(config, fingerprint)
-    if os.path.exists(path):
+    if is_main_process() and os.path.exists(path):
         os.remove(path)

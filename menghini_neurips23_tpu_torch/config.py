@@ -121,7 +121,7 @@ class Config:
     TEXT_TRUNCATE: bool = True  # drop text-context positions after the last EOT (exact under causal attention). False = always run all 77 positions like the reference
     PRECAST_WEIGHTS: bool = True  # bf16 compute only: cast the transformer matmul weights to bf16 once at load (the same rounding as casting at every use)
     UPT_FP16_QUIRK: bool = False  # UPT: round the mixer output through fp16, as the reference UPTModel does (off: the mixer stays fp32)
-    MESH_SHAPE: str = ""  # multi-device layout; this package runs on one device
+    MESH_SHAPE: str = ""  # ranks' layout (parallel/mesh.py): "" = every batch split over the process group (one rank without one); "N" = the same, N must be the group's size; "d,m" with m > 1 (tensor parallelism) raises
     ARTIFACT_DIR: str = "."  # root for trained_prompts/, pseudolabels/, ...
     ARTIFACT_FORMAT: str = "numpy"  # numpy | torch (reference-compatible layout)
     BPE_PATH: str = ""  # path to CLIP bpe_simple_vocab_16e6.txt.gz (optional)

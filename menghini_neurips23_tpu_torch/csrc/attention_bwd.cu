@@ -53,7 +53,7 @@
 // - causal rows skip whole key tiles above the diagonal, and pass 2 skips
 //   the query tiles above it; masked and padded entries give P = dS = 0.
 //
-// Above 128 tokens (ViT-L/14: VPT's 273, UPT's 261, 257), up to 320: P_lp
+// Above 128 tokens (ViT-L/14: VPT's 273, UPT's 261, 257, and any longer T): P_lp
 // and dS of a whole (row, head) no longer fit a block (2 * 288 * 296 * 2 B =
 // 341 KB at T = 273), so no T x T tile is kept; the softmax statistics are
 // taken in one sweep and the rest is recomputed from them:
@@ -95,8 +95,15 @@
 //   workspace; the key side streams 32-query chunks of q, g and their
 //   statistics through the same ring.  Full-fp32 FFMA register tiles, with
 //   dS (query side) and P, then dS (key side) of the warp's 16 rows passing
-//   through a per-warp buffer; about 95 KB a block, two blocks an SM.
-// T above 320 raises (K1's forward takes no more at D = 64).
+//   through a per-warp buffer; about 95 KB a block, two blocks an SM;
+// - bf16 above 320 tokens (ViT-L/14 with a prompt above 63 tokens, 577 at
+//   ViT-L/14@336), where the resident head would pass 227 KB: the same two
+//   launches instantiated for bf16 rows (staged as bf16, D + 8 a row, read
+//   as fp32; plain FFMA, fp32 accumulation, about 55 KB a block), with P
+//   and dS rounded to bf16 where the resident kernel rounds them (dS from
+//   the fp32 P, kept in registers on the key side).  Nothing depends on T
+//   but the grid and the workspace, so every T is taken.  A simple form,
+//   not tuned: its FFMA rate is the fp32 pair's.
 
 #include "attention_common.cuh"
 
@@ -105,8 +112,10 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace mnt;
 
-constexpr int kMaxSeq = 320;       // the longest T (K1's forward range at D = 64)
 constexpr int kWholeMaxSeq = 128;  // up to here one block holds a whole (row, head) and P, dS
+// bf16 up to here holds the head resident (184 KB of shared memory at 320);
+// above, it takes the streamed pair as fp32 does above kWholeMaxSeq
+constexpr int kResidentMaxSeq = 320;
 // T > 128, bf16: the most warps a block takes (10 fit ptxas's 168 registers;
 // scripts/k2_resident_warps.py measures other counts on the card), and keys
 // per staging group and sweep-1 step
@@ -822,23 +831,44 @@ attention_bwd_resident_bf16(const bf16* __restrict__ qkv, const bf16* __restrict
   }
 }
 
-// fp32: the block's 64 rows of two operands, a ring of kStages chunks of
-// two 32-row operands (and, on the key side, the chunk's query statistics),
-// and a 16 x (kSub + 4) buffer per warp; both sides use this layout.
-size_t tiled_f32_smem(int D) {
-  const size_t ring = 2 * kSub * (size_t)(D + 4) + 3 * kSub;
-  return (2 * kTile * (size_t)(D + 4) + kStages * ring + 4 * 16 * (kSub + 4)) * sizeof(float);
+// The streamed pair (fp32 above 128 tokens, bf16 above kResidentMaxSeq):
+// the block's 64 rows of two operands, a ring of kStages chunks of two
+// 32-row operands and three fp32 statistics rows (the key side's; the query
+// side leaves them unused), and a 16 x (kSub + 4) fp32 buffer per warp.
+// Rows of T elements are padded to D + 4 floats or D + 8 bf16 (16-byte
+// multiples, free of bank conflicts for the float4 / 8-byte reads).
+template <typename T>
+__host__ __device__ constexpr int tiled_ld(int D) { return D + 16 / (int)sizeof(T); }
+
+template <typename T>
+__host__ __device__ constexpr size_t ring_bytes(int D) {
+  return 2 * kSub * (size_t)tiled_ld<T>(D) * sizeof(T) + 3 * kSub * sizeof(float);
+}
+
+template <typename T>
+size_t tiled_smem(int D) {
+  return 2 * kTile * (size_t)tiled_ld<T>(D) * sizeof(T) + kStages * ring_bytes<T>(D) +
+         4 * 16 * (kSub + 4) * sizeof(float);
 }
 
 // the workspace's rows per (batch row, head): T rounded up to the query tile
 __host__ __device__ constexpr int stats_rows(int seq) { return (seq + kTile - 1) / kTile * kTile; }
 
+// x rounded to the element type (the plain version's .to(dtype) points)
+__device__ __forceinline__ float round_to(float x, float*) { return x; }
+__device__ __forceinline__ float round_to(float x, bf16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+template <typename T>
+__device__ __forceinline__ float rnd(float x) { return round_to(x, static_cast<T*>(nullptr)); }
+
 // acc[i][jj] = sum_d a[4ry + i][d] * b[8jj + kx][d]: the warp's 16 rows of
-// `a` against the 8 * NS rows of `b`, both row-major with D + 4 floats a row.
-template <int D, int NS>
-__device__ __forceinline__ void dots_f32(float (&acc)[4][NS], const float* a, const float* b,
-                                         int ry, int kx) {
-  constexpr int LD = D + 4;
+// `a` against the 8 * NS rows of `b`, both row-major with tiled_ld<T>(D)
+// elements a row, accumulated in fp32.
+template <typename T, int D, int NS>
+__device__ __forceinline__ void dots_tiled(float (&acc)[4][NS], const T* a, const T* b, int ry,
+                                           int kx) {
+  constexpr int LD = tiled_ld<T>(D);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -861,13 +891,13 @@ __device__ __forceinline__ void dots_f32(float (&acc)[4][NS], const float* a, co
 }
 
 // acc[i][c] += sum_{j < n} w[4ry + i][j] * b[j][col c]: the lane's 4 rows of
-// the warp's (16, LDW) buffer against the first n (a multiple of 4) rows of
-// a chunk, in the lane's Cols<D> columns.
-template <int D, int LDW>
-__device__ __forceinline__ void rows_times_f32(float (&acc)[4][D / 8], const float* w,
-                                               const float* b, int n, int ry, int kx) {
+// the warp's (16, LDW) fp32 buffer against the first n (a multiple of 4)
+// rows of a chunk, in the lane's Cols<D> columns.
+template <typename T, int D, int LDW>
+__device__ __forceinline__ void rows_times_tiled(float (&acc)[4][D / 8], const float* w,
+                                                 const T* b, int n, int ry, int kx) {
   using C = Cols<D>;
-  constexpr int LD = D + 4;
+  constexpr int LD = tiled_ld<T>(D);
 #pragma unroll 2
   for (int j = 0; j < n; j += 4) {
     float p[4][4];
@@ -888,43 +918,44 @@ __device__ __forceinline__ void rows_times_f32(float (&acc)[4][D / 8], const flo
   }
 }
 
-// Query side, fp32.  Block (batch row x head, 64-row query tile), a warp
-// per 16 rows, lane (ry, kx) holding rows r0 + 4ry + i against keys
-// c0 + 8jj + kx; the key chunks stream through the ring, sweep 1 (the
-// statistics) and sweep 2 (dS, dq) one after the other, so that chunk
-// step + 2 is staged while step computes.
-template <int D>
+// Query side.  Block (batch row x head, 64-row query tile), a warp per 16
+// rows, lane (ry, kx) holding rows r0 + 4ry + i against keys c0 + 8jj + kx;
+// the key chunks stream through the ring, sweep 1 (the statistics) and
+// sweep 2 (dS, dq) one after the other, so that chunk step + 2 is staged
+// while step computes.  dS is rounded to T before dq (bf16).
+template <typename T, int D>
 __global__ void __launch_bounds__(kTileThreads, 2)
-attention_bwd_q_f32(const float* __restrict__ qkv, const float* __restrict__ grad,
-                    float* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
-                    int heads, float scale, int causal) {
+attention_bwd_q_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
+                      T* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
+                      int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using C = Cols<D>;
-  constexpr int LD = D + 4, NS = kSub / 8, LDW = kSub + 4, RING = 2 * kSub * LD + 3 * kSub;
+  constexpr int LD = tiled_ld<T>(D), NS = kSub / 8, LDW = kSub + 4;
+  constexpr size_t RING = ring_bytes<T>(D);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
-  float* qs = reinterpret_cast<float*>(smem_raw);  // the block's query rows
-  float* gs = qs + kTile * LD;
-  float* ring = gs + kTile * LD;  // stage: the chunk's keys, then its values
-  float* ws = ring + kStages * RING + warp * 16 * LDW;  // the warp's dS
+  T* qs = reinterpret_cast<T*>(smem_raw);  // the block's query rows
+  T* gs = qs + kTile * LD;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + kTile * LD);  // keys, values
+  float* ws = reinterpret_cast<float*>(ring + kStages * RING) + warp * 16 * LDW;  // its dS
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads, rb = kTile * blockIdx.y;
   const size_t stride = 3 * (size_t)width;
-  const float* base = qkv + (size_t)b * seq * stride + h * D;
+  const T* base = qkv + (size_t)b * seq * stride + h * D;
   const int r0 = rb + 16 * warp, row0 = r0 + 4 * ry;  // rows row0 .. row0 + 3
   const bool active = r0 < seq;
   const int kend = causal ? min(seq, r0 + 16) : seq;
   const int nch = ((causal ? min(seq, rb + kTile) : seq) + kSub - 1) / kSub, steps = 2 * nch;
   auto stage = [&](int step) {
     const int c0 = (step % nch) * kSub;
-    float* dst = ring + (step % kStages) * RING;
-    stage_rows<float, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kSub, tid,
-                         kTileThreads);
-    stage_rows<float, D>(dst + kSub * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
-                         kSub, tid, kTileThreads);
+    T* dst = reinterpret_cast<T*>(ring + (step % kStages) * RING);
+    stage_rows<T, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kSub, tid,
+                     kTileThreads);
+    stage_rows<T, D>(dst + kSub * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
+                     kSub, tid, kTileThreads);
   };
-  stage_rows<float, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
-  stage_rows<float, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width, seq - rb,
-                       kTile, tid, kTileThreads);
+  stage_rows<T, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
+  stage_rows<T, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width, seq - rb,
+                   kTile, tid, kTileThreads);
   stage(0);
   cp_async_commit();
   stage(1);
@@ -949,10 +980,10 @@ attention_bwd_q_f32(const float* __restrict__ qkv, const float* __restrict__ gra
     }
     const int c0 = (step % nch) * kSub;
     if (c0 >= kend) continue;
-    const float* ks = ring + (step % kStages) * RING;
-    const float* vs = ks + kSub * LD;
+    const T* ks = reinterpret_cast<const T*>(ring + (step % kStages) * RING);
+    const T* vs = ks + kSub * LD;
     float s[4][NS], dp[4][NS];
-    dots_f32<D, NS>(s, qs + 16 * warp * LD, ks, ry, kx);
+    dots_tiled<T, D, NS>(s, qs + 16 * warp * LD, ks, ry, kx);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -961,7 +992,7 @@ attention_bwd_q_f32(const float* __restrict__ qkv, const float* __restrict__ gra
         const bool valid = col < seq && (!causal || col <= row0 + i);
         s[i][jj] = valid ? s[i][jj] * scale : -INFINITY;
       }
-    dots_f32<D, NS>(dp, gs + 16 * warp * LD, vs, ry, kx);
+    dots_tiled<T, D, NS>(dp, gs + 16 * warp * LD, vs, ry, kx);
     if (step < nch) {  // sweep 1: online m, l, rho (key 0 keeps m finite)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -988,15 +1019,15 @@ attention_bwd_q_f32(const float* __restrict__ qkv, const float* __restrict__ gra
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const float p = expf(s[i][jj] - m[i]) * inv_l[i];
-        ws[(4 * ry + i) * LDW + 8 * jj + kx] = p * (dp[i][jj] - r[i]) * scale;
+        ws[(4 * ry + i) * LDW + 8 * jj + kx] = rnd<T>(p * (dp[i][jj] - r[i]) * scale);
       }
     __syncwarp();
-    rows_times_f32<D, LDW>(dq, ws, ks, (min(kSub, kend - c0) + 3) / 4 * 4, ry, kx);
+    rows_times_tiled<T, D, LDW>(dq, ws, ks, (min(kSub, kend - c0) + 3) / 4 * 4, ry, kx);
     __syncwarp();
   }
   // dq, and (m, 1/l, r) of every row of the tile (zeros past the warps
   // that hold a row), which the key side reads
-  float* out = dqkv + (size_t)b * seq * stride + h * D;
+  T* out = dqkv + (size_t)b * seq * stride + h * D;
   const int tw = stats_rows(seq);
   float* st = stats + (size_t)blockIdx.x * 3 * tw;
 #pragma unroll
@@ -1015,49 +1046,52 @@ attention_bwd_q_f32(const float* __restrict__ qkv, const float* __restrict__ gra
   }
 }
 
-// Key side, fp32: lane (ry, kx) holds keys j0 + 4ry + t against queries
+// Key side: lane (ry, kx) holds keys j0 + 4ry + t against queries
 // i0c + 8jj + kx; the query chunks and their statistics stream through the
-// ring (chunk c + 2 staged while c computes); P, then dS, of the warp's
-// keys pass through its buffer.
-template <int D>
+// ring (chunk c + 2 staged while c computes); P rounded to T, then dS
+// rounded to T (from the fp32 P, kept in registers), of the warp's keys
+// pass through its buffer.
+template <typename T, int D>
 __global__ void __launch_bounds__(kTileThreads, 2)
-attention_bwd_kv_f32(const float* __restrict__ qkv, const float* __restrict__ grad,
-                     float* __restrict__ dqkv, const float* __restrict__ stats, int seq,
-                     int width, int heads, float scale, int causal) {
+attention_bwd_kv_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
+                       T* __restrict__ dqkv, const float* __restrict__ stats, int seq,
+                       int width, int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using C = Cols<D>;
-  constexpr int LD = D + 4, NS = kSub / 8, LDW = kSub + 4, RING = 2 * kSub * LD + 3 * kSub;
+  constexpr int LD = tiled_ld<T>(D), NS = kSub / 8, LDW = kSub + 4;
+  constexpr size_t RING = ring_bytes<T>(D);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
-  float* ks = reinterpret_cast<float*>(smem_raw);  // the block's keys
-  float* vs = ks + kTile * LD;
-  float* ring = vs + kTile * LD;  // stage: the chunk's queries, g rows, then (m, 1/l, r)
-  float* ws = ring + kStages * RING + warp * 16 * LDW;  // the warp's P, then dS
+  T* ks = reinterpret_cast<T*>(smem_raw);  // the block's keys
+  T* vs = ks + kTile * LD;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTile * LD);  // queries, g, stats
+  float* ws = reinterpret_cast<float*>(ring + kStages * RING) + warp * 16 * LDW;
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads, jb = kTile * blockIdx.y;
   const size_t stride = 3 * (size_t)width;
-  const float* base = qkv + (size_t)b * seq * stride + h * D;
-  const float* gbase = grad + (size_t)b * seq * width + h * D;
+  const T* base = qkv + (size_t)b * seq * stride + h * D;
+  const T* gbase = grad + (size_t)b * seq * width + h * D;
   const int tw = stats_rows(seq);
   const float* st = stats + (size_t)blockIdx.x * 3 * tw;
   // causal: query chunks before the block's first key see none of its keys
   const int first = causal ? jb / kSub : 0, nch = (seq + kSub - 1) / kSub;
   auto stage = [&](int c) {
     const int i0c = c * kSub;
-    float* dst = ring + ((c - first) % kStages) * RING;
-    stage_rows<float, D>(dst, LD, base + i0c * stride, stride, seq - i0c, kSub, tid,
-                         kTileThreads);
-    stage_rows<float, D>(dst + kSub * LD, LD, gbase + (size_t)i0c * width, width, seq - i0c,
-                         kSub, tid, kTileThreads);
+    unsigned char* slot = ring + ((c - first) % kStages) * RING;
+    T* dst = reinterpret_cast<T*>(slot);
+    stage_rows<T, D>(dst, LD, base + i0c * stride, stride, seq - i0c, kSub, tid, kTileThreads);
+    stage_rows<T, D>(dst + kSub * LD, LD, gbase + (size_t)i0c * width, width, seq - i0c, kSub,
+                     tid, kTileThreads);
     // the statistics rows run to stats_rows(seq) >= i0c + kSub
+    float* sdst = reinterpret_cast<float*>(dst + 2 * kSub * LD);
     for (int idx = tid; idx < 3 * kSub / 4; idx += kTileThreads) {
       const int a = idx / (kSub / 4), o = 4 * (idx % (kSub / 4));
-      cp_async16(dst + 2 * kSub * LD + a * kSub + o, st + a * tw + i0c + o, true);
+      cp_async16(sdst + a * kSub + o, st + a * tw + i0c + o, true);
     }
   };
-  stage_rows<float, D>(ks, LD, base + width + jb * stride, stride, seq - jb, kTile, tid,
-                       kTileThreads);
-  stage_rows<float, D>(vs, LD, base + 2 * width + jb * stride, stride, seq - jb, kTile, tid,
-                       kTileThreads);
+  stage_rows<T, D>(ks, LD, base + width + jb * stride, stride, seq - jb, kTile, tid,
+                   kTileThreads);
+  stage_rows<T, D>(vs, LD, base + 2 * width + jb * stride, stride, seq - jb, kTile, tid,
+                   kTileThreads);
   stage(first);
   cp_async_commit();
   if (first + 1 < nch) stage(first + 1);
@@ -1074,46 +1108,45 @@ attention_bwd_kv_f32(const float* __restrict__ qkv, const float* __restrict__ gr
     const int i0c = c * kSub;
     // (causal: every query of the chunk is before the warp's keys)
     if (!active || (causal && i0c + kSub <= j0)) continue;
-    const float* qs = ring + ((c - first) % kStages) * RING;
-    const float* gs = qs + kSub * LD;
-    const float* sts = gs + kSub * LD;  // m, 1/l, r of the chunk's queries
+    const T* qs = reinterpret_cast<const T*>(ring + ((c - first) % kStages) * RING);
+    const T* gs = qs + kSub * LD;
+    const float* sts = reinterpret_cast<const float*>(gs + kSub * LD);  // m, 1/l, r
     const int n4 = (min(kSub, seq - i0c) + 3) / 4 * 4;
-    float s[4][NS];
-    dots_f32<D, NS>(s, ks + 16 * warp * LD, qs, ry, kx);  // S^T: (key, query)
+    float s[4][NS], p[4][NS];
+    dots_tiled<T, D, NS>(s, ks + 16 * warp * LD, qs, ry, kx);  // S^T: (key, query)
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const int qi = 8 * jj + kx, key = key0 + t;
         const bool valid = key < seq && i0c + qi < seq && (!causal || key <= i0c + qi);
-        ws[(4 * ry + t) * LDW + qi] =
-            valid ? expf(s[t][jj] * scale - sts[qi]) * sts[kSub + qi] : 0.f;
+        p[t][jj] = valid ? expf(s[t][jj] * scale - sts[qi]) * sts[kSub + qi] : 0.f;
+        ws[(4 * ry + t) * LDW + qi] = rnd<T>(p[t][jj]);
       }
     __syncwarp();
-    rows_times_f32<D, LDW>(dv, ws, gs, n4, ry, kx);
+    rows_times_tiled<T, D, LDW>(dv, ws, gs, n4, ry, kx);
     __syncwarp();
-    dots_f32<D, NS>(s, vs + 16 * warp * LD, gs, ry, kx);  // dP^T
+    dots_tiled<T, D, NS>(s, vs + 16 * warp * LD, gs, ry, kx);  // dP^T
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const int qi = 8 * jj + kx;
-        float* e = ws + (4 * ry + t) * LDW + qi;
-        *e = *e * (s[t][jj] - sts[2 * kSub + qi]) * scale;
+        ws[(4 * ry + t) * LDW + qi] = rnd<T>(p[t][jj] * (s[t][jj] - sts[2 * kSub + qi]) * scale);
       }
     __syncwarp();
-    rows_times_f32<D, LDW>(dk, ws, qs, n4, ry, kx);
+    rows_times_tiled<T, D, LDW>(dk, ws, qs, n4, ry, kx);
     __syncwarp();
   }
   if (!active) return;
-  float* out = dqkv + (size_t)b * seq * stride + h * D;
+  T* out = dqkv + (size_t)b * seq * stride + h * D;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int row = key0 + t;
     if (row >= seq) continue;
 #pragma unroll
     for (int u = 0; u < C::kRuns; ++u) {
-      float* dst = out + row * stride + C::col(u, kx);
+      T* dst = out + row * stride + C::col(u, kx);
       store_vec<C::kVec>(dst + width, dk[t] + u * C::kVec);
       store_vec<C::kVec>(dst + 2 * width, dv[t] + u * C::kVec);
     }
@@ -1129,33 +1162,47 @@ cudaError_t set_smem_shared_carveout(Kernel kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// T > 128: bf16 in one launch (the resident kernel); fp32 in two, the
-// query side (dq and the row statistics), then the key side (dk, dv), on
-// one stream.
+// The streamed pair on one stream: the query side (dq and the row
+// statistics), then the key side (dk, dv).
+template <typename T, int D>
+cudaError_t launch_streamed(const void* qkv, const void* grad, void* dqkv, float* stats, int B,
+                            int seq, int width, int heads, float scale, int causal,
+                            cudaStream_t stream) {
+  cudaError_t e;
+  const dim3 grid(B * heads, stats_rows(seq) / kTile);
+  const size_t smem = tiled_smem<T>(D);
+  if ((e = set_smem_shared_carveout(attention_bwd_q_tiled<T, D>, smem)) != cudaSuccess) return e;
+  if ((e = set_smem_shared_carveout(attention_bwd_kv_tiled<T, D>, smem)) != cudaSuccess) return e;
+  attention_bwd_q_tiled<T, D><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(grad), static_cast<T*>(dqkv), stats, seq,
+      width, heads, scale, causal);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attention_bwd_kv_tiled<T, D><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(grad), static_cast<T*>(dqkv), stats, seq,
+      width, heads, scale, causal);
+  return cudaGetLastError();
+}
+
+// T > 128: bf16 in one launch up to kResidentMaxSeq (the resident kernel),
+// the streamed pair above; fp32 always the streamed pair.
 template <int D>
 cudaError_t launch_tiled(const void* qkv, const void* grad, void* dqkv, float* stats, int B,
                          int seq, int width, int heads, float scale, int causal, int dtype,
                          cudaStream_t stream) {
-  cudaError_t e;
-  if (dtype == 1) {
-    const size_t smem = resident_bf16_smem(seq, D);
-    if ((e = set_smem(attention_bwd_resident_bf16<D>, smem)) != cudaSuccess) return e;
-    attention_bwd_resident_bf16<D><<<B * heads, 32 * resident_warps(seq), smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad), static_cast<bf16*>(dqkv),
-        seq, width, heads, scale, causal);
-    return cudaGetLastError();
+  if (dtype == 0) {
+    return launch_streamed<float, D>(qkv, grad, dqkv, stats, B, seq, width, heads, scale, causal,
+                                     stream);
   }
-  const dim3 grid(B * heads, stats_rows(seq) / kTile);
-  const size_t smem = tiled_f32_smem(D);
-  if ((e = set_smem_shared_carveout(attention_bwd_q_f32<D>, smem)) != cudaSuccess) return e;
-  if ((e = set_smem_shared_carveout(attention_bwd_kv_f32<D>, smem)) != cudaSuccess) return e;
-  attention_bwd_q_f32<D><<<grid, kTileThreads, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(grad), static_cast<float*>(dqkv),
-      stats, seq, width, heads, scale, causal);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  attention_bwd_kv_f32<D><<<grid, kTileThreads, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(grad), static_cast<float*>(dqkv),
-      stats, seq, width, heads, scale, causal);
+  if (seq > kResidentMaxSeq) {
+    return launch_streamed<bf16, D>(qkv, grad, dqkv, stats, B, seq, width, heads, scale, causal,
+                                    stream);
+  }
+  cudaError_t e;
+  const size_t smem = resident_bf16_smem(seq, D);
+  if ((e = set_smem(attention_bwd_resident_bf16<D>, smem)) != cudaSuccess) return e;
+  attention_bwd_resident_bf16<D><<<B * heads, 32 * resident_warps(seq), smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad), static_cast<bf16*>(dqkv),
+      seq, width, heads, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1198,31 +1245,37 @@ cudaError_t dispatch_kc(const void* qkv, const void* grad, void* dqkv, int B, in
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs (the larger of the two
-// types'); the wrapper checks it, and T <= mnt_attention_bwd_max_seq(),
-// before launching.
+// types'); the wrapper checks it before launching.  Above kResidentMaxSeq
+// it no longer depends on seq.
 size_t mnt_attention_bwd_smem(int seq, int head_dim) {
+  if (seq > kResidentMaxSeq) {
+    return std::max(tiled_smem<bf16>(head_dim), tiled_smem<float>(head_dim));
+  }
   if (seq > kWholeMaxSeq) {
-    return std::max(resident_bf16_smem(seq, head_dim), tiled_f32_smem(head_dim));
+    return std::max(resident_bf16_smem(seq, head_dim), tiled_smem<float>(head_dim));
   }
   return std::max(bf16_smem(seq, head_dim), f32_smem(seq, head_dim));
 }
 
-// The longest sequence the kernels take.
-int mnt_attention_bwd_max_seq() { return kMaxSeq; }
+// The longest seq bf16 holds resident; above it both types take the
+// streamed pair (the wrapper counts those launches apart).
+int mnt_attention_bwd_resident_max_seq() { return kResidentMaxSeq; }
 
-// Warps per block of the kernel that takes (seq, head_dim, dtype).
+// Warps per block of the kernel (or kernel pair) that takes (seq, head_dim, dtype).
 int mnt_attention_bwd_warps(int seq, int head_dim, int dtype) {
-  if (seq > kWholeMaxSeq) return dtype == 1 ? resident_warps(seq) : kTileThreads / 32;
+  if (seq > kWholeMaxSeq) {
+    return dtype == 1 && seq <= kResidentMaxSeq ? resident_warps(seq) : kTileThreads / 32;
+  }
   const int tp = round16(seq);
   return tp / 16 * (dtype == 0 ? f32_split(key_capacity(tp), head_dim) : 1);
 }
 
-// Bytes of fp32 workspace a call needs: fp32's (m, 1/l, r) of every
-// (row, head, query) above 128 tokens, rows rounded up to 64; 0 otherwise.
+// Bytes of fp32 workspace a call needs: the streamed pair's (m, 1/l, r) of
+// every (row, head, query), rows rounded up to 64 (fp32 above 128 tokens,
+// bf16 above kResidentMaxSeq); 0 otherwise.
 size_t mnt_attention_bwd_workspace(int B, int seq, int heads, int dtype) {
-  return seq > kWholeMaxSeq && dtype == 0
-             ? 3 * sizeof(float) * (size_t)B * heads * stats_rows(seq)
-             : 0;
+  const bool streamed = dtype == 0 ? seq > kWholeMaxSeq : seq > kResidentMaxSeq;
+  return streamed ? 3 * sizeof(float) * (size_t)B * heads * stats_rows(seq) : 0;
 }
 
 // qkv: (B, seq, 3*width) contiguous; grad: (B, seq, width) contiguous;
@@ -1236,8 +1289,8 @@ int mnt_attention_bwd(const void* qkv, const void* grad, void* dqkv, void* works
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tiled = seq > kWholeMaxSeq;
-  if ((dtype != 0 && dtype != 1) || heads <= 0 || width % heads || seq > kMaxSeq ||
-      (tiled && dtype == 0 && workspace == nullptr)) {
+  if ((dtype != 0 && dtype != 1) || heads <= 0 || width % heads ||
+      (mnt_attention_bwd_workspace(B, seq, heads, dtype) && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* ws = static_cast<float*>(workspace);

@@ -159,6 +159,33 @@ __device__ __forceinline__ void store_vec(float* dst, const float* src) {
   }
 }
 
+// the same for bf16 rows (8 or 4 bytes), converted to and from fp32; a
+// store rounds to nearest even
+template <int kVec>
+__device__ __forceinline__ void load_vec(float* dst, const __nv_bfloat16* src) {
+  if constexpr (kVec == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    dst[0] = a.x, dst[1] = a.y, dst[2] = b.x, dst[3] = b.y;
+  } else {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+    dst[0] = a.x, dst[1] = a.y;
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* src) {
+  if constexpr (kVec == 4) {
+    uint2 u;
+    u.x = pack_bf16(src[0], src[1]);
+    u.y = pack_bf16(src[2], src[3]);
+    *reinterpret_cast<uint2*>(dst) = u;
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(src[0], src[1]);
+  }
+}
+
 __host__ __device__ constexpr int round16(int t) { return (t + 15) / 16 * 16; }
 
 // ------------------------------------------------------------ scores
@@ -172,11 +199,13 @@ __host__ __device__ constexpr int key_capacity(int tp) {
 
 // Scores of the warp's 16 rows (r0 ..) against keys [c0, c0 + KC) below
 // kend, scaled, and masked where a tile crosses T or the diagonal; the rest
-// of the chunk is -inf.  Lane l holds rows r0 + l/4 and r0 + l/4 + 8.
+// of the chunk is -inf.  Lane l holds rows r0 + l/4 and r0 + l/4 + 8.  ks
+// holds keys from ks0 on (0: all of them; a streamed chunk: its first key).
 template <int D, int KC>
 __device__ __forceinline__ void scores_bf16(float (&s)[KC / 8][4], const uint32_t (&qf)[D / 16][4],
                                             const __nv_bfloat16* ks, int c0, int kend, int seq,
-                                            int r0, bool causal, float scale, int lane) {
+                                            int r0, bool causal, float scale, int lane,
+                                            int ks0 = 0) {
   constexpr int LD = D + 8;
 #pragma unroll
   for (int j = 0; j < KC / 16; ++j) {
@@ -189,7 +218,7 @@ __device__ __forceinline__ void scores_bf16(float (&s)[KC / 8][4], const uint32_
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t b[4];
-      load_b_rows(b, ks, LD, n0, 16 * kk, lane);
+      load_b_rows(b, ks, LD, n0 - ks0, 16 * kk, lane);
       mma_bf16(s[2 * j], qf[kk], b[0], b[1]);
       mma_bf16(s[2 * j + 1], qf[kk], b[2], b[3]);
     }
@@ -208,11 +237,11 @@ __device__ __forceinline__ void scores_bf16(float (&s)[KC / 8][4], const uint32_
 
 // Scores of lane (ry, kx)'s rows r0 + 4ry + i against keys c0 + kx + 8jj
 // (those below kend), scaled and masked; the rest is -inf.  qw holds the
-// warp's 16 rows.
+// warp's 16 rows, ks the keys from ks0 on.
 template <int D, int KC>
 __device__ __forceinline__ void scores_f32(float (&s)[4][KC / 8], const float* qw, const float* ks,
                                            int c0, int kend, int seq, int r0, bool causal,
-                                           float scale, int ry, int kx) {
+                                           float scale, int ry, int kx, int ks0 = 0) {
   constexpr int LD = D + 4, NS = KC / 8;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -228,7 +257,7 @@ __device__ __forceinline__ void scores_f32(float (&s)[4][KC / 8], const float* q
     for (int jj = 0; jj < NS; ++jj) {
       if (c0 + 8 * jj < kend) {
         float k[4];
-        load_vec<4>(k, ks + (c0 + 8 * jj + kx) * LD + d);
+        load_vec<4>(k, ks + (c0 - ks0 + 8 * jj + kx) * LD + d);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll

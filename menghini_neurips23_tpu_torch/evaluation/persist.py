@@ -7,9 +7,9 @@ trained_prompts/: [prefix] for CoOp, [prefix] or [prefix, deep] for VPT, a
 pickled list of numpy arrays, or with ARTIFACT_FORMAT="torch" the
 reference's list of torch tensors; for UPT eight files, one per part of
 MULTI_PART_NAMES (numpy pickles, or with ARTIFACT_FORMAT="torch" the
-reference's five `torch.save` state_dicts and three numpy pickles).  One
-process runs on one device, so it is the main process and writes every
-artifact.
+reference's five `torch.save` state_dicts and three numpy pickles).  In a
+process group (parallel/) rank 0 alone writes them (the JAX package's
+persist.py:34-35); every rank holds the same values.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from menghini_neurips23_tpu_torch.evaluation import interop
+from menghini_neurips23_tpu_torch.parallel.multihost import is_main_process
 
 log = logging.getLogger(__name__)
 
@@ -55,6 +56,8 @@ def _config_dict(config) -> dict:
 
 def store_results(obj_conf, std_response):
     """Append a JSON line to results_model_{MODEL}.json (reference :58-103)."""
+    if not is_main_process():
+        return
     if obj_conf.LEARNING_PARADIGM == "trzsl":
         results = {
             "model": obj_conf.MODEL,
@@ -114,6 +117,8 @@ def save_parameters(obj: List[np.ndarray], config, iteration=None):
     reference's TextPrefixModel holds it (clip_encoders.py:55-67); a visual
     prefix stays (L, W), as the JAX package writes it; the multimodal parts
     as above."""
+    if not is_main_process():
+        return
     file_name = _prompt_file_name(config, iteration)
     _ensure_dir(file_name)
     torch_fmt = getattr(config, "ARTIFACT_FORMAT", "numpy") == "torch"
@@ -173,6 +178,8 @@ def load_saved_parameters(config, iteration=None):
 def save_pseudo_labels(imgs, labs, config, iteration):
     """Pickle the pseudolabels an IFPL/GRIP iteration trained on, with the
     reference's file name."""
+    if not is_main_process():
+        return
     enc = config.VIS_ENCODER.replace("/", "")
     filename = (
         f"{_artifact_dir(config)}/pseudolabels/{config.DATASET_NAME}_"
@@ -185,6 +192,8 @@ def save_pseudo_labels(imgs, labs, config, iteration):
 
 
 def save_predictions(obj, config, iteration=None):
+    if not is_main_process():
+        return
     enc = config.VIS_ENCODER.replace("/", "")
     it = "" if iteration is None else f"_iter_{iteration}"
     file_name = (

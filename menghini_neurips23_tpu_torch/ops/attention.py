@@ -13,9 +13,10 @@ read the fused layout in place and never write the (B, H, T, T) scores to
 device memory.  On a CPU tensor each takes its plain version,
 `attention_reference` and `attention_bwd_reference`, which perform the same
 arithmetic with PyTorch operators.  There is no other path: anything a
-kernel does not take raises, T above 320 among it (ViT-L/14's 257, 261 and
-273 are taken: above 128 tokens the backward keeps no T x T tile, in bf16
-holding the head's q, k, v and g in shared memory).
+kernel does not take raises.  Both kernels take any T at head widths 16, 32
+and 64: above 128 tokens the backward keeps no T x T tile (in bf16 up to
+320 it holds the head's q, k, v and g in shared memory), and above 320 both
+stream K and V (the backward also q and g) through shared memory in chunks.
 
 When `qkv` requires grad (and grad mode is on) the call goes through
 `FusedAttention`, a `torch.autograd.Function` that saves only `qkv` and
@@ -43,10 +44,6 @@ from menghini_neurips23_tpu_torch.ops import _cuda
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 _MAX_SMEM_BYTES = 227 * 1024  # per-block shared memory on an H100
-# the backward kernel's longest sequence (kMaxSeq in csrc/attention_bwd.cu,
-# which the wrapper reads from the library; the forward's range at D = 64);
-# callers that know their T before the first launch refuse early against it
-BWD_MAX_SEQ = 320
 
 _FWD_SIGNATURES = {
     "mnt_attention_fwd": (
@@ -55,6 +52,7 @@ _FWD_SIGNATURES = {
         ctypes.c_int,
     ),
     "mnt_attention_fwd_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
+    "mnt_attention_fwd_resident_max_seq": ([], ctypes.c_int),
     **_cuda.ERROR_STRING,
 }
 
@@ -66,7 +64,7 @@ _BWD_SIGNATURES = {
         ctypes.c_int,
     ),
     "mnt_attention_bwd_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
-    "mnt_attention_bwd_max_seq": ([], ctypes.c_int),
+    "mnt_attention_bwd_resident_max_seq": ([], ctypes.c_int),
     "mnt_attention_bwd_warps": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_int),
     "mnt_attention_bwd_workspace": (
         [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_size_t
@@ -182,6 +180,8 @@ def _forward(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch.Tensor
         )
     _cuda.check(lib, code, "fused_attention")
     fused_attention.launches += 1
+    if T > lib.mnt_attention_fwd_resident_max_seq():
+        fused_attention.streamed_launches += 1
     return out
 
 
@@ -191,10 +191,11 @@ def attention_bwd(
     """(B, T, 3W) qkv + (B, T, W) output gradient -> (B, T, 3W) dqkv.
 
     CPU tensors take `attention_bwd_reference`; CUDA tensors launch the
-    kernel (counted in `attention_bwd.launches`, one per call) or raise.  A
-    call is one grid launch, except fp32 above 128 tokens: two (the query
-    side, then the key side), on an fp32 workspace of B*H*round64(T)*12
-    bytes allocated here."""
+    kernel (counted in `attention_bwd.launches`, one per call, and above 320
+    tokens in `attention_bwd.streamed_launches` too) or raise.  A
+    call is one grid launch, except fp32 above 128 tokens and bf16 above
+    320: two (the query side, then the key side), on an fp32 workspace of
+    B*H*round64(T)*12 bytes allocated here."""
     _check_mask(mask)
     if qkv.device != g.device:
         raise ValueError(f"attention_bwd: qkv on {qkv.device}, g on {g.device}")
@@ -211,19 +212,13 @@ def attention_bwd(
             f"tensor, got {tuple(g.shape)} {g.dtype} (contiguous: {g.is_contiguous()})"
         )
     lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
-    max_seq = lib.mnt_attention_bwd_max_seq()
-    if T > max_seq:
-        raise ValueError(
-            f"attention_bwd: T={T} exceeds the kernel's limit of {max_seq} (the forward "
-            "kernel's range at D = 64)"
-        )
     _check_smem("attention_bwd", lib.mnt_attention_bwd_smem(T, D), T)
     dqkv = torch.empty_like(qkv)
     if B == 0 or T == 0:
         return dqkv
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        # fp32's row statistics above 128 tokens, held here until the launch is queued
+        # the streamed pair's row statistics, held here until the launch is queued
         ws_bytes = lib.mnt_attention_bwd_workspace(B, T, heads, _DTYPE_CODES[qkv.dtype])
         ws = (torch.empty(ws_bytes // 4, dtype=torch.float32, device=qkv.device)
               if ws_bytes else None)
@@ -233,10 +228,13 @@ def attention_bwd(
         )
     _cuda.check(lib, code, "attention_bwd")
     attention_bwd.launches += 1
+    if T > lib.mnt_attention_bwd_resident_max_seq():
+        attention_bwd.streamed_launches += 1
     return dqkv
 
 
-attention_bwd.launches = 0
+# launches, and those above 320 tokens (the streamed forms) apart
+attention_bwd.launches = attention_bwd.streamed_launches = 0
 
 
 class FusedAttention(torch.autograd.Function):
@@ -260,7 +258,8 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch
     """(B, T, 3W) fused qkv -> (B, T, W) attention output.
 
     CPU tensors take `attention_reference`; CUDA tensors launch the kernel
-    (counted in `fused_attention.launches`) or raise.  A qkv that requires
+    (counted in `fused_attention.launches`, and above 320 tokens, where it
+    streams K and V, in `fused_attention.streamed_launches` too) or raise.  A qkv that requires
     grad goes through `FusedAttention`, whose backward is `attention_bwd`."""
     _check_mask(mask)
     if qkv.requires_grad and torch.is_grad_enabled():
@@ -268,4 +267,4 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch
     return _forward(qkv, mask, heads)
 
 
-fused_attention.launches = 0
+fused_attention.launches = fused_attention.streamed_launches = 0

@@ -24,6 +24,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from menghini_neurips23_tpu_torch.parallel.multihost import broadcast_int, is_main_process
+
 log = logging.getLogger(__name__)
 
 # Sentinel meaning "pseudolabel everything" (reference clip_pseudolabels.py:27)
@@ -156,10 +158,12 @@ def compute_pseudo_labels(
     dataset.filepaths = new_imgs
     dataset.labels = new_labels
     dataset.label_id = True
-    if filename:
+    if filename and is_main_process():  # rank 0 writes; a tmp name renamed when whole
         os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
-        with open(filename, "wb") as f:
+        tmp = f"{filename}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
             pickle.dump({"filepaths": new_imgs, "labels": new_labels}, f)
+        os.replace(tmp, filename)
     return dataset
 
 
@@ -205,7 +209,9 @@ def pseudolabel_top_k(
         k,
         config.SPLIT_SEED,
     )
-    if os.path.exists(filename):
+    # in a process group the ranks take rank 0's hit or miss: a miss runs the
+    # frozen pass, whose decode every rank shares
+    if broadcast_int(os.path.exists(filename)):
         with open(filename, "rb") as f:
             cached = pickle.load(f)
         dataset.filepaths = cached["filepaths"]

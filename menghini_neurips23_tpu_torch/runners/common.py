@@ -236,7 +236,10 @@ def paradigm_workflow(dataset_dir, obj_conf, assemble, adjust_classes=None,
 
 def main_template(workflow, argv=None, env=None, device=None):
     """Parse args, load the config, check it, and run `workflow` on `device`
-    (None = CUDA)."""
+    (None = CUDA).  Launched as one of several processes (torchrun's
+    WORLD_SIZE > 1 in the environment), the process first joins the group
+    (parallel.initialize_from_env) and runs on `cuda:LOCAL_RANK`, or on the
+    CPU under gloo when `device` is the CPU; the group is left at the end."""
     args = parse_args(argv)
     cfg = load_config(args, env=env)
     # validate cheap preconditions BEFORE any logging/device work
@@ -250,6 +253,22 @@ def main_template(workflow, argv=None, env=None, device=None):
                 "(there is no compile cache to keep, and the profiler hook arrives "
                 "with the tracing work); unset it"
             )
-    setup_logging(cfg)
-    seed_everything(cfg)
-    return workflow(cfg.DATASET_DIR, cfg, device=device)
+    # the process group from the launcher's variables, before any device work
+    from menghini_neurips23_tpu_torch.parallel import initialize_from_env
+
+    group_device = initialize_from_env(device=device)
+    try:
+        setup_logging(cfg)
+        if group_device is not None:
+            import torch.distributed as dist
+
+            log.info("process group: rank %d of %d (%s) on %s", dist.get_rank(),
+                     dist.get_world_size(), dist.get_backend(), group_device)
+        seed_everything(cfg)
+        return workflow(cfg.DATASET_DIR, cfg,
+                        device=device if group_device is None else group_device)
+    finally:
+        if group_device is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()

@@ -11,6 +11,11 @@ current one.
 
 The device defaults to CUDA; `device="cpu"` must be asked for explicitly
 (the tests do), and a missing card raises instead of falling back.
+
+In a process group (parallel/) each rank holds the whole frozen model, and
+a batched pass splits every global batch: each rank decodes and encodes
+its block of it, and the blocks are gathered back in file order, so every
+rank returns the whole pass.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ import numpy as np
 import torch
 
 from menghini_neurips23_tpu_torch.config import Config
-from menghini_neurips23_tpu_torch.data.loader import iter_image_batches
 from menghini_neurips23_tpu_torch.models import (
     build_clip,
     get_arch,
@@ -32,6 +36,8 @@ from menghini_neurips23_tpu_torch.models import (
     load_clip,
     precast_matmul_params,
 )
+from menghini_neurips23_tpu_torch.parallel import multihost
+from menghini_neurips23_tpu_torch.parallel.mesh import mesh_from_config
 
 log = logging.getLogger(__name__)
 
@@ -54,6 +60,7 @@ class ClipRuntime:
     def __init__(self, cfg: Config, device=None, tokenizer=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh_from_config(cfg)  # checks MESH_SHAPE against the process group
         dtype = torch.bfloat16 if cfg.COMPUTE_DTYPE == "bfloat16" else torch.float32
         self.compute_dtype = dtype
         if cfg.CLIP_CKPT:
@@ -150,18 +157,42 @@ class ClipRuntime:
     ):
         """Run a per-batch device fn over a file list; returns stacked np.
 
-        Every batch is padded to `bs` rows (one shape for the device) and its
-        output unpadded; the next batch decodes on a worker thread while the
-        device runs the current one.
+        The files go in global batches of `bs`.  In a process group each
+        batch is split into host-major blocks of ceil(bs / world) rows
+        (`shard_filelist_for_batch`; the JAX package's
+        `_batched_pass_multihost`, runtime.py:262-333): this rank decodes
+        and encodes only its blocks, and every rank's rows are gathered back
+        with exact unpadding, in file order, so every rank returns the whole
+        pass.  Without a group the one rank's blocks are the batches.  Each
+        block is padded to one shape for the device and its output unpadded;
+        the next block decodes on a worker thread while the device runs the
+        current one.
 
+        :param cache: optional uint8 (N, R, R, 3) of pre-decoded images
+            aligned with `filepaths` (no disk IO)
         :param loader: optional object with .load_all(files) -> (N,R,R,3)
             array and .out_dtype (e.g. TransformImageLoader for user
             transforms); default = the uint8 fast pipeline."""
         bs = batch_size or max(self.cfg.BATCH_SIZE, 32)
-        outs = []
+        if not len(filepaths):
+            return np.empty((0,))
         t0 = time.perf_counter()
-        if loader is None and cache is None and self._decode_cache is not None:
-            loader = self._default_loader()
+        loader = loader or self._default_loader()
+        world, rank = multihost.process_count(), multihost.process_index()
+        per = -(-bs // world)
+        rows = np.arange(len(filepaths))
+        blocks = [[multihost.shard_filelist_for_batch(rows[s : s + bs], per, r)
+                   for s in range(0, len(rows), bs)] for r in range(world)]
+        mine = [idx for idx in blocks[rank] if len(idx)]
+        R = self.arch.image_resolution
+
+        def make(idx):
+            arr = (cache[np.asarray(idx)] if cache is not None
+                   else loader.load_all([filepaths[i] for i in idx]))
+            if arr.shape[0] < per:
+                pad = np.zeros((per - arr.shape[0], R, R, 3), arr.dtype)
+                arr = np.concatenate([arr, pad]) if arr.size else pad
+            return arr, len(idx)
 
         def run(arr: np.ndarray, count: int) -> np.ndarray:
             imgs = torch.from_numpy(arr).to(self.device)
@@ -169,37 +200,28 @@ class ClipRuntime:
                 out = fn(imgs)
             return out.float().cpu().numpy()[:count]
 
-        if loader is not None:
-            R = self.arch.image_resolution
-            steps = [filepaths[s : s + bs] for s in range(0, len(filepaths), bs)]
-
-            def make(files):
-                arr = loader.load_all(list(files))
-                if arr.shape[0] < bs:
-                    pad = np.zeros((bs - arr.shape[0], R, R, 3), loader.out_dtype)
-                    arr = np.concatenate([arr, pad]) if arr.size else pad
-                return arr, len(files)
-
-            with cf.ThreadPoolExecutor(1) as prefetcher:  # decode behind compute
-                fut = prefetcher.submit(make, steps[0]) if steps else None
-                for i in range(len(steps)):
-                    arr, count = fut.result()
-                    fut = (
-                        prefetcher.submit(make, steps[i + 1])
-                        if i + 1 < len(steps)
-                        else None
-                    )
-                    outs.append(run(arr, count))
-        else:
-            for batch in iter_image_batches(
-                filepaths, bs, self.arch.image_resolution, cache=cache
-            ):
-                outs.append(run(batch.images, batch.count))
+        outs = []
+        with cf.ThreadPoolExecutor(1) as prefetcher:  # decode behind compute
+            fut = prefetcher.submit(make, mine[0]) if mine else None
+            for i in range(len(mine)):
+                arr, count = fut.result()
+                fut = prefetcher.submit(make, mine[i + 1]) if i + 1 < len(mine) else None
+                outs.append(run(arr, count))
+        if not outs:  # no rows on this rank: one padded block gives the rows' shape
+            dtype = cache.dtype if cache is not None else loader.out_dtype
+            outs.append(run(np.zeros((per, R, R, 3), dtype), 0))
+        out = np.concatenate(outs)
+        if multihost.is_initialized():  # at world size 1 too: the gather is exercised
+            gathered = multihost.all_gather_rows(out)
+            order = np.concatenate([np.asarray(idx, np.int64) for r in range(world)
+                                    for idx in blocks[r]])
+            out = np.empty_like(gathered)
+            out[order] = gathered
         n = len(filepaths)
         if n >= 512:  # observability for the big pool passes
             dt = time.perf_counter() - t0
             log.info("batched pass: %d images in %.2fs (%.0f img/s)", n, dt, n / dt)
-        return np.concatenate(outs, axis=0) if outs else np.empty((0,))
+        return out
 
     def encode_images_from_files(
         self,

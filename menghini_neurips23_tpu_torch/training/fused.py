@@ -34,10 +34,22 @@ one memory pool (they never run at once).  On the CPU, which only the tests
 reach, the same two functions run eagerly: they are the plain version of the
 captured program.  A failed capture raises.
 
-Launch counts: `fused_attention.launches` and `attention_bwd.launches` count
-in Python, which a replay never passes through.  Capturing undoes what the
+Launch counts: `fused_attention.launches` and `attention_bwd.launches` (and
+their `streamed_launches`, above 320 tokens) count in Python, which a replay
+never passes through.  Capturing undoes what the
 capture added and keeps it as the per-replay count; `run` adds captured x
 replays after each replay loop.
+
+In a process group (parallel/), at any world size, 1 included, each rank's
+step takes its host-major block of ceil(bs / world) rows of the batch; the
+loss is normalised by the whole batch's valid rows per group, which every
+rank counts from the permutation it holds, so the ranks' gradients sum to
+the batch's.  The step then all-reduces one flat buffer - every gradient,
+the loss and the correct count - before the update: on the card that
+collective is captured into the step's graph (after the warm-up collective
+that built NCCL's communicator), and a capture that fails raises.  The
+epoch end's validation is replicated: the ranks hold the same prompt and
+the same validation rows, so they pick the same best epoch.
 """
 
 from __future__ import annotations
@@ -50,16 +62,22 @@ import numpy as np
 import torch
 
 from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
+from menghini_neurips23_tpu_torch.parallel import multihost
 from menghini_neurips23_tpu_torch.training.losses import masked_mean, two_group_loss
 
-_COUNTERS = (fused_attention, attention_bwd)
+# (wrapper, counter): K1, K2, their launches above 320 tokens, the step's
+# all-reduces in a process group
+_COUNTERS = ((fused_attention, "launches"), (attention_bwd, "launches"),
+             (fused_attention, "streamed_launches"), (attention_bwd, "streamed_launches"),
+             (multihost.all_reduce_sum_, "calls"))
 _WARMUP = 2  # side-stream iterations before capture (PyTorch's advice: a few)
 
 Tree = Dict[str, torch.Tensor]
 
 
 def train_step(logits_fn: Callable, prompt: Tree, mom: Tree, gacc: Tree, ctx, feats, labels,
-               group, valid, w0, w1, lr, apply, accum: int, wd: float, momentum: float):
+               group, valid, w0, w1, lr, apply, accum: int, wd: float, momentum: float,
+               counts=None):
     """One step, in place on `prompt`, `mom` and `gacc` (the JAX fused
     step, strategy.py:796-825): the gradient of the two-group loss / accum
     is added to `gacc` when the batch has a valid row; where `apply` is set
@@ -69,15 +87,31 @@ def train_step(logits_fn: Callable, prompt: Tree, mom: Tree, gacc: Tree, ctx, fe
     Python numbers.  Returns the (undivided) loss and the correct count as
     device scalars: nothing here syncs with the host.
 
+    `counts` (in a process group): the whole batch's valid rows of each
+    group, as 0-d device tensors, of which these rows are this rank's
+    block.  The loss is normalised by them, and one all-reduce (SUM) of a
+    flat buffer - every gradient, the loss and the correct count - makes
+    the update, the loss and the count the whole batch's on every rank.
+
     The update is twelve `torch._foreach_*` ops over all leaves at once,
     gated by 0/1 factors (x * 1 + y * 0 = x exactly for finite values)."""
     logits = logits_fn(prompt, ctx, feats)
-    loss = two_group_loss(logits, labels, group, valid, w0, w1)
+    loss = two_group_loss(logits, labels, group, valid, w0, w1, counts)
     p = list(prompt.values())
     grads = torch.autograd.grad(loss / accum, p)
     with torch.no_grad():
+        correct = ((logits.argmax(1) == labels) * valid).sum()
+        if counts is None:
+            has_valid = (valid.sum() > 0).float()
+        else:
+            flat = torch.cat([g.reshape(-1) for g in grads] +
+                             [loss.detach().reshape(1), correct.reshape(1)])
+            multihost.all_reduce_sum_(flat)
+            grads = [x.view_as(g) for x, g in zip(flat[:-2].split([g.numel() for g in grads]),
+                                                  grads)]
+            loss, correct = flat[-2], flat[-1]
+            has_valid = ((counts[0] + counts[1]) > 0).float()
         m, a = [mom[k] for k in prompt], [gacc[k] for k in prompt]
-        has_valid = (valid.sum() > 0).float()
         do = has_valid * apply
         keep = 1.0 - do
         torch._foreach_add_(a, torch._foreach_mul(grads, has_valid))
@@ -90,7 +124,6 @@ def train_step(logits_fn: Callable, prompt: Tree, mom: Tree, gacc: Tree, ctx, fe
         torch._foreach_add_(m, new_m)
         torch._foreach_sub_(p, torch._foreach_mul(m, lr * do))
         torch._foreach_mul_(a, keep)
-        correct = ((logits.argmax(1) == labels) * valid).sum()
     return loss.detach(), correct
 
 
@@ -124,12 +157,15 @@ class FusedProgram:
         permutation matrix has one more row, all padding
     :param val_rows: validation rows per chunk (None: all at once)
     :param capture: capture CUDA graphs (False: run the functions eagerly)
+    :param rank_world: (rank, world size) in a process group: the step
+        takes the rank's block of each batch and all-reduces (None: one
+        process, the whole batch)
     """
 
     def __init__(self, device, logits_fn: Callable, train_logits_fn: Callable, *, steps: int,
                  bs: int, n_slot: int, epochs_padded: int, trzsl: bool,
                  val_rows: Optional[int], accum: int, wd: float, momentum: float,
-                 capture: bool):
+                 capture: bool, rank_world=None):
         self.device = torch.device(device)
         self.logits_fn, self.train_logits_fn = logits_fn, train_logits_fn
         self.steps, self.bs, self.n_slot = steps, bs, n_slot
@@ -142,6 +178,15 @@ class FusedProgram:
         self.ei = torch.zeros(1, dtype=torch.long, device=dev)
         self.si = torch.zeros(1, dtype=torch.long, device=dev)
         self.offsets = torch.arange(bs, dtype=torch.long, device=dev)
+        self.rank_world = rank_world
+        if rank_world is not None:
+            # the rank's block: rows lo .. lo + per - 1 of the batch, those
+            # past its end padding
+            rank, world = rank_world
+            per = -(-bs // world)
+            rows = torch.arange(per, dtype=torch.long, device=dev) + min(rank * per, bs)
+            self.block = rows.clamp(max=bs - 1)
+            self.in_block = rows < bs
         self.correct = torch.zeros((), device=dev)
         self.loss = torch.zeros((), device=dev)
         self.best_metric = torch.zeros(1, device=dev)
@@ -153,7 +198,8 @@ class FusedProgram:
         self.gacc: Tree = {}
         self.best: Tree = {}
         self.graphs = None
-        # what a replay of each graph launches: [K1, K2]
+        # what a replay of each graph launches: [K1, K2, K1 and K2 above 320
+        # tokens, all-reduces]
         self.per_step = self.per_epoch_end = None
         self.capture_s = 0.0
         self.pool_bytes = 0
@@ -224,6 +270,13 @@ class FusedProgram:
         b = self.buf
         pos = (self.ei * self.pad_n + self.si * self.bs) + self.offsets
         perm = b["perms"].view(-1).index_select(0, pos)
+        counts = None
+        any_valid = (perm >= 0).any()
+        if self.rank_world is not None:
+            # the whole batch's valid rows per group, then the rank's block
+            full = b["groups"].index_select(0, perm.clamp(0, self.n_slot - 1))
+            counts = tuple(((perm >= 0) & (full == g)).float().sum() for g in (0, 1))
+            perm = torch.where(self.in_block, perm.index_select(0, self.block), -1)
         valid = perm >= 0
         idx = perm.clamp(0, self.n_slot - 1)
         labels = torch.where(valid, b["labels"].index_select(0, idx), -1)
@@ -232,11 +285,12 @@ class FusedProgram:
             b["feats"].index_select(0, idx), labels, b["groups"].index_select(0, idx),
             valid.float(), b["w"][0], b["w"][1], b["lrs"].index_select(0, self.ei)[0],
             b["apply_flags"].index_select(0, self.si)[0], self.accum, self.wd, self.momentum,
+            counts,
         )
         with torch.no_grad():
             self.correct.add_(correct)
             # the epoch's last real batch's loss, as the per-step loop logs it
-            self.loss.copy_(torch.where(valid.any(), loss, self.loss))
+            self.loss.copy_(torch.where(any_valid, loss, self.loss))
             self.si.add_(1)
 
     def epoch_end(self) -> None:
@@ -299,18 +353,18 @@ class FusedProgram:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        before = [c.launches for c in _COUNTERS]
+        before = [getattr(w, c) for w, c in _COUNTERS]
         g_step = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g_step):
             self.step()
-        mid = [c.launches for c in _COUNTERS]
+        mid = [getattr(w, c) for w, c in _COUNTERS]
         g_end = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g_end, pool=g_step.pool()):
             self.epoch_end()
-        after = [c.launches for c in _COUNTERS]
+        after = [getattr(w, c) for w, c in _COUNTERS]
         # a capture launches nothing: what it counted is what a replay launches
-        for c, n in zip(_COUNTERS, before):
-            c.launches = n
+        for (w, c), n in zip(_COUNTERS, before):
+            setattr(w, c, n)
         self.per_step = [m - b for m, b in zip(mid, before)]
         self.per_epoch_end = [a - m for a, m in zip(after, mid)]
         self.graphs = (g_step, g_end)
@@ -342,5 +396,5 @@ class FusedProgram:
                 g_step.replay()
             g_end.replay()
         epochs = stop - start
-        for c, s, e in zip(_COUNTERS, self.per_step, self.per_epoch_end):
-            c.launches += epochs * (steps * s + e)
+        for (w, c), s, e in zip(_COUNTERS, self.per_step, self.per_epoch_end):
+            setattr(w, c, getattr(w, c) + epochs * (steps * s + e))

@@ -18,6 +18,8 @@ contributes 0 (reference behavior when `samples` is empty).
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 
@@ -32,9 +34,13 @@ def cross_entropy_per_sample(logits: torch.Tensor, labels: torch.Tensor) -> torc
     return torch.where(labels >= 0, ce, torch.zeros_like(ce))
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean over mask; 0 when the mask is empty."""
-    count = mask.sum()
+def masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over mask; 0 when the mask is empty.  With `count` the sum over
+    the mask is divided by it instead of by the mask's own count: a rank's
+    share of a mean over a batch that the ranks split."""
+    if count is None:
+        count = mask.sum()
     mean = (values * mask).sum() / count.clamp(min=1)
     return torch.where(count > 0, mean, torch.zeros_like(mean))
 
@@ -46,13 +52,18 @@ def two_group_loss(
     valid: torch.Tensor,
     w0: float,
     w1: float,
+    counts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """w0 * meanCE(group==0) + w1 * meanCE(group==1), over valid samples.
 
     :param group: (B,) int - 0 = labeled/seen term, 1 = pseudo/unseen term
     :param valid: (B,) 0/1 float - padding mask
+    :param counts: the valid rows of each group in the whole batch, when
+        these rows are one rank's block of it: the ranks' losses then sum
+        to the whole batch's (their gradients too, by one all-reduce)
     """
     ce = cross_entropy_per_sample(logits, labels)
     m0 = valid * (group == 0)
     m1 = valid * (group == 1)
-    return w0 * masked_mean(ce, m0) + w1 * masked_mean(ce, m1)
+    n0, n1 = counts if counts is not None else (None, None)
+    return w0 * masked_mean(ce, m0, n0) + w1 * masked_mean(ce, m1, n1)

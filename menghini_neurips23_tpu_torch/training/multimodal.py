@@ -11,9 +11,8 @@ prompts at the full 77-token context (causal), and the vision tower over
 the cached pos-embedded patch tokens of the batch with the mixed vpt prompt
 inserted after CLS.  On the card every layer of both towers runs K1 forward
 and K2 backward (ops/attention.py); the mixer's own attention is plain fp32
-PyTorch by design (models/prompts.py `mixer_attention`).  K2 takes T <= 320
-(ViT-L/14's 1 + 256 + 4 = 261 above 128 tokens), so a prompted vision
-sequence longer than that is refused when the strategy is built.
+PyTorch by design (models/prompts.py `mixer_attention`).  The kernels take
+a prompted vision sequence of any length (ViT-L/14's 1 + 256 + 4 = 261).
 """
 
 from __future__ import annotations
@@ -34,7 +33,6 @@ from menghini_neurips23_tpu_torch.models.prompts import (
     vpt_image_features,
 )
 from menghini_neurips23_tpu_torch.training.strategy import TrainingStrategy
-from menghini_neurips23_tpu_torch.training.visual import VisualStrategy
 
 
 class MultimodalStrategy(TrainingStrategy):
@@ -47,7 +45,6 @@ class MultimodalStrategy(TrainingStrategy):
         package's key; a generator reproduces neither its jax.random draws
         nor flax's initializers)."""
         cfg = self.config
-        VisualStrategy._refuse_long_sequences(self, cfg.VISION_PREFIX_SIZE)
         self._reinit = getattr(self, "_reinit", -1) + 1
         gen = torch.Generator().manual_seed(cfg.OPTIM_SEED * 1000 + self._reinit)
         self._set_prompt(init_upt_params(gen, cfg, self.runtime.arch))

@@ -18,7 +18,14 @@ sites, and this module follows that reconstruction:
   weights, group flags and the val metric (accuracy vs seen/unseen harmonic
   mean);
 - batches are fixed-shape: the last one is padded with index 0, label -1 and
-  valid 0.
+  valid 0;
+- in a process group (parallel/) each rank steps on its host-major block of
+  every batch, ceil(BATCH_SIZE / world) rows, with the loss normalised by
+  the whole batch's valid rows (counted on the host, or on the device from
+  the permutation every rank holds), and the gradient, the loss and the
+  correct count all-reduced before the update; every rank draws the same
+  permutations and prompts (nothing is seeded by rank), validates on all
+  rows, and so picks the same best epoch; rank 0 alone writes.
 
 A run takes one of two forms, as in the JAX package:
 - the whole-run trainer (`FUSED_TRAIN`, on by default; `_fused_train`): all
@@ -78,6 +85,7 @@ from menghini_neurips23_tpu_torch.data.datasets import dataset_object
 from menghini_neurips23_tpu_torch.data.templates import format_prompt
 from menghini_neurips23_tpu_torch.evaluation.persist import save_parameters, save_pseudo_labels
 from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs
+from menghini_neurips23_tpu_torch.parallel import multihost
 from menghini_neurips23_tpu_torch.pseudo.engine import compute_pseudo_labels, pseudolabel_top_k
 from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 from menghini_neurips23_tpu_torch.training.fused import FusedProgram, numpy_tree, train_step
@@ -91,6 +99,13 @@ def _np_key(a) -> tuple:
     """Content key for a small host array (shape, dtype and a digest)."""
     a = np.ascontiguousarray(a)
     return (a.shape, a.dtype.str, hashlib.blake2b(a.tobytes(), digest_size=16).hexdigest())
+
+
+def _rank_world() -> Optional[Tuple[int, int]]:
+    """(rank, world size) in a process group, at any size; None outside one."""
+    if not multihost.is_initialized():
+        return None
+    return multihost.process_index(), multihost.process_count()
 
 
 def _paths_key(paths) -> str:
@@ -320,13 +335,15 @@ class TrainingStrategy:
 
     def _apply_step(self, class_ctx: torch.Tensor, lr: float, feats: torch.Tensor,
                     labels: torch.Tensor, group: torch.Tensor, valid: torch.Tensor,
-                    apply: bool = True) -> Tuple[float, float]:
+                    apply: bool = True, counts=None) -> Tuple[float, float]:
         """One step of the per-step loop on device tensors, through the same
         `train_step` as the whole-run trainer: the gradient of loss /
         ACCUMULATION_ITER into the accumulator; with `apply`, one SGD update
         at `lr` (the reference's manual accumulation,
         textual_prompt.py:130-135).  Returns (loss, correct count), which
-        syncs with the host.
+        syncs with the host.  `counts`: in a process group, the whole
+        batch's valid rows per group (these rows being the rank's block);
+        the loss and the count returned are then the whole batch's.
 
         The update is in place, so it bumps the prompt version that keys the
         prompted-feature memo."""
@@ -334,7 +351,7 @@ class TrainingStrategy:
         loss, correct = train_step(
             self._logits_fn(), self._get_prompt_tree(), self._mom, self._gacc, class_ctx,
             feats, labels, group, valid, self._w0, self._w1, lr, apply,
-            max(1, cfg.ACCUMULATION_ITER), cfg.DECAY, cfg.MOMENTUM,
+            max(1, cfg.ACCUMULATION_ITER), cfg.DECAY, cfg.MOMENTUM, counts,
         )
         if apply:
             self._bump_prompt_version()
@@ -644,19 +661,33 @@ class TrainingStrategy:
         self._set_prompt_tree(final_np)
         log.info(
             "fused train: %d epochs, best epoch %d val=%.4f (final train_acc=%.4f loss=%.4f)",
-            cfg.EPOCHS, best, metrics[best], float(train_accs[-1]), float(losses[-1]),
+            cfg.EPOCHS, best, metrics[best], float(train_accs[-1]),
+            self._jax_logged_loss(float(losses[-1]), prog.steps, inp["real_steps"]),
         )
         self._fused_info = {
             "epochs": cfg.EPOCHS, "steps_per_epoch": inp["real_steps"],
             "slot_steps": prog.steps, "graphs": prog.graphs is not None,
             "captured": fresh and prog.graphs is not None, "capture_s": prog.capture_s,
             "pool_bytes": prog.pool_bytes,
-            "launches_per_step": prog.per_step, "launches_per_epoch_end": prog.per_epoch_end,
+            # [K1, K2] a replay launches, and of those the streamed ones (T > 320)
+            "launches_per_step": prog.per_step and prog.per_step[:2],
+            "launches_per_epoch_end": prog.per_epoch_end and prog.per_epoch_end[:2],
+            "streamed_launches_per_step": prog.per_step and prog.per_step[2:4],
+            "all_reduces_per_step": prog.per_step and prog.per_step[4],
             "stats": stats, "run_s": time.perf_counter() - t0,
         }
         if not getattr(self, "_fused_keep", False):
             self._fused_free()
         return float(metrics[best]), best_params
+
+    @staticmethod
+    def _jax_logged_loss(last_real: float, slot_steps: int, real_steps: int) -> float:
+        """The final loss the JAX fused trainer logs: its scan's last slot
+        step's (JAX strategy.py:865).  A slot padded by a batch or more (a
+        GRIP FUSED_BUCKETS rung) ends in an all-padding batch, whose loss is
+        masked_mean's 0.0; otherwise it is the last real batch's, which the
+        stats hold.  The padding batches are not replayed to find it."""
+        return 0.0 if slot_steps > real_steps else last_real
 
     def _fused_program(self, key, inp, epochs_padded: int) -> FusedProgram:
         """The program for shape `key`: the cached one, or a new one after
@@ -667,7 +698,8 @@ class TrainingStrategy:
         cache = getattr(self, "_fused_cache", None)
         if cache is None:
             cache = self._fused_cache = {}
-        key = key + (cfg.ACCUMULATION_ITER, cfg.DECAY, cfg.MOMENTUM, cfg.FUSED_REMAT)
+        key = key + (cfg.ACCUMULATION_ITER, cfg.DECAY, cfg.MOMENTUM, cfg.FUSED_REMAT,
+                     _rank_world())
         prog = cache.get(key)
         if prog is not None:
             return prog
@@ -686,6 +718,7 @@ class TrainingStrategy:
             val_rows=self._FUSED_VAL_ROWS, accum=max(1, cfg.ACCUMULATION_ITER),
             wd=cfg.DECAY, momentum=cfg.MOMENTUM,
             capture=self.device.type == "cuda" and not getattr(self, "_fused_eager", False),
+            rank_world=_rank_world(),
         )
         self._fused_builds = getattr(self, "_fused_builds", 0) + 1
         return prog
@@ -781,8 +814,10 @@ class TrainingStrategy:
         with RESUME a run whose restored RNG stream and prompt re-init counter
         reproduce those inputs picks the carry up, bit-identical to an
         uninterrupted run; any other misses the key.  MNT_FAIL_AFTER_CHUNK=n
-        (environment) raises after chunk n.  One process: no rank has to
-        agree on the resume point.
+        (environment) raises after chunk n.  In a process group rank 0
+        alone writes and clears the chunk state, and every rank resumes at
+        rank 0's point (JAX strategy.py:1081-1102): a rank that cannot read
+        a state rank 0 read raises (the checkpoint directory must be shared).
 
         :returns: (stats (3, epochs), best-prompt host tree, final-prompt
             host tree)"""
@@ -808,6 +843,15 @@ class TrainingStrategy:
             fp = chunk_fingerprint(perms, lrs, epochs, chunk, (
                 numpy_tree(prompt), mom, gacc, np.float32(bm), numpy_tree(best)))
             state = load_chunk_state(cfg, fp) if cfg.RESUME else None
+            if cfg.RESUME and multihost.is_initialized():
+                agreed = multihost.broadcast_int(state["next_start"] if state else -1)
+                if agreed >= 0 and state is None:
+                    raise RuntimeError(
+                        "rank 0 has a fused-chunk checkpoint but this rank cannot read it; "
+                        "the checkpoint directory must be on a shared filesystem"
+                    )
+                if agreed < 0:
+                    state = None
             if state is not None:
                 start, outs = state["next_start"], list(state["outs_list"])
                 prog.load_carry(state["carry"])
@@ -835,6 +879,7 @@ class TrainingStrategy:
         order = self._rng.permutation(n)
         starts = list(range(0, n, bs))
         dev = self.device
+        rank_world = _rank_world()
         total_correct = 0
         total = 0
         loss_val = 0.0
@@ -843,23 +888,42 @@ class TrainingStrategy:
             count = len(idx)
             pad = bs - count
             sel = np.concatenate([idx, np.zeros(pad, np.int64)]) if pad else idx
-            if features is None:  # streaming: fetch through the cache
+            labels = np.concatenate([epoch.labels[idx], -np.ones(pad, np.int32)])
+            valid = np.concatenate([np.ones(count, np.float32), np.zeros(pad, np.float32)])
+            group = epoch.group[sel]
+            if features is None:  # streaming: the batch's features through the cache
+                # (in a process group every rank asks for the whole batch: the
+                # frozen pass splits its decode over the ranks and gathers it)
                 feats = torch.from_numpy(np.ascontiguousarray(
                     self._features_for_paths([epoch.paths[i] for i in sel], stack_memo=False)
                 )).to(dev)
-            else:
+            counts = None
+            if rank_world is not None:
+                # the whole batch's valid rows per group, then the rank's block
+                counts = tuple(torch.tensor(float(valid[group == g].sum()), device=dev)
+                               for g in (0, 1))
+                rank, world = rank_world
+                per = -(-bs // world)
+                lo = min(rank * per, bs)
+                hi = min(lo + per, bs)
+                fill = per - (hi - lo)
+                rows = np.minimum(np.arange(lo, lo + per), bs - 1)
+                sel, labels, valid, group = (
+                    np.concatenate([x[lo:hi], np.full(fill, f, x.dtype)])
+                    for x, f in ((sel, 0), (labels, -1), (valid, 0), (group, 0)))
+                if features is None:
+                    feats = feats[torch.from_numpy(rows).to(dev)]
+            if features is not None:
                 feats = features[torch.from_numpy(sel).to(dev)]
-            labels = np.concatenate([epoch.labels[idx], -np.ones(pad, np.int32)])
-            valid = np.concatenate([np.ones(count, np.float32), np.zeros(pad, np.float32)])
             # optimizer steps every accum batches or at epoch end (reference
             # textual_prompt.py:134-135)
             apply = ((si + 1) % accum == 0) or (si + 1 == len(starts))
             loss_val, correct = self._apply_step(
                 class_ctx, lr, feats,
                 torch.from_numpy(labels).to(dev),
-                torch.from_numpy(epoch.group[sel]).to(dev),
+                torch.from_numpy(group).to(dev),
                 torch.from_numpy(valid).to(dev),
-                apply=apply,
+                apply=apply, counts=counts,
             )
             total_correct += int(correct)
             total += count

@@ -9,14 +9,13 @@ ViT-B/32), so each step runs only ln_pre -> transformer -> ln_post -> proj
 over (B, 1+L+N, width), with the gradient flowing to the (L, width) prefix
 and, with VPT_DEEP, to the (vision_layers-1, L, width) deep prompts.  On the
 card every vision layer's attention runs K1 forward and K2 backward
-(ops/attention.py).  K2 takes T <= 320 (ViT-L/14's 1 + 256 + 16 = 273
-among them), so a prompted sequence longer than that is refused when the
-strategy is built.
+(ops/attention.py), which take a prompted sequence of any length
+(ViT-L/14's 1 + 256 + 16 = 273; past 320 tokens they stream K and V).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -26,7 +25,6 @@ from menghini_neurips23_tpu_torch.models.prompts import (
     init_prefix,
     vpt_image_features,
 )
-from menghini_neurips23_tpu_torch.ops.attention import BWD_MAX_SEQ
 from menghini_neurips23_tpu_torch.training.strategy import TrainingStrategy
 
 
@@ -43,7 +41,6 @@ class VisualStrategy(TrainingStrategy):
         jax.random keys; a generator reproduces neither draw)."""
         cfg = self.config
         arch = self.runtime.arch
-        self._refuse_long_sequences()
         self._reinit = getattr(self, "_reinit", -1) + 1
         gen = torch.Generator().manual_seed(cfg.OPTIM_SEED * 1000 + self._reinit)
         init = (cfg.VIS_PREFIX_INIT, cfg.MEAN_INIT, cfg.VAR_INIT)
@@ -55,22 +52,6 @@ class VisualStrategy(TrainingStrategy):
                 gen, arch.vision_layers - 1, cfg.PREFIX_SIZE, arch.vision_width, *init
             )
         self._set_prompt(prompt)
-
-    def _refuse_long_sequences(self, prefix_len: Optional[int] = None):
-        """On the card every step runs K2, which takes T <= BWD_MAX_SEQ: refuse
-        a prompted vision sequence of 1 + patches + `prefix_len` tokens above
-        it now rather than at the first backward (VPT's PREFIX_SIZE, the
-        default; UPT passes its VISION_PREFIX_SIZE)."""
-        arch = self.runtime.arch
-        if prefix_len is None:
-            prefix_len = self.config.PREFIX_SIZE
-        T = 1 + arch.num_patches + prefix_len
-        if self.device.type == "cuda" and T > BWD_MAX_SEQ:
-            raise NotImplementedError(
-                f"{self.MODALITY_NAME} at {arch.name}: the prompted vision sequence is 1 + "
-                f"{arch.num_patches} patches + {prefix_len} prompt tokens = {T} "
-                f"tokens, above the attention kernels' limit of {BWD_MAX_SEQ}"
-            )
 
     def _set_prompt(self, prompt):
         # copies: the optimizer updates the leaves in place

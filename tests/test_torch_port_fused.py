@@ -25,6 +25,7 @@ tests/test_torch_port_gpu.py holds against it.
 import copy
 import glob
 import logging
+import re
 
 import jax
 import numpy as np
@@ -33,12 +34,14 @@ import scipy.stats as st
 import torch
 
 from menghini_neurips23_tpu.config import Config as JaxConfig
+from menghini_neurips23_tpu.data import dataset_object as jax_dataset_object
 from menghini_neurips23_tpu.models import TINY_TEST as JAX_TINY
 from menghini_neurips23_tpu.models.prompts import init_prefix as jax_init_prefix
 from menghini_neurips23_tpu.runners import common as jax_common
 from menghini_neurips23_tpu.runners import main_ssl as jax_main_ssl
 from menghini_neurips23_tpu.runners import main_trzsl as jax_main_trzsl
 from menghini_neurips23_tpu.runtime import ClipRuntime as JaxClipRuntime
+from menghini_neurips23_tpu.training import TextualStrategy as JaxTextualStrategy
 from menghini_neurips23_tpu_torch.checkpoint import latest_iteration_state
 from menghini_neurips23_tpu_torch.config import Config
 from menghini_neurips23_tpu_torch.data import dataset_object
@@ -102,10 +105,11 @@ def _cfg(tmp_path, ckpt, **kw):
     return Config(**base)
 
 
-def _datasets(root, n_train=N_TRAIN, n_val=N_VAL):
-    """(label_to_idx, train, val, unlabeled pool) from the train split."""
+def _datasets(root, n_train=N_TRAIN, n_val=N_VAL, dataset=dataset_object):
+    """(label_to_idx, train, val, unlabeled pool) from the train split, as
+    the dataset objects of `dataset` (the port's, or the JAX package's)."""
     l2i = {c: i for i, c in enumerate(CLASSES)}
-    DS = dataset_object("MNIST")
+    DS = dataset("MNIST")
 
     def files(lo, hi):
         return [f"train/{c}/{c}_img{i}.png" for c in CLASSES for i in range(lo, hi)]
@@ -348,6 +352,53 @@ def test_grip_bucket_ladder_changes_nothing(tmp_path, ckpt, port_rt, data_root):
         assert runs[nb][0] == runs[0][0]
         _equal(runs[nb][1], runs[0][1])
     assert (builds[0], builds[1], builds[3]) == (2, 1, 2)
+
+
+def _logged_final_losses(caplog, logger):
+    return [float(m) for r in caplog.records if r.name == logger
+            for m in re.findall(r"^fused train: .* loss=(\S+)\)$", r.getMessage())]
+
+
+def test_fused_logs_the_jax_fused_trainers_loss_on_a_padded_rung(tmp_path, ckpt, port_rt,
+                                                                  data_root, monkeypatch, caplog):
+    """GRIP with FUSED_BUCKETS=3 (rungs of 11, 22 and 33 rows) in both
+    packages' whole-run trainers, from the JAX package's initial prompts:
+    iteration 1's 17 rows take the 22-row rung, 3 batches of 8 as its real
+    3; iteration 2's 14 (the refresh keeps fewer pseudolabels) take it too,
+    3 slot batches against 2 real ones, so the JAX scan's last step is an
+    all-padding batch and logs loss=0.0000.  The port's `fused train:` lines log the same numbers
+    (within a unit of the printed 4th decimal: the prompts agree to 1e-4)."""
+    _jax_prefix_draw(monkeypatch)
+    jax_rt = JaxClipRuntime(JaxConfig(VIS_ENCODER="tiny-test", BATCH_SIZE=8, CLIP_CKPT=ckpt))
+    kw = dict(MODEL="grip_textual", STEP_QUANTILE=50, EPOCHS=2, RESUME=False,
+              CHECKPOINT_ITER=False, FUSED_BUCKETS=3)
+    infos = []
+    orig = TrainingStrategy._fused_train
+
+    def spy(self, *a):
+        out = orig(self, *a)
+        infos.append(dict(self._fused_info))
+        return out
+
+    monkeypatch.setattr(TrainingStrategy, "_fused_train", spy)
+    with caplog.at_level(logging.INFO):
+        _grip(tmp_path / "port", ckpt, port_rt, data_root, FUSED_BUCKETS=3)
+        jcfg = JaxConfig(**{k: v for k, v in vars(_cfg(tmp_path / "jax", ckpt, **kw)).items()
+                            if k != "extras"})
+        _, train, val, pool = _datasets(data_root, n_train=2, n_val=1, dataset=jax_dataset_object)
+        jstrat = JaxTextualStrategy(jcfg, {c: i for i, c in enumerate(CLASSES)}, CLASSES,
+                                    CLASSES, CLASSES, data_folder=str(data_root),
+                                    unlabeled_files=[f.split("/")[-1] for f in pool.filepaths],
+                                    runtime=jax_rt)
+        jstrat.grip_train(train, val, pool)
+    assert [(i["steps_per_epoch"], i["slot_steps"]) for i in infos] == [(3, 3), (2, 3)]
+    port = _logged_final_losses(caplog, "menghini_neurips23_tpu_torch.training.strategy")
+    want = _logged_final_losses(caplog, "menghini_neurips23_tpu.training.strategy")
+    assert len(port) == len(want) == 2
+    assert want[1] == port[1] == 0.0 and want[0] > 0
+    assert port[0] == pytest.approx(want[0], abs=2e-4)
+    # the port's own stats keep the last real batch's loss
+    assert infos[1]["stats"][2, -1] > 0
 
 
 def _count_calls(monkeypatch):

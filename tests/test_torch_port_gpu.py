@@ -52,15 +52,18 @@ def _require_card():
 # K2's whole-sequence path's 128, at D = 16 (the tiny-test arch), 32 and 64
 # (B = 1), unmasked and causal: (B, T, W, heads, mask); then the lengths K2
 # tiles (129 ... 320, around its 64-row tiles and chunks, ViT-L/14's 257,
-# 261 and 273, and the limit)
+# 261 and 273, and 320, the last length K and V stay resident); then the
+# lengths both kernels stream (321 on, around their 128-key and 64-row
+# chunks, ViT-L/14's 337 with an 80-token prompt, ViT-L/14@336's 577)
 EDGE_T = (1, 15, 16, 17, 48, 63, 64, 65, 66, 77, 128)
 LONG_EDGE_T = (129, 143, 191, 192, 193, 257, 261, 273, 320)
-EDGE_CASES, LONG_EDGE_CASES = ([
+STREAMED_EDGE_T = (321, 337, 383, 384, 385, 577, 1024)
+EDGE_CASES, LONG_EDGE_CASES, STREAMED_EDGE_CASES = ([
     (b, t, w, w // d, mask)
     for t in lengths
     for b, w, d in ((3, 32, 16), (2, 64, 32), (1, 128, 64))
     for mask in (None, "causal")
-] for lengths in (EDGE_T, LONG_EDGE_T))
+] for lengths in (EDGE_T, LONG_EDGE_T, STREAMED_EDGE_T))
 
 # (B, T, W, heads, mask): tiny-test widths (D=16), D=32, then the main path's
 # shapes - ViT-B/32 vision, the text tower truncated, at Flowers102's 48 and
@@ -87,7 +90,9 @@ ATTN_CASES = [
     (8, 273, 1024, 16, None),
     (2, 129, 64, 2, "causal"),
     (1, 200, 128, 2, None),
-] + EDGE_CASES + LONG_EDGE_CASES
+    (16, 337, 1024, 16, None),
+    (4, 577, 1024, 16, None),
+] + EDGE_CASES + LONG_EDGE_CASES + STREAMED_EDGE_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -141,7 +146,10 @@ BWD_CASES = [
     (1, 273, 64, 1, "causal"),
     (16, 320, 1024, 16, None),
     (2, 305, 128, 2, "causal"),
-] + EDGE_CASES + LONG_EDGE_CASES
+    (16, 337, 1024, 16, None),
+    (4, 577, 1024, 16, None),
+    (2, 1024, 128, 2, "causal"),
+] + EDGE_CASES + LONG_EDGE_CASES + STREAMED_EDGE_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -187,7 +195,8 @@ def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", [(256, 66, 768, 12, None), (102, 77, 512, 8, "causal"),
                                   (16, 273, 1024, 16, None), (2, 200, 128, 2, "causal"),
-                                  (16, 320, 1024, 16, None), (1, 273, 64, 1, "causal")],
+                                  (16, 320, 1024, 16, None), (1, 273, 64, 1, "causal"),
+                                  (16, 337, 1024, 16, None), (2, 1024, 128, 2, "causal")],
                          ids=lambda c: "x".join(map(str, c)))
 def test_attention_bwd_kernel_is_deterministic(case, dtype):
     """No atomics: two launches on the same inputs give the same bits."""
@@ -203,10 +212,11 @@ def test_attention_bwd_kernel_is_deterministic(case, dtype):
 
 
 def test_attention_bwd_reports_its_warps_and_workspace():
-    """Above 128 tokens bf16 runs in one launch with no workspace, its warps
-    sized so that each takes the same number of 16-row tiles (T = 273: 18
-    tiles, 9 warps of 2); fp32 in two launches of 4 warps, on 12 bytes per
-    (row, head, query), queries rounded up to 64."""
+    """Above 128 tokens bf16 runs in one launch with no workspace up to 320
+    tokens, its warps sized so that each takes the same number of 16-row
+    tiles (T = 273: 18 tiles, 9 warps of 2); fp32, and bf16 above 320, in
+    two launches of 4 warps, on 12 bytes per (row, head, query), queries
+    rounded up to 64, with shared memory that no longer grows with T."""
     _require_card()
     from menghini_neurips23_tpu_torch.ops import _cuda
     from menghini_neurips23_tpu_torch.ops.attention import _BWD_SIGNATURES
@@ -223,16 +233,11 @@ def test_attention_bwd_reports_its_warps_and_workspace():
     assert lib.mnt_attention_bwd_warps(273, 64, 1) == 9
     assert lib.mnt_attention_bwd_warps(66, 64, 1) == 5
     assert lib.mnt_attention_bwd_smem(320, 64) <= 227 * 1024
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_attention_bwd_raises_above_its_limit(dtype):
-    """K2 takes T <= 320 (LONG_EDGE_T's last length passes above); 321 raises."""
-    _require_card()
-    qkv = torch.randn(1, 321, 3 * 128, device="cuda").to(dtype)
-    g = torch.randn(1, 321, 128, device="cuda").to(dtype)
-    with pytest.raises(ValueError, match="T=321 exceeds the kernel's limit of 320"):
-        attention_bwd(qkv, g, "causal", 2)
+    assert lib.mnt_attention_bwd_workspace(16, 320, 16, 1) == 0
+    assert lib.mnt_attention_bwd_workspace(16, 321, 16, 1) == 12 * 16 * 16 * 384
+    assert lib.mnt_attention_bwd_warps(321, 64, 1) == 4
+    assert lib.mnt_attention_bwd_smem(321, 64) == lib.mnt_attention_bwd_smem(4096, 64)
+    assert lib.mnt_attention_bwd_smem(4096, 64) <= 227 * 1024
 
 
 # (B, E, C): tiny-test, the slice's ViT-B/32 head, a ragged batch, ViT-L/14;
@@ -310,13 +315,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     a = qkv.clone().requires_grad_(True)
     (grad,) = torch.autograd.grad(fused_attention(a, None, 2).sum(), a)
     assert grad.shape == qkv.shape and torch.isfinite(grad).all()
-    # ViT-L/14's T = 257 takes K2's tiled path; 321 is past every kernel's limit
-    long = attention_bwd(torch.randn(1, 257, 3 * 1024, device="cuda"),
-                         torch.randn(1, 257, 1024, device="cuda"), None, 16)
-    assert long.shape == (1, 257, 3 * 1024) and torch.isfinite(long).all()
-    with pytest.raises(ValueError, match="exceeds the kernel's limit of 320"):
-        attention_bwd(torch.randn(1, 321, 3 * 1024, device="cuda"),
-                      torch.randn(1, 321, 1024, device="cuda"), None, 16)
+    # ViT-L/14's T = 257 takes K2's tiled path, 321 the streamed pair
+    for T in (257, 321):
+        long = attention_bwd(torch.randn(1, T, 3 * 1024, device="cuda"),
+                             torch.randn(1, T, 1024, device="cuda"), None, 16)
+        assert long.shape == (1, T, 3 * 1024) and torch.isfinite(long).all()
     with pytest.raises(ValueError, match="contiguous"):
         attention_bwd(qkv, torch.randn(8, 2, 32, device="cuda").transpose(0, 1), None, 2)
     with pytest.raises(ValueError, match="dtype"):
@@ -381,30 +384,23 @@ def test_deep_vpt_step_on_card_matches_cpu():
         assert not np.array_equal(c, p)
 
 
-def test_visual_strategy_takes_vit_l14_on_the_card_and_refuses_above_its_limit():
-    """ViT-L/14 VPT (T = 1 + 256 + 16 = 273) takes K2's tiled path: the
-    strategy builds on the card.  A prefix that makes T = 321 raises when the
-    strategy is built, before any launch, against the limit the kernel
-    library reports."""
+@pytest.mark.parametrize("prefix", [16, 80], ids=["T273", "T337"])
+def test_visual_strategy_takes_vit_l14_on_the_card(prefix):
+    """ViT-L/14 VPT builds on the card at T = 1 + 256 + 16 = 273 (K2's
+    tiled path) and with an 80-token prompt, T = 337 (both kernels
+    streamed); building launches nothing."""
     _require_card()
     from types import SimpleNamespace
 
     from menghini_neurips23_tpu_torch.config import Config
     from menghini_neurips23_tpu_torch.models import VIT_L14
-    from menghini_neurips23_tpu_torch.ops import _cuda
-    from menghini_neurips23_tpu_torch.ops.attention import _BWD_SIGNATURES, BWD_MAX_SEQ
     from menghini_neurips23_tpu_torch.training import VisualStrategy
 
-    lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
-    assert lib.mnt_attention_bwd_max_seq() == BWD_MAX_SEQ == 320
     rt = SimpleNamespace(arch=VIT_L14, device=torch.device("cuda"))
-    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", PREFIX_SIZE=16)
-    strat = VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
-    assert strat.prefix.shape == (16, 1024) and strat.prefix.device.type == "cuda"
-    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", PREFIX_SIZE=64)
+    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", PREFIX_SIZE=prefix)
     launches = (fused_attention.launches, attention_bwd.launches)
-    with pytest.raises(NotImplementedError, match="= 321 tokens.*limit of 320"):
-        VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
+    strat = VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
+    assert strat.prefix.shape == (prefix, 1024) and strat.prefix.device.type == "cuda"
     assert (fused_attention.launches, attention_bwd.launches) == launches
 
 

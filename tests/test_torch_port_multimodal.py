@@ -514,28 +514,22 @@ def test_multimodal_workflow_matches_jax(tmp_path, mnist_fixture, runtimes, ckpt
                             {k: v for k, v in jrec.items() if k != "config"})
 
 
-# ----------------------------------------------------- kernel-limit refusal
-def test_upt_refuses_vit_l14_on_cuda_at_construction(monkeypatch):
-    """On CUDA (faked present here) UPT at ViT-L/14 with its 4-token vision
-    prompt (T = 1 + 256 + 4 = 261) passes the kernels' limit of 320, and so
-    does ViT-B/32 (T = 54); a 64-token vision prompt (T = 321) raises when
-    the strategy is built, before any prompt is drawn or kernel launched,
-    naming the limit.  The CPU takes it."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    from menghini_neurips23_tpu_torch.training.visual import VisualStrategy
+# ------------------------------------------------ long prompted sequences
+@pytest.mark.parametrize("arch, vision_prefix", [(VIT_L14, 80), (VIT_L14, 4)],
+                         ids=["ViT-L/14-L80", "ViT-L/14"])
+def test_upt_builds_on_cuda_at_any_sequence_length(monkeypatch, arch, vision_prefix):
+    """On CUDA (faked here) UPT builds at ViT-L/14 with an 80-token vision
+    prompt (T = 1 + 256 + 80 = 337, which both kernels stream) and with its
+    bundled 4 (T = 261); nothing is launched while building."""
+    from tests.test_torch_port_visual import fake_cuda_tensors
 
-    for arch in (VIT_L14, VIT_B32):
-        strat = object.__new__(MultimodalStrategy)
-        strat.config = Config(VIS_ENCODER=arch.name, MODEL="multimodal_fpl")
-        strat.runtime = SimpleNamespace(arch=arch, device=torch.device("cuda"))
-        VisualStrategy._refuse_long_sequences(strat, strat.config.VISION_PREFIX_SIZE)  # 261, 54
-    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="multimodal_fpl", TEXT_PREFIX_SIZE=64,
-                 VISION_PREFIX_SIZE=64)
+    asked = fake_cuda_tensors(monkeypatch)
+    cfg = Config(VIS_ENCODER=arch.name, MODEL="multimodal_fpl", TEXT_PREFIX_SIZE=vision_prefix,
+                 VISION_PREFIX_SIZE=vision_prefix)
     launches = (fused_attention.launches, attention_bwd.launches)
-    rt = SimpleNamespace(arch=VIT_L14, device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match=r"UPT at ViT-L/14.*= 321 tokens.*limit of 320"):
-        MultimodalStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=rt)
+    strat = MultimodalStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"],
+                               runtime=SimpleNamespace(arch=arch, device=torch.device("cuda")))
+    assert strat.prompt["vpt"].shape == (vision_prefix, arch.vision_width)
+    assert all(v.device.type == "meta" for v in strat._prompt_params())
+    assert asked and all(d.type == "cuda" for d in asked)
     assert (fused_attention.launches, attention_bwd.launches) == launches
-    cpu = MultimodalStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"],
-                             runtime=SimpleNamespace(arch=VIT_L14, device=torch.device("cpu")))
-    assert cpu.epoch_parameters()[7].shape == (64, VIT_L14.vision_width)

@@ -147,6 +147,31 @@ def test_attention_bwd_merged_sweep_matches_jax_vjp(mask, T, dtype):
         np.testing.assert_allclose(got.float().numpy(), plain, rtol=tol, atol=tol)
 
 
+# T = 384: past the 320 tokens up to which the kernels keep K and V resident
+# in shared memory (both stream them above, with the plain versions' math)
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
+def test_attention_plain_versions_at_384_match_jax_vjp(mask, dtype):
+    """Both plain versions at T = 384 against the JAX package's fused
+    attention (its Pallas forward, interpreted off-TPU) and its custom VJP
+    (the Pallas backward), at the tolerances above."""
+    jdt, tdt, tol = _DTYPES[dtype]
+    B, T, H, D = 2, 384, 2, 16
+    rng = np.random.default_rng(384)
+    qkv = rng.normal(0, 1, (B, T, 3 * H * D)).astype(np.float32)
+    g = rng.normal(0, 1, (B, T, H * D)).astype(np.float32)
+    out, vjp = jax.vjp(lambda x: jax_fused_attention(x, mask, H), jnp.asarray(qkv).astype(jdt))
+    (want,) = vjp(jnp.asarray(g).astype(jdt))
+    qkv_t, g_t = torch.from_numpy(qkv).to(tdt), torch.from_numpy(g).to(tdt)
+    fwd = attention_reference(qkv_t, mask, H)
+    bwd = attention_bwd_reference(qkv_t, g_t, mask, H)
+    assert fwd.dtype == bwd.dtype == tdt and bwd.shape == (B, T, 3 * H * D)
+    np.testing.assert_allclose(fwd.float().numpy(), np.asarray(out.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(bwd.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_fused_attention_cpu_gradient_matches_autograd_of_plain(mask):
     """Through `FusedAttention` on the CPU (plain forward + plain backward)

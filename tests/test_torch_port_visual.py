@@ -371,48 +371,53 @@ def test_visual_prompt_artifact_matches_jax_and_round_trips(runtimes, tmp_path, 
     np.testing.assert_array_equal(pstrat.epoch_parameters()[0], params[0])
 
 
-# ----------------------------------------------------- kernel-limit refusal
+# ------------------------------------------------ long prompted sequences
 def _stub_runtime(arch, device):
     return SimpleNamespace(arch=arch, device=torch.device(device))
 
 
-@pytest.mark.parametrize("arch, prefix", [(VIT_L14, 16), (VIT_B32, 80)], ids=["ViT-L/14", "ViT-B/32-L80"])
-def test_vpt_refuses_sequences_above_the_backward_kernel_at_construction(monkeypatch, arch, prefix):
-    """On CUDA (faked present here) the prompted vision sequence passes the
-    kernels' limit of 320 at ViT-L/14's 1 + 256 + 16 = 273 and at ViT-B/32
-    with an 80-token prefix (130, past the 128 K2 takes whole: its tiled
-    path); a prefix that makes it 321 raises when the strategy is built,
-    before any prompt is drawn or kernel launched.  The CPU's plain versions
-    take every length."""
+def fake_cuda_tensors(monkeypatch):
+    """A card for building a strategy on this CPU-only torch: CUDA reports
+    itself available, and a tensor or module asked for on a CUDA device is
+    made on the meta device instead (shape and type, no data).  Returns the
+    devices asked for, in order."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    asked, real_tensor, real_to_empty = [], torch.tensor, torch.nn.Module.to_empty
+
+    def meta_for_cuda(device):
+        if device is not None and torch.device(device).type == "cuda":
+            asked.append(torch.device(device))
+            return "meta"
+        return device
+
+    def tensor(data, *args, device=None, **kwargs):
+        return real_tensor(data, *args, device=meta_for_cuda(device), **kwargs)
+
+    def to_empty(module, *, device, **kwargs):
+        return real_to_empty(module, device=meta_for_cuda(device), **kwargs)
+
+    monkeypatch.setattr(torch, "tensor", tensor)
+    monkeypatch.setattr(torch.nn.Module, "to_empty", to_empty)
+    return asked
+
+
+@pytest.mark.parametrize("arch, prefix", [(VIT_L14, 80), (VIT_L14, 16), (VIT_B32, 80),
+                                          (VIT_B32, 271)],
+                         ids=["ViT-L/14-L80", "ViT-L/14", "ViT-B/32-L80", "ViT-B/32-L271"])
+def test_vpt_builds_on_cuda_at_any_sequence_length(monkeypatch, arch, prefix):
+    """On CUDA (faked here) VPT builds at every prompted sequence length:
+    ViT-L/14 with an 80-token prompt (T = 1 + 256 + 80 = 337, past the 320
+    tokens K and V stay resident in shared memory, so both kernels stream
+    them) and with the bundled 16 (T = 273); ViT-B/32 with 80 (T = 130) and
+    271 (T = 321).  The prompt is drawn on the card's device and nothing is
+    launched while building."""
+    asked = fake_cuda_tensors(monkeypatch)
     T = 1 + arch.num_patches + prefix
-    assert T in (273, 130)
-    strat = object.__new__(VisualStrategy)
-    strat.config = Config(VIS_ENCODER=arch.name, MODEL="visual_fpl", PREFIX_SIZE=prefix)
-    strat.runtime = _stub_runtime(arch, "cuda")
-    strat._refuse_long_sequences()  # does not raise
-    long = prefix + 321 - T
-    cfg = Config(VIS_ENCODER=arch.name, MODEL="visual_fpl", PREFIX_SIZE=long)
+    assert T in (337, 273, 130, 321)
+    cfg = Config(VIS_ENCODER=arch.name, MODEL="visual_fpl", PREFIX_SIZE=prefix)
     launches = (fused_attention.launches, attention_bwd.launches)
-    with pytest.raises(NotImplementedError, match=r"= 321 tokens.*limit of 320"):
-        VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=_stub_runtime(arch, "cuda"))
+    strat = VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=_stub_runtime(arch, "cuda"))
+    assert strat.prefix.shape == (prefix, arch.vision_width)
+    assert strat.prefix.device.type == "meta" and strat.prefix.requires_grad
+    assert asked and all(d.type == "cuda" for d in asked)
     assert (fused_attention.launches, attention_bwd.launches) == launches
-    strat = VisualStrategy(cfg, {"0": 0}, ["0"], ["0"], ["0"], runtime=_stub_runtime(arch, "cpu"))
-    assert strat.epoch_parameters()[0].shape == (long, arch.vision_width)
-
-
-def test_vpt_at_vit_b32_passes_the_limit_on_cuda(monkeypatch):
-    """ViT-B/32 with the bundled 16-token prefix: T = 66; T = 129 (K2's
-    tiled path) and 320, the limit itself, pass; 321 raises."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    strat = object.__new__(VisualStrategy)
-    strat.config = Config(VIS_ENCODER="ViT-B/32", MODEL="visual_fpl", PREFIX_SIZE=16)
-    strat.runtime = _stub_runtime(VIT_B32, "cuda")
-    strat._refuse_long_sequences()  # does not raise
-    strat.config.PREFIX_SIZE = 79  # T = 129
-    strat._refuse_long_sequences()
-    strat.config.PREFIX_SIZE = 270  # T = 320, the limit itself
-    strat._refuse_long_sequences()
-    strat.config.PREFIX_SIZE = 271  # T = 321
-    with pytest.raises(NotImplementedError, match="= 321 tokens"):
-        strat._refuse_long_sequences()
