@@ -107,8 +107,8 @@ class Config:
     FUSED_TRAIN: bool = True  # run all epochs as the whole-run trainer (CUDA graphs of the step and the epoch end on the card); False = the per-step loop
     CHECKPOINT_ITER: bool = True  # write a resume state after each IFPL/GRIP iteration (ARTIFACT_DIR/checkpoints/<run>/iter_<n>/, torch.save + manifest.json)
     RESUME: bool = True  # IFPL/GRIP start after the run's latest checkpointed iteration, bit-identical to an uninterrupted run
-    PROFILE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
-    COMPILE_CACHE_DIR: str = ""  # no counterpart in this package yet: main_template raises when set
+    PROFILE_DIR: str = ""  # write a torch.profiler trace of the workflow under this directory (runners/common.py `profiled`)
+    COMPILE_CACHE_DIR: str = ""  # build and reuse the CUDA kernels' libraries under <dir>/kernels (CUDA graphs are not kept)
     PSEUDO_TOPK: str = "exact"  # exact (reference leaderboard) | device (torch.topk on the runtime device, byte-identical)
     GRIP_REFRESH: str = "onepass"  # IFPL/GRIP pseudolabel refresh: onepass scores the pool once | twopass, the reference's two passes (the same pseudolabels)
     FUSED_MAX_BYTES: int = 6_000_000_000  # training features above half this stream per batch through the per-step loop instead of staying on the device
@@ -121,7 +121,7 @@ class Config:
     TEXT_TRUNCATE: bool = True  # drop text-context positions after the last EOT (exact under causal attention). False = always run all 77 positions like the reference
     PRECAST_WEIGHTS: bool = True  # bf16 compute only: cast the transformer matmul weights to bf16 once at load (the same rounding as casting at every use)
     UPT_FP16_QUIRK: bool = False  # UPT: round the mixer output through fp16, as the reference UPTModel does (off: the mixer stays fp32)
-    MESH_SHAPE: str = ""  # ranks' layout (parallel/mesh.py): "" = every batch split over the process group (one rank without one); "N" = the same, N must be the group's size; "d,m" with m > 1 (tensor parallelism) raises
+    MESH_SHAPE: str = ""  # ranks' layout (parallel/mesh.py): "" = every batch split over the process group (one rank without one); "N" = the same, N must be the group's size; "d,m" = d data x m model ranks (tensor parallelism of the towers; m divides both head counts)
     ARTIFACT_DIR: str = "."  # root for trained_prompts/, pseudolabels/, ...
     ARTIFACT_FORMAT: str = "numpy"  # numpy | torch (reference-compatible layout)
     BPE_PATH: str = ""  # path to CLIP bpe_simple_vocab_16e6.txt.gz (optional)

@@ -17,6 +17,14 @@ the next matmul; matmuls and the residual stream run in the compute dtype.
 Attention computes the fused (B, T, 3W) qkv projection and hands it to
 `ops.attention.fused_attention` - the CUDA kernel on the card.
 
+Tensor parallelism (parallel/tensor.py): given a `TensorParallel` of size
+m > 1, every tower block holds model rank i's shard - H/m heads of the
+fused qkv, W/m input columns of `out_proj`, 4W/m rows of `c_fc` and columns
+of `c_proj` - and sums its partial products over the model group before
+the output biases.  The UPT mixer, built from the same `Transformer`, is
+never sharded.  At m = 1 (or None) the modules compute what they always
+did, bit for bit.
+
 Parameter names follow OpenAI CLIP's state dict (in_proj_weight, out_proj,
 mlp.c_fc, ln_1, ...), with the text tower under `text.` and the patch
 embedding stored as the (P*P*3, W) matmul kernel `visual.conv1_kernel` in
@@ -36,6 +44,8 @@ from torch import nn
 from menghini_neurips23_tpu_torch.models.configs import CLIPArch
 from menghini_neurips23_tpu_torch.ops.attention import fused_attention
 from menghini_neurips23_tpu_torch.ops.patch_embed import patch_tokens
+from menghini_neurips23_tpu_torch.parallel import tensor
+from menghini_neurips23_tpu_torch.parallel.tensor import TensorParallel
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -63,49 +73,78 @@ class MultiHeadAttention(nn.Module):
 
     `attention` maps the fused (B, T, 3W) qkv, the mask spec and the head
     count to the (B, T, W) output: `fused_attention` (the kernels) for the
-    CLIP towers; the UPT mixer passes its own plain fp32 attention."""
+    CLIP towers; the UPT mixer passes its own plain fp32 attention.  With
+    `tp` of size m > 1 the module holds heads/m heads (its shard of the
+    parameters, parallel/tensor.py) and the output is summed over the model
+    group before `out_proj`'s bias."""
 
-    def __init__(self, width: int, heads: int, dtype: torch.dtype, attention=fused_attention):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype, attention=fused_attention,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
-        self.heads = heads
+        m = 1 if tp is None else tp.size
+        self.tp = tp
+        self.heads = heads // m
         self.dtype = dtype
         self.attention = attention
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
-        self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
-        self.out_proj = nn.Linear(width, width)
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * width // m, width))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * width // m))
+        self.out_proj = nn.Linear(width // m, width)
 
     def forward(self, x: torch.Tensor, mask: Optional[str] = None) -> torch.Tensor:
         """mask is a static spec: None or "causal"."""
         dt = self.dtype
+        if self.tp is None or self.tp.size == 1:
+            qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
+            out = self.attention(qkv, mask, self.heads)
+            return _linear(out, self.out_proj, dt)
+        total = tensor.reduce(self.partial(tensor.copy(x, self.tp), mask), self.tp)
+        return (total + self.out_proj.bias.float()).to(dt)
+
+    def partial(self, x: torch.Tensor, mask: Optional[str] = None) -> torch.Tensor:
+        """This shard's heads through `out_proj`'s weight, without its bias:
+        the term the model group sums."""
+        dt = self.dtype
         qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
         out = self.attention(qkv, mask, self.heads)
-        return _linear(out, self.out_proj, dt)
+        return F.linear(out.to(dt), self.out_proj.weight.to(dt))
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, dtype: torch.dtype, attention=fused_attention):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype, attention=fused_attention,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
+        hidden = 4 * width // (1 if tp is None else tp.size)
+        self.tp = tp
         self.dtype = dtype
         self.ln_1 = LayerNorm(width)
-        self.attn = MultiHeadAttention(width, heads, dtype, attention)
+        self.attn = MultiHeadAttention(width, heads, dtype, attention, tp)
         self.ln_2 = LayerNorm(width)
         self.mlp = nn.ModuleDict(
-            {"c_fc": nn.Linear(width, 4 * width), "c_proj": nn.Linear(4 * width, width)}
+            {"c_fc": nn.Linear(width, hidden), "c_proj": nn.Linear(hidden, width)}
         )
 
     def forward(self, x: torch.Tensor, mask: Optional[str] = None) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), mask)
-        y = _linear(self.ln_2(x), self.mlp["c_fc"], self.dtype)
-        y = _linear(quick_gelu(y), self.mlp["c_proj"], self.dtype)
-        return x + y
+        if self.tp is None or self.tp.size == 1:
+            y = _linear(self.ln_2(x), self.mlp["c_fc"], self.dtype)
+            y = _linear(quick_gelu(y), self.mlp["c_proj"], self.dtype)
+            return x + y
+        total = tensor.reduce(self.mlp_partial(tensor.copy(self.ln_2(x), self.tp)), self.tp)
+        return x + (total + self.mlp["c_proj"].bias.float()).to(self.dtype)
+
+    def mlp_partial(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's MLP rows through `c_proj`'s weight, without its
+        bias: the term the model group sums."""
+        y = _linear(x, self.mlp["c_fc"], self.dtype)
+        return F.linear(quick_gelu(y).to(self.dtype), self.mlp["c_proj"].weight.to(self.dtype))
 
 
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype,
-                 attention=fused_attention):
+                 attention=fused_attention, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(width, heads, dtype, attention) for _ in range(layers)]
+            [ResidualAttentionBlock(width, heads, dtype, attention, tp) for _ in range(layers)]
         )
 
     def forward(
@@ -130,7 +169,7 @@ class Transformer(nn.Module):
 
 
 class VisionTower(nn.Module):
-    def __init__(self, arch: CLIPArch, dtype: torch.dtype):
+    def __init__(self, arch: CLIPArch, dtype: torch.dtype, tp: Optional[TensorParallel] = None):
         super().__init__()
         a = arch
         self.arch = a
@@ -143,7 +182,7 @@ class VisionTower(nn.Module):
         )
         self.ln_pre = LayerNorm(a.vision_width)
         self.transformer = Transformer(
-            a.vision_width, a.vision_layers, a.vision_heads, dtype
+            a.vision_width, a.vision_layers, a.vision_heads, dtype, tp=tp
         )
         self.ln_post = LayerNorm(a.vision_width)
         self.proj = nn.Parameter(torch.empty(a.vision_width, a.embed_dim))
@@ -175,7 +214,7 @@ class VisionTower(nn.Module):
 
 
 class TextTower(nn.Module):
-    def __init__(self, arch: CLIPArch, dtype: torch.dtype):
+    def __init__(self, arch: CLIPArch, dtype: torch.dtype, tp: Optional[TensorParallel] = None):
         super().__init__()
         a = arch
         self.dtype = dtype
@@ -184,7 +223,7 @@ class TextTower(nn.Module):
             torch.empty(a.context_length, a.transformer_width)
         )
         self.transformer = Transformer(
-            a.transformer_width, a.transformer_layers, a.transformer_heads, dtype
+            a.transformer_width, a.transformer_layers, a.transformer_heads, dtype, tp=tp
         )
         self.ln_final = LayerNorm(a.transformer_width)
         self.text_projection = nn.Parameter(torch.empty(a.transformer_width, a.embed_dim))
@@ -210,14 +249,16 @@ class TextTower(nn.Module):
 
 
 class CLIP(nn.Module):
-    """Full CLIP with staged tower access for prompt injection."""
+    """Full CLIP with staged tower access for prompt injection; with `tp`,
+    this model rank's shard of the towers."""
 
-    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.float32):
+    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.float32,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
-        self.visual = VisionTower(arch, dtype)
-        self.text = TextTower(arch, dtype)
+        self.visual = VisionTower(arch, dtype, tp)
+        self.text = TextTower(arch, dtype, tp)
         self.logit_scale = nn.Parameter(torch.empty(()))
 
     # --- full-tower forwards -------------------------------------------------
@@ -257,7 +298,7 @@ _CAST_SUFFIXES = (
 def precast_matmul_params(model: CLIP, dtype: torch.dtype = torch.bfloat16) -> CLIP:
     """Cast the transformer matmul weights (attention qkv/out, MLP, and the
     tower projections) to the compute dtype ONCE, in place, instead of at
-    every use.
+    every use (a model rank's shards included).
 
     The same rounding by construction: every cast parameter is consumed
     through `.to(dtype)` inside a module of that compute dtype.  LayerNorm
@@ -309,11 +350,15 @@ def init_clip_params(arch: CLIPArch, seed: int = 0, device="cpu") -> Dict[str, t
 
 
 def build_clip(
-    arch: CLIPArch, state_dict: Dict[str, torch.Tensor], dtype=torch.float32, device="cpu"
+    arch: CLIPArch, state_dict: Dict[str, torch.Tensor], dtype=torch.float32, device="cpu",
+    tp: Optional[TensorParallel] = None,
 ) -> CLIP:
-    """A frozen, eval-mode CLIP on `device` holding `state_dict` (fp32)."""
+    """A frozen, eval-mode CLIP on `device` holding `state_dict` (fp32), or,
+    with `tp`, model rank tp.rank's shard of the full `state_dict`."""
+    if tp is not None:
+        state_dict = tensor.shard_state_dict(state_dict, tp.size, tp.rank)
     with torch.device("meta"):
-        model = CLIP(arch, dtype)
+        model = CLIP(arch, dtype, tp)
     model = model.to_empty(device=device)
     sd = {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v, np.float32))
           for k, v in state_dict.items()}

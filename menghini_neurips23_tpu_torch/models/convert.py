@@ -2,10 +2,16 @@
 
 Accepts:
 - an OpenAI CLIP TorchScript archive or a plain torch state_dict (.pt/.pth/.bin)
-  in OpenAI key layout;
+  in OpenAI key layout, or a HuggingFace `CLIPModel` state dict (separate
+  q/k/v projections; `convert_hf_state_dict`);
 - the JAX package's .npz export (flat '/'-joined flax paths);
 - the JAX package's flax parameter tree as numpy arrays (`from_jax_params`),
   which is how the tests carry one set of weights across the two packages.
+
+`to_jax_params` and `save_npz` write that tree back out, and the module is
+the conversion tool the JAX package's is:
+
+    python -m menghini_neurips23_tpu_torch.models.convert in.pt out.npz
 
 Weights are returned fp32 whatever the source dtype (the OpenAI GPU
 checkpoints are fp16); the compute dtype is chosen when the model is built.
@@ -190,6 +196,99 @@ def from_jax_params(tree: Mapping) -> StateDict:
     return out
 
 
+def is_hf_state_dict(sd: Mapping[str, np.ndarray]) -> bool:
+    """Whether `sd` is in HuggingFace `CLIPModel` naming."""
+    return any(k.startswith(("text_model.", "vision_model.")) for k in sd)
+
+
+def convert_hf_state_dict(sd: Mapping[str, np.ndarray]) -> Tuple[CLIPArch, StateDict]:
+    """HuggingFace CLIPModel state dict -> (arch, this package's state dict).
+
+    HuggingFace keeps q, k and v as three projections and the two tower
+    projections as Linear weights; they are reassembled into the fused
+    OpenAI layout, which `convert_state_dict` then maps."""
+    def f32(k):
+        return np.asarray(sd[k], np.float32)
+
+    out: Dict[str, np.ndarray] = {}
+
+    def copy_blocks(hf_prefix: str, oa_prefix: str) -> None:
+        n = len({k.split(".")[3] for k in sd if k.startswith(f"{hf_prefix}.layers.")})
+        for i in range(n):
+            h, o = f"{hf_prefix}.layers.{i}", f"{oa_prefix}.resblocks.{i}"
+            for ln in ("1", "2"):
+                out[f"{o}.ln_{ln}.weight"] = f32(f"{h}.layer_norm{ln}.weight")
+                out[f"{o}.ln_{ln}.bias"] = f32(f"{h}.layer_norm{ln}.bias")
+            for leaf in ("weight", "bias"):
+                out[f"{o}.attn.in_proj_{leaf}"] = np.concatenate(
+                    [f32(f"{h}.self_attn.{p}_proj.{leaf}") for p in ("q", "k", "v")])
+                out[f"{o}.attn.out_proj.{leaf}"] = f32(f"{h}.self_attn.out_proj.{leaf}")
+                out[f"{o}.mlp.c_fc.{leaf}"] = f32(f"{h}.mlp.fc1.{leaf}")
+                out[f"{o}.mlp.c_proj.{leaf}"] = f32(f"{h}.mlp.fc2.{leaf}")
+
+    copy_blocks("text_model.encoder", "transformer")
+    copy_blocks("vision_model.encoder", "visual.transformer")
+    out["token_embedding.weight"] = f32("text_model.embeddings.token_embedding.weight")
+    out["positional_embedding"] = f32("text_model.embeddings.position_embedding.weight")
+    out["ln_final.weight"] = f32("text_model.final_layer_norm.weight")
+    out["ln_final.bias"] = f32("text_model.final_layer_norm.bias")
+    # the projections are Linear weights (E, width), applied as x @ W.T
+    out["text_projection"] = f32("text_projection.weight").T
+    out["visual.proj"] = f32("visual_projection.weight").T
+    out["visual.conv1.weight"] = f32("vision_model.embeddings.patch_embedding.weight")
+    out["visual.class_embedding"] = f32("vision_model.embeddings.class_embedding")
+    out["visual.positional_embedding"] = f32("vision_model.embeddings.position_embedding.weight")
+    out["visual.ln_pre.weight"] = f32("vision_model.pre_layrnorm.weight")
+    out["visual.ln_pre.bias"] = f32("vision_model.pre_layrnorm.bias")
+    out["visual.ln_post.weight"] = f32("vision_model.post_layernorm.weight")
+    out["visual.ln_post.bias"] = f32("vision_model.post_layernorm.bias")
+    out["logit_scale"] = f32("logit_scale")
+    return convert_state_dict(out)
+
+
+def to_jax_params(sd: Mapping[str, object]) -> dict:
+    """This package's state dict -> the JAX package's flax parameter tree
+    ({"params": {"visual", "text", "logit_scale"}}, numpy fp32 leaves): the
+    inverse of `from_jax_params`."""
+    def f32(k):
+        v = sd[k]
+        return np.asarray(v.detach().cpu() if torch.is_tensor(v) else v, np.float32)
+
+    def ln(prefix):
+        return {"scale": f32(f"{prefix}.weight"), "bias": f32(f"{prefix}.bias")}
+
+    def tower(prefix):
+        start = f"{prefix}.transformer."
+        return transformer_to_flax({k[len(start):]: f32(k) for k in sd if k.startswith(start)})
+
+    visual = {name: f32(f"visual.{name}")
+              for name in ("conv1_kernel", "class_embedding", "positional_embedding", "proj")}
+    visual.update(ln_pre=ln("visual.ln_pre"), ln_post=ln("visual.ln_post"),
+                  transformer=tower("visual"))
+    text = {"token_embedding": {"embedding": f32("text.token_embedding.weight")},
+            "positional_embedding": f32("text.positional_embedding"),
+            "ln_final": ln("text.ln_final"), "text_projection": f32("text.text_projection"),
+            "transformer": tower("text")}
+    return {"params": {"visual": visual, "text": text, "logit_scale": f32("logit_scale")}}
+
+
+def save_npz(params: Mapping, path: str) -> None:
+    """Write a nested parameter tree as a flat .npz ('/'-joined paths), the
+    JAX package's export format (`load_npz` reads it back)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            name = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, name)
+            else:
+                flat[name] = np.asarray(v)
+
+    walk(params, "")
+    np.savez(path, **flat)
+
+
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
     """Load an OpenAI CLIP .pt (TorchScript archive or state_dict) as numpy."""
     try:
@@ -232,10 +331,27 @@ def load_clip(path: str) -> Tuple[CLIPArch, StateDict]:
         return arch, from_jax_params(tree)
     if path.endswith((".pt", ".pth", ".bin")):
         sd = load_torch_checkpoint(path)
-        if any(k.startswith(("text_model.", "vision_model.")) for k in sd):
-            raise ValueError(
-                f"{path} holds a HuggingFace-layout CLIP; this package reads OpenAI-layout "
-                "checkpoints and the JAX package's .npz export"
-            )
-        return convert_state_dict(sd)
+        return convert_hf_state_dict(sd) if is_hf_state_dict(sd) else convert_state_dict(sd)
     raise ValueError(f"Unsupported checkpoint format: {path}")
+
+
+def main(argv=None) -> int:
+    """Convert a torch CLIP checkpoint (OpenAI or HuggingFace layout) to the
+    JAX package's .npz: `in.pt out.npz`."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 2:
+        print("usage: python -m menghini_neurips23_tpu_torch.models.convert in.pt out.npz",
+              file=sys.stderr)
+        return 2
+    src, dst = argv
+    sd = load_torch_checkpoint(src)
+    arch, ours = convert_hf_state_dict(sd) if is_hf_state_dict(sd) else convert_state_dict(sd)
+    save_npz(to_jax_params(ours), dst)
+    print(f"converted {src} ({arch.name}) -> {dst}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,7 +6,8 @@ travel as `c_void_p`, and every exported launcher returns `cudaGetLastError()`
 so the Python wrapper can raise on a refused launch.  Nothing is compiled
 when a module is imported; the first launch builds what it needs.
 
-Libraries land in build/kernels/ at the repository root, named by a digest of
+Libraries land in build/kernels/ at the repository root (or the directory
+`build_dir_at` names: a run's `COMPILE_CACHE_DIR`), named by a digest of
 the source, the shared headers (csrc/*.cuh) and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  `build` compiles several sources at once, one `nvcc` process per
 source, all started together.
@@ -14,6 +15,7 @@ source, all started together.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +36,24 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_build_dirs = [BUILD_DIR]  # the innermost `build_dir_at` last
+
+
+def build_dir() -> str:
+    """Where libraries are built and looked for: BUILD_DIR, or the
+    directory of the innermost `build_dir_at`."""
+    return _build_dirs[-1]
+
+
+@contextlib.contextmanager
+def build_dir_at(path: str):
+    """Build and look for libraries under `path` while the context lasts
+    (a library already loaded stays loaded)."""
+    _build_dirs.append(os.path.abspath(path))
+    try:
+        yield
+    finally:
+        _build_dirs.pop()
 
 
 def nvcc_path() -> str:
@@ -67,7 +87,7 @@ def library_path(name: str) -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:
@@ -77,7 +97,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     RuntimeError with the compiler's output if any build fails.  The
     compiler's resource report (-Xptxas=-v) is kept beside each library as
     a .log file."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     seconds: Dict[str, float] = {}
     procs = []
     for name in names:

@@ -10,7 +10,9 @@ and GRIP training.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
+import os
 import random
 from pathlib import Path
 
@@ -234,26 +236,56 @@ def paradigm_workflow(dataset_dir, obj_conf, assemble, adjust_classes=None,
     )
 
 
+TRACE_SUFFIX = ".pt.trace.json"
+
+
+def profiled(run, profile_dir: str, device):
+    """`run()` under torch.profiler (CPU activity, and CUDA activity on a
+    CUDA `device`), its trace written under `profile_dir` as
+    `rank<r>.<ns>.pt.trace.json` (the JAX package's `PROFILE_DIR`, which
+    wraps the workflow in jax.profiler.trace).  When no NEW trace file
+    appears - stale ones from earlier runs do not count - a warning says
+    so.  Returns what `run` returns."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from menghini_neurips23_tpu_torch.parallel import process_index
+
+    root = Path(profile_dir)
+    root.mkdir(parents=True, exist_ok=True)
+    before = set(root.rglob(f"*{TRACE_SUFFIX}"))
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    handler = tensorboard_trace_handler(str(root), worker_name=f"rank{process_index()}")
+    with profile(activities=activities, on_trace_ready=handler):
+        result = run()
+    if not set(root.rglob(f"*{TRACE_SUFFIX}")) - before:
+        log.warning("PROFILE_DIR=%s: torch.profiler wrote no trace of the run on %s",
+                    profile_dir, device)
+    return result
+
+
 def main_template(workflow, argv=None, env=None, device=None):
     """Parse args, load the config, check it, and run `workflow` on `device`
     (None = CUDA).  Launched as one of several processes (torchrun's
     WORLD_SIZE > 1 in the environment), the process first joins the group
     (parallel.initialize_from_env) and runs on `cuda:LOCAL_RANK`, or on the
-    CPU under gloo when `device` is the CPU; the group is left at the end."""
+    CPU under gloo when `device` is the CPU; the group is left at the end.
+
+    `COMPILE_CACHE_DIR` puts the CUDA kernels' libraries (the port's only
+    persistent compile; ops/_cuda.py) under <dir>/kernels, where a later run
+    finds and reuses them; CUDA-graph captures cannot be kept and are made
+    anew in every process.  `PROFILE_DIR` runs the workflow under
+    torch.profiler (`profiled`)."""
     args = parse_args(argv)
     cfg = load_config(args, env=env)
     # validate cheap preconditions BEFORE any logging/device work
     check_model(cfg.MODEL)
     if not Path(cfg.DATASET_DIR).exists():
         raise FileNotFoundError(f"`dataset_dir` does not exist: {cfg.DATASET_DIR}")
-    for key in ("COMPILE_CACHE_DIR", "PROFILE_DIR"):
-        if getattr(cfg, key):
-            raise NotImplementedError(
-                f"{key} is set, but this package has no counterpart for it yet "
-                "(there is no compile cache to keep, and the profiler hook arrives "
-                "with the tracing work); unset it"
-            )
     # the process group from the launcher's variables, before any device work
+    from menghini_neurips23_tpu_torch.ops import _cuda
     from menghini_neurips23_tpu_torch.parallel import initialize_from_env
 
     group_device = initialize_from_env(device=device)
@@ -265,8 +297,19 @@ def main_template(workflow, argv=None, env=None, device=None):
             log.info("process group: rank %d of %d (%s) on %s", dist.get_rank(),
                      dist.get_world_size(), dist.get_backend(), group_device)
         seed_everything(cfg)
-        return workflow(cfg.DATASET_DIR, cfg,
-                        device=device if group_device is None else group_device)
+        run_device = device if group_device is None else group_device
+        with contextlib.ExitStack() as stack:
+            if cfg.COMPILE_CACHE_DIR:
+                stack.enter_context(
+                    _cuda.build_dir_at(os.path.join(cfg.COMPILE_CACHE_DIR, "kernels")))
+
+            def run():
+                return workflow(cfg.DATASET_DIR, cfg, device=run_device)
+
+            if cfg.PROFILE_DIR:
+                return profiled(run, cfg.PROFILE_DIR,
+                                "cuda" if run_device is None else run_device)
+            return run()
     finally:
         if group_device is not None:
             import torch.distributed as dist

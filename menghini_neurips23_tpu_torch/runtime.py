@@ -12,10 +12,13 @@ current one.
 The device defaults to CUDA; `device="cpu"` must be asked for explicitly
 (the tests do), and a missing card raises instead of falling back.
 
-In a process group (parallel/) each rank holds the whole frozen model, and
-a batched pass splits every global batch: each rank decodes and encodes
-its block of it, and the blocks are gathered back in file order, so every
-rank returns the whole pass.
+In a process group (parallel/) a batched pass splits every global batch
+over the data group: each rank decodes and encodes its block of it, and
+the blocks are gathered back in file order, so every rank returns the whole
+pass.  Each rank loads the whole checkpoint and keeps the frozen model, or
+under a 'model' axis (`MESH_SHAPE "d,m"`, m > 1) its model rank's shard of
+the towers (parallel/tensor.py); the m ranks of a model group take the
+same block of every batch.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ from menghini_neurips23_tpu_torch.models import (
     load_clip,
     precast_matmul_params,
 )
-from menghini_neurips23_tpu_torch.parallel import multihost
-from menghini_neurips23_tpu_torch.parallel.mesh import mesh_from_config
+from menghini_neurips23_tpu_torch.parallel import multihost, tensor
+from menghini_neurips23_tpu_torch.parallel.mesh import check_model_axis, mesh_from_config
 
 log = logging.getLogger(__name__)
 
@@ -75,7 +78,9 @@ class ClipRuntime:
                     arch.name,
                 )
         self.arch = arch
-        self.model = build_clip(arch, state_dict, dtype, self.device)
+        check_model_axis(self.mesh.model, arch)
+        self.tp = tensor.from_layout()  # None without a 'model' axis
+        self.model = build_clip(arch, state_dict, dtype, self.device, tp=self.tp)
         # not for multimodal runs, as in the JAX package (its UPT step keeps
         # fp32 weights); the zero-shot and CoOp towers take precast weights
         if (
@@ -158,7 +163,8 @@ class ClipRuntime:
         """Run a per-batch device fn over a file list; returns stacked np.
 
         The files go in global batches of `bs`.  In a process group each
-        batch is split into host-major blocks of ceil(bs / world) rows
+        batch is split over the data group (`world` ranks; a model group's
+        ranks share one block) into host-major blocks of ceil(bs / world) rows
         (`shard_filelist_for_batch`; the JAX package's
         `_batched_pass_multihost`, runtime.py:262-333): this rank decodes
         and encodes only its blocks, and every rank's rows are gathered back
@@ -178,7 +184,7 @@ class ClipRuntime:
             return np.empty((0,))
         t0 = time.perf_counter()
         loader = loader or self._default_loader()
-        world, rank = multihost.process_count(), multihost.process_index()
+        world, rank = multihost.data_count(), multihost.data_index()
         per = -(-bs // world)
         rows = np.arange(len(filepaths))
         blocks = [[multihost.shard_filelist_for_batch(rows[s : s + bs], per, r)

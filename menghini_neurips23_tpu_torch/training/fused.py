@@ -41,13 +41,19 @@ capture added and keeps it as the per-replay count; `run` adds captured x
 replays after each replay loop.
 
 In a process group (parallel/), at any world size, 1 included, each rank's
-step takes its host-major block of ceil(bs / world) rows of the batch; the
+step takes its data group's host-major block of ceil(bs / world) rows of
+the batch (world the data group's size); the
 loss is normalised by the whole batch's valid rows per group, which every
 rank counts from the permutation it holds, so the ranks' gradients sum to
 the batch's.  The step then all-reduces one flat buffer - every gradient,
-the loss and the correct count - before the update: on the card that
-collective is captured into the step's graph (after the warm-up collective
-that built NCCL's communicator), and a capture that fails raises.  The
+the loss and the correct count - over the data group before the update:
+on the card that collective is captured into the step's graph (after the
+warm-up collective that built NCCL's communicator), and a capture that
+fails raises.  Under a 'model' axis (parallel/tensor.py) the step graph
+also holds the towers' model-group all-reduces: 2 forward and 2 backward
+per block the gradient crosses, so 4 * layers + 1 all-reduces a step
+graph; the prompts' gradients leave the backward whole and equal on every
+model rank, so the data group's sum counts each once.  The
 epoch end's validation is replicated: the ranks hold the same prompt and
 the same validation rows, so they pick the same best epoch.
 """
@@ -62,14 +68,15 @@ import numpy as np
 import torch
 
 from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
-from menghini_neurips23_tpu_torch.parallel import multihost
+from menghini_neurips23_tpu_torch.parallel import multihost, tensor
 from menghini_neurips23_tpu_torch.training.losses import masked_mean, two_group_loss
 
 # (wrapper, counter): K1, K2, their launches above 320 tokens, the step's
-# all-reduces in a process group
+# all-reduces in a process group (every group's), and of those the model
+# group's
 _COUNTERS = ((fused_attention, "launches"), (attention_bwd, "launches"),
              (fused_attention, "streamed_launches"), (attention_bwd, "streamed_launches"),
-             (multihost.all_reduce_sum_, "calls"))
+             (multihost.all_reduce_sum_, "calls"), (tensor.model_all_reduce_, "calls"))
 _WARMUP = 2  # side-stream iterations before capture (PyTorch's advice: a few)
 
 Tree = Dict[str, torch.Tensor]
@@ -89,9 +96,10 @@ def train_step(logits_fn: Callable, prompt: Tree, mom: Tree, gacc: Tree, ctx, fe
 
     `counts` (in a process group): the whole batch's valid rows of each
     group, as 0-d device tensors, of which these rows are this rank's
-    block.  The loss is normalised by them, and one all-reduce (SUM) of a
-    flat buffer - every gradient, the loss and the correct count - makes
-    the update, the loss and the count the whole batch's on every rank.
+    block.  The loss is normalised by them, and one all-reduce (SUM) over
+    the data group of a flat buffer - every gradient, the loss and the
+    correct count - makes the update, the loss and the count the whole
+    batch's on every rank.
 
     The update is twelve `torch._foreach_*` ops over all leaves at once,
     gated by 0/1 factors (x * 1 + y * 0 = x exactly for finite values)."""
@@ -199,7 +207,7 @@ class FusedProgram:
         self.best: Tree = {}
         self.graphs = None
         # what a replay of each graph launches: [K1, K2, K1 and K2 above 320
-        # tokens, all-reduces]
+        # tokens, all-reduces, of which the model group's]
         self.per_step = self.per_epoch_end = None
         self.capture_s = 0.0
         self.pool_bytes = 0

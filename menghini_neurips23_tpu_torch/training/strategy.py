@@ -19,13 +19,17 @@ sites, and this module follows that reconstruction:
   mean);
 - batches are fixed-shape: the last one is padded with index 0, label -1 and
   valid 0;
-- in a process group (parallel/) each rank steps on its host-major block of
-  every batch, ceil(BATCH_SIZE / world) rows, with the loss normalised by
-  the whole batch's valid rows (counted on the host, or on the device from
-  the permutation every rank holds), and the gradient, the loss and the
-  correct count all-reduced before the update; every rank draws the same
-  permutations and prompts (nothing is seeded by rank), validates on all
-  rows, and so picks the same best epoch; rank 0 alone writes.
+- in a process group (parallel/) each rank steps on its data group's
+  host-major block of every batch, ceil(BATCH_SIZE / world) rows (world
+  the data group's size; the ranks of a model group share a block and
+  hold their shards of the towers), with the loss normalised by the whole
+  batch's valid rows (counted on the host, or on the device from the
+  permutation every rank holds), and the gradient, the loss and the
+  correct count all-reduced over the data group before the update (the
+  model group's gradients are already whole: parallel/tensor.py); every
+  rank draws the same permutations and prompts (nothing is seeded by
+  rank), validates on all rows, and so picks the same best epoch; rank 0
+  alone writes.
 
 A run takes one of two forms, as in the JAX package:
 - the whole-run trainer (`FUSED_TRAIN`, on by default; `_fused_train`): all
@@ -102,10 +106,11 @@ def _np_key(a) -> tuple:
 
 
 def _rank_world() -> Optional[Tuple[int, int]]:
-    """(rank, world size) in a process group, at any size; None outside one."""
+    """(rank, size) of this rank's data group in a process group, at any
+    size (the whole group without a 'model' axis); None outside one."""
     if not multihost.is_initialized():
         return None
-    return multihost.process_index(), multihost.process_count()
+    return multihost.data_index(), multihost.data_count()
 
 
 def _paths_key(paths) -> str:
@@ -674,6 +679,8 @@ class TrainingStrategy:
             "launches_per_epoch_end": prog.per_epoch_end and prog.per_epoch_end[:2],
             "streamed_launches_per_step": prog.per_step and prog.per_step[2:4],
             "all_reduces_per_step": prog.per_step and prog.per_step[4],
+            "model_all_reduces_per_step": prog.per_step and prog.per_step[5],
+            "all_reduces_per_epoch_end": prog.per_epoch_end and prog.per_epoch_end[4],
             "stats": stats, "run_s": time.perf_counter() - t0,
         }
         if not getattr(self, "_fused_keep", False):

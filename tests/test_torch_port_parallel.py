@@ -99,16 +99,26 @@ def test_shard_filelist_for_batch_matches_jax(n_files, per_host):
 
 def test_mesh_from_config_reads_mesh_shape():
     """Outside a group the world is one rank: "" and "1" (and "1,1") are a
-    one-rank data mesh; "2" asks for ranks the group does not have; "2,2"
-    asks for tensor parallelism, which is not ported."""
+    one-rank data mesh; "2" asks for ranks the group does not have, and so
+    do "2,2" (four: 2 data x 2 model) and "1,2"; a model axis that does not
+    divide both towers' head counts is refused, naming them (tiny-test has
+    one vision head and two text heads)."""
+    from menghini_neurips23_tpu_torch.models import TINY_TEST
+    from menghini_neurips23_tpu_torch.parallel.mesh import check_model_axis
+
     for spec in ("", "1", " 1 ", "1,1"):
         mesh = mesh_from_config(Config(MESH_SHAPE=spec))
-        assert mesh == Mesh(data=1) and mesh.shape == {"data": 1}
+        assert mesh == Mesh(data=1) and mesh.shape == {"data": 1, "model": 1}
         assert data_parallelism(mesh) == 1 == data_parallelism()
     with pytest.raises(ValueError, match="asks for 2 data ranks, but the process group has 1"):
         mesh_from_config(Config(MESH_SHAPE="2"))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match=r"asks for 4 ranks \(2 data x 2 model\), but the "
+                                         "process group has 1"):
         mesh_from_config(Config(MESH_SHAPE="2,2"))
+    with pytest.raises(ValueError, match=r"asks for 2 ranks \(1 data x 2 model\)"):
+        mesh_from_config(Config(MESH_SHAPE="1,2"))
+    with pytest.raises(ValueError, match="1 vision heads and 2 text heads"):
+        check_model_axis(2, TINY_TEST)
     for bad in ("x", "0", "1,2,3"):
         with pytest.raises(ValueError, match="MESH_SHAPE"):
             mesh_from_config(Config(MESH_SHAPE=bad))

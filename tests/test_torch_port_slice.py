@@ -245,13 +245,16 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, mnist_fixture, t
         # every training MODEL runs now: main_template hands it to the workflow
         ({"MODEL": "multimodal_fpl"}, None, None),
         ({"MODEL": "no_such_model"}, ValueError, "Unknown MODEL"),
-        ({"PROFILE_DIR": "prof"}, NotImplementedError, "PROFILE_DIR"),
-        ({"COMPILE_CACHE_DIR": "cache"}, NotImplementedError, "COMPILE_CACHE_DIR"),
+        # these two run now: a trace written, the kernels' build directory moved
+        ({"PROFILE_DIR": "prof"}, None, "trace"),
+        ({"COMPILE_CACHE_DIR": "cache"}, None, "kernels"),
     ],
     ids=["training-model", "unknown-model", "profile-dir", "compile-cache-dir"],
 )
 def test_main_template_rejects_what_this_slice_lacks(tmp_path, mnist_fixture, monkeypatch, env_extra,
                                                     exc, match):
+    from menghini_neurips23_tpu_torch.ops import _cuda
+
     root, _ = mnist_fixture
     monkeypatch.chdir(tmp_path)  # an accepted run sets up its log file under ./logs
     yml = tmp_path / "c.yml"
@@ -261,9 +264,21 @@ def test_main_template_rejects_what_this_slice_lacks(tmp_path, mnist_fixture, mo
     env.update(env_extra)
     called = []
     argv = ["--model_config", str(yml), "--learning_paradigm", "ssl"]
+
+    def workflow(*a, **k):
+        called.append(a)
+        return _cuda.library_path("attention_fwd")
+
     if exc is None:
-        common.main_template(lambda *a, **k: called.append(a), argv=argv, env=env, device="cpu")
+        lib = common.main_template(workflow, argv=argv, env=env, device="cpu")
         assert len(called) == 1 and called[0][1].MODEL == env["MODEL"]
+        if match == "kernels":  # the libraries under COMPILE_CACHE_DIR while the run lasts
+            assert lib.startswith(str(tmp_path / "cache" / "kernels") + os.sep)
+        else:
+            assert lib.startswith(_cuda.BUILD_DIR + os.sep)
+        assert _cuda.build_dir() == _cuda.BUILD_DIR  # and only then
+        if match == "trace":
+            assert list((tmp_path / "prof").glob("rank0.*.pt.trace.json"))
         return
     with pytest.raises(exc, match=match):
         common.main_template(lambda *a, **k: called.append(a), argv=argv, env=env, device="cpu")
