@@ -7,7 +7,9 @@ seed), the SSL CoOp prompt training (textual_prompt, textual_fpl), the UL
 and TRZSL visual prompt training (visual_fpl), and the IFPL/GRIP iterations
 with their resume and the UPT prompts (grip_visual, grip_multimodal,
 iterative_textual_fpl, multimodal_fpl), then zero-shot, VPT and UPT at
-ViT-L/14's full width, and checks what they write.  Every training run
+ViT-L/14's full width, and checks what they write; beside them, K4 (the
+phase-grouped attention forward of the attention experiment) through the
+experiment's port, scripts/exp_attn_kernels.py.  Every training run
 takes the whole-run trainer (FUSED_TRAIN, the default): the step and the
 epoch end as CUDA graphs replayed with K1 and K2 inside them.
 
@@ -38,7 +40,13 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      function at m = 2, both shards' partial products summed in the
      process where the model group's all-reduce would sum them, forward
      and input gradient against the unsharded block, fp32 and bf16
-     (BLOCK_TOL); a full-width ViT-B/32
+     (BLOCK_TOL); K4 at TWOPHASE_SHAPES and the longest T one block
+     takes, fp32 and bf16, against its plain version and against K1 on
+     the same qkv (ATTN_TOL), two launches the same bits, timed beside K1,
+     its plain version and SDPA's forward, and one token more refused
+     with ValueError; then the experiment's port, twophase fwd at its
+     default (256, 66, 768, 12) bf16, as K4's counted path (its RESULT
+     line); a full-width ViT-B/32
      forward on the card against the same weights on the CPU; one CoOp, one
      deep VPT and one UPT training step at ViT-B/32 width, and one deep VPT
      and one UPT step at ViT-L/14 width (2 rows), on the card against the
@@ -90,7 +98,9 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      must be the same bits and their K1/K2 launches the same; the step
      wall with and without the collective, and the NCCL kernels the
      profiler sees in the group's step-graph replays
-Phases 4-6 (the zero-shot path), the SSL CoOp runs, the UL/TRZSL VPT runs,
+The experiment's twophase fwd (K4's only path: no model runs K4, nor
+does the JAX package run its Pallas kernel), phases 4-6 (the zero-shot
+path), the SSL CoOp runs, the UL/TRZSL VPT runs,
 the IFPL/GRIP/UPT runs with the resume check, the ViT-L/14 runs and the
 ViT-L/14 80-token VPT run of phase 7 (five training paths), and phase 9
 each run with every launch count set to 0 just before and read just after;
@@ -164,6 +174,13 @@ SHARD_SHAPES = [(16, 273, 512, 8, None, "ViT-L/14 vision, m=2"),
 # fp32 sums in another order, bf16 rounds each shard's partial product once
 # more (two bf16 steps of the largest value)
 BLOCK_TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
+# K4, the attention experiment's phase-grouped forward, at the experiment's
+# shape (VPT's ViT-B/32 validation batch), ViT-B/32 vision, UPT's 4-token
+# prompt, VPT's training batch and a ragged (8, 17) at D = 64; phase 3 adds
+# the longest T one block takes (by type, from the kernel's own query)
+TWOPHASE_SHAPES = [(256, 66, 768, 12), (256, 50, 768, 12), (256, 54, 768, 12),
+                   (16, 66, 768, 12), (8, 17, 256, 4)]
+EXPERIMENT_REPS = 20  # scripts/exp_attn_kernels.py twophase fwd on its counted path
 # GRIP over UL's 640-image pool and 10 classes: N(k) = int(k * 64 / 10)
 GRIP_SCHEDULE = [6, 12, 19, 25, 32, 38, 44, 51, 57, 64]
 
@@ -218,7 +235,7 @@ def phase_build():
     from menghini_neurips23_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
-    secs = _cuda.build(["attention_fwd", "attention_bwd", "clip_head"])
+    secs = _cuda.build(["attention_fwd", "attention_bwd", "clip_head", "twophase_attention"])
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f} s")
     for name in secs:
@@ -361,6 +378,88 @@ def phase_kernels(torch):
         if err > HEAD_TOL or row_err > HEAD_TOL:
             fail(f"clip_head disagrees with its plain version: {case}")
     return attn_cases, head_cases
+
+
+def phase_kernels_twophase(torch):
+    """K4 against its plain version and against K1 on the same qkv, fp32
+    and bf16, with two launches giving the same bits; its time beside K1's,
+    the plain version's and SDPA's forward; one token past the longest T
+    must raise ValueError."""
+    import torch.nn.functional as F
+
+    from menghini_neurips23_tpu_torch.ops import _cuda
+    from menghini_neurips23_tpu_torch.ops.attention import _DTYPE_CODES, fused_attention
+    from menghini_neurips23_tpu_torch.ops.twophase_attention import (
+        _SIGNATURES,
+        twophase_attention,
+        twophase_attention_reference,
+    )
+
+    t0 = time.perf_counter()
+    lib = _cuda.library("twophase_attention", _SIGNATURES)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        code = _DTYPE_CODES[dt]
+        longest = max(t for t in range(1, 513) if lib.mnt_twophase_attention_groups(t, 64, 12, code))
+        for B, T, W, H in TWOPHASE_SHAPES + [(8, longest, 768, 12)]:
+            D = W // H
+            qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
+            out = twophase_attention(qkv, H)
+            again = twophase_attention(qkv, H)
+            k1 = fused_attention(qkv, None, H)
+            torch.cuda.synchronize()
+            same = torch.equal(out.view(torch.uint8), again.view(torch.uint8))
+            err = (out.float() - twophase_attention_reference(qkv, H).float()).abs().max().item()
+            err_k1 = (out.float() - k1.float()).abs().max().item()
+            q, k, v = (t.contiguous() for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4))
+            ms = device_ms(torch, lambda: twophase_attention(qkv, H))
+            eager = eager_ms(torch, lambda: twophase_attention(qkv, H))
+            plain = device_ms(torch, lambda: twophase_attention_reference(qkv, H))
+            k1_ms = device_ms(torch, lambda: fused_attention(qkv, None, H))
+            sdpa = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+            # K1's unmasked bound: qkv read, the output written; 4 H D T^2 a row
+            b_ms, b_by = bound(B * T * 4 * W * qkv.element_size(), 4 * B * H * D * T * T, dname)
+            case = dict(shape=[B, T, W, H], dtype=dname,
+                        groups=lib.mnt_twophase_attention_groups(T, D, H, code),
+                        smem_bytes=lib.mnt_twophase_attention_smem(T, D, H, code),
+                        max_abs_err=err, max_abs_err_vs_k1=err_k1, tol=ATTN_TOL[dname],
+                        bit_identical=same, ms=ms, eager_ms=eager, plain_ms=plain, k1_ms=k1_ms,
+                        over_k1=ms / k1_ms, library_ms=sdpa,
+                        library="scaled_dot_product_attention (forward, head-split)",
+                        bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
+            cases.append(case)
+            log("  twophase_attention " + json.dumps(case))
+            if err > ATTN_TOL[dname] or err_k1 > ATTN_TOL[dname]:
+                fail(f"twophase_attention disagrees with its plain version or K1: {case}")
+            if not same:
+                fail(f"twophase_attention: two launches on the same inputs differ: {case}")
+        over = torch.zeros(2, longest + 1, 3 * 768, dtype=dt, device="cuda")
+        try:
+            twophase_attention(over, 12)
+        except ValueError as e:
+            log(f"  twophase_attention {dname}: T={longest} is the longest; T={longest + 1} "
+                f"refused ({e})")
+        else:
+            fail(f"twophase_attention {dname} took T={longest + 1}, past its shared memory")
+    log(f"  twophase_attention phase wall {time.perf_counter() - t0:.1f} s")
+    return cases
+
+
+def phase_experiment(torch):
+    """The attention experiment's port, twophase fwd at its default shape
+    ((256, 66, 768, 12) bf16), as a user runs it: K4's counted path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "exp_attn_kernels", os.path.join(ROOT, "scripts", "exp_attn_kernels.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    t0 = time.perf_counter()
+    code = script.main(["twophase", "fwd", str(EXPERIMENT_REPS)])
+    if code != 0:
+        fail(f"scripts/exp_attn_kernels.py twophase fwd exited {code}")
+    log(f"  attention experiment wall {time.perf_counter() - t0:.1f} s")
 
 
 def phase_model_reference(torch):
@@ -1859,6 +1958,7 @@ def main() -> int:
 
     from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
     from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs
+    from menghini_neurips23_tpu_torch.ops.twophase_attention import twophase_attention
 
     log("[1] device")
     phase_device(torch)
@@ -1867,6 +1967,7 @@ def main() -> int:
     log("[3] kernels vs plain versions")
     attn_cases, head_cases = phase_kernels(torch)
     bwd_cases = phase_kernels_bwd(torch)
+    twophase_cases = phase_kernels_twophase(torch)
     block_cases = phase_sharded_block(torch)
     phase_device_topk(torch)
     phase_model_reference(torch)
@@ -1899,8 +2000,12 @@ def main() -> int:
                 "attention_bwd": (attention_bwd, "launches"),
                 "clip_head": (fused_probs, "launches"),
                 "attention_fwd_streamed": (fused_attention, "streamed_launches"),
-                "attention_bwd_streamed": (attention_bwd, "streamed_launches")}
+                "attention_bwd_streamed": (attention_bwd, "streamed_launches"),
+                "twophase_attention": (twophase_attention, "launches")}
     resident = ("attention_fwd", "attention_bwd", "clip_head")
+    # K4 runs on no path of the models (nor does its Pallas kernel on the
+    # JAX package's): its own path is the attention experiment
+    model_kernels = tuple(n for n in wrappers if n != "twophase_attention")
     # each main path runs with every count set to 0 just before it and read
     # just after; a kernel the path runs must show at least one launch
     by_path = {}
@@ -1938,6 +2043,9 @@ def main() -> int:
                 walls["resume_check"] = phase_resume(torch, data_dir, work)
         return run
 
+    log("[3] the attention experiment (scripts/exp_attn_kernels.py twophase fwd)")
+    counted("attention experiment (twophase fwd)", ("twophase_attention",),
+            lambda: phase_experiment(torch))
     counted("zero-shot", ("attention_fwd", "clip_head"), zero_shot_path)
     log("[7] training (SSL CoOp)")
     counted("training (SSL CoOp)", resident, training_runs(
@@ -1971,7 +2079,7 @@ def main() -> int:
             torch, data_dir, work, "ul", "visual_fpl", "bfloat16", 3, encoder="ViT-L/14",
             prefix=VPT_LONG_PREFIX)
 
-    counted("ViT-L/14, 80-token VPT prompt", tuple(wrappers), vit_l14_long_prompt)
+    counted("ViT-L/14, 80-token VPT prompt", model_kernels, vit_l14_long_prompt)
     with open(f"{data_dir}/MNIST/train.txt") as f:
         train_files = [f"{data_dir}/MNIST/train/{l.split()[0]}" for l in f if l.strip()]
     log("[9] distributed (NCCL, world size 1)")
@@ -2048,6 +2156,10 @@ def main() -> int:
         entry("clip_head", f"{PKG}/csrc/clip_head.cu",
               "menghini_neurips23_tpu/ops/clip_head.py:40", head_cases,
               lambda c: c["shape"] == [640, 512, 10] and c["dtype"] == "float32"),
+        # the attention experiment's kernel, headlined at its own shape
+        entry("twophase_attention", f"{PKG}/csrc/twophase_attention.cu",
+              "benchmarks/exp_attn_kernels.py:58", twophase_cases,
+              lambda c: c["shape"] == [256, 66, 768, 12] and c["dtype"] == "bfloat16"),
     ]
     for k in kernels[:2]:  # K1 and K2 inside the m = 2 sharded block
         k["sharded_block"] = block_cases

@@ -10,3 +10,7 @@ from menghini_neurips23_tpu_torch.ops.patch_embed import (  # noqa: F401
     fold_normalization,
     patch_tokens,
 )
+from menghini_neurips23_tpu_torch.ops.twophase_attention import (  # noqa: F401
+    twophase_attention,
+    twophase_attention_reference,
+)

@@ -18,7 +18,8 @@ same relative one (rtol 1e-5 fp32, 2e-2 bf16): its gradients reach |4| and
 more on unit-scale inputs (a causal key 0 collects dS from every query row),
 where one bf16 step is 2^-6 = 0.016 and two neighbouring roundings of dS
 (taken from fp32 sums in another order) add another step; 2e-2 of the value
-covers both.  Its bf16 output is compared with the plain version's bf16
+covers both.  K4 (the phase-grouped forward) takes K1's tolerances, against
+its plain version and against K1.  Its bf16 output is compared with the plain version's bf16
 output, never with autograd of the bf16 forward: dS uses the fp32 P.  The
 `FusedAttention` gradient is compared with autograd of the plain forward in
 fp32 only, where the two agree to rounding (1e-5 + 1e-5 relative).
@@ -34,6 +35,10 @@ from menghini_neurips23_tpu_torch.ops.attention import (
     fused_attention,
 )
 from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs, fused_probs_reference
+from menghini_neurips23_tpu_torch.ops.twophase_attention import (
+    twophase_attention,
+    twophase_attention_reference,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -306,6 +311,88 @@ def test_clip_head_raises_above_its_limits():
         fused_probs(torch.randn(4, 64, device="cuda"), torch.randn(2049, 64, device="cuda"), 1.0)
     with pytest.raises(ValueError, match="E=1025 exceeds the kernel's limit of 1024"):
         fused_probs(torch.randn(4, 1025, device="cuda"), torch.randn(3, 1025, device="cuda"), 1.0)
+
+
+# K4, the phase-grouped forward: (B, T, W, heads).  The experiment's shape
+# (VPT's ViT-B/32 validation batch), ViT-B/32 vision, UPT's 4-token prompt,
+# VPT's training batch, a ragged (8, 17) at D = 64, D = 16 and 32 (one and
+# several head groups), short and ragged lengths; then the longest T one
+# block takes at D = 64 (G = 1), by type: 176 in bf16, 144 in fp32
+TWOPHASE_CASES = [
+    (256, 66, 768, 12), (256, 50, 768, 12), (256, 54, 768, 12), (16, 66, 768, 12),
+    (8, 17, 256, 4), (4, 33, 64, 4), (3, 66, 128, 4), (2, 1, 128, 2), (2, 16, 128, 2),
+    (2, 100, 64, 4), (3, 129, 192, 3),
+]
+TWOPHASE_MAX_T = {torch.float32: 144, torch.bfloat16: 176}
+
+
+def _check_twophase(B, T, W, H, dtype, seed=7):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dtype)
+    before = twophase_attention.launches
+    out = twophase_attention(qkv, H)
+    torch.cuda.synchronize()
+    assert twophase_attention.launches == before + 1
+    assert out.shape == (B, T, W) and out.dtype == dtype
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), twophase_attention_reference(qkv, H).float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(out.float(), fused_attention(qkv, None, H).float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", TWOPHASE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_twophase_kernel_matches_plain_and_k1(case, dtype):
+    _require_card()
+    _check_twophase(*case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_twophase_kernel_takes_its_longest_sequence(dtype):
+    _require_card()
+    _check_twophase(4, TWOPHASE_MAX_T[dtype], 768, 12, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(256, 66, 768, 12), (8, 17, 256, 4), (3, 66, 128, 4)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_twophase_kernel_is_deterministic(case, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    _require_card()
+    B, T, W, H = case
+    g = torch.Generator(device="cuda").manual_seed(8)
+    qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dtype)
+    first = twophase_attention(qkv, H)
+    second = twophase_attention(qkv, H)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
+def test_twophase_groups_and_shared_memory_limit():
+    """G is the largest divisor of the heads whose block fits: at the
+    experiment's (66, D = 64, 12 heads) 3 in bf16 and 2 in fp32; one token
+    past the longest T raises ValueError, in either type."""
+    _require_card()
+    from menghini_neurips23_tpu_torch.ops import _cuda
+    from menghini_neurips23_tpu_torch.ops.twophase_attention import _SIGNATURES
+
+    lib = _cuda.library("twophase_attention", _SIGNATURES)
+    assert lib.mnt_twophase_attention_groups(66, 64, 12, 1) == 3
+    assert lib.mnt_twophase_attention_groups(66, 64, 12, 0) == 2
+    assert lib.mnt_twophase_attention_smem(66, 64, 12, 1) == 3 * (3 * 80 * 72 * 2 + 80 * 88 * 4)
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        longest = TWOPHASE_MAX_T[dtype]
+        assert lib.mnt_twophase_attention_groups(longest, 64, 12, code) == 1
+        assert lib.mnt_twophase_attention_groups(longest + 1, 64, 12, code) == 0
+        assert lib.mnt_twophase_attention_smem(longest, 64, 12, code) <= 227 * 1024
+        assert lib.mnt_twophase_attention_smem(longest + 1, 64, 12, code) > 227 * 1024
+        with pytest.raises(ValueError, match="shared memory"):
+            twophase_attention(torch.zeros(1, longest + 1, 3 * 768, device="cuda", dtype=dtype), 12)
+    with pytest.raises(ValueError, match="head width"):
+        twophase_attention(torch.zeros(1, 8, 3 * 96, device="cuda"), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        twophase_attention(torch.zeros(8, 2, 3 * 64, device="cuda").transpose(0, 1), 2)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

@@ -259,7 +259,7 @@ def test_wrappers_refuse_other_devices_and_masks():
 
 def test_kernel_build_is_keyed_on_source_and_flags():
     # the library name changes with the source digest; nothing is built here
-    for name in ("attention_fwd", "attention_bwd", "clip_head"):
+    for name in ("attention_fwd", "attention_bwd", "clip_head", "twophase_attention"):
         path = _cuda.library_path(name)
         assert path == _cuda.library_path(name)
         assert path.startswith(_cuda.BUILD_DIR) and f"lib{name}-" in path
