@@ -97,13 +97,18 @@
 //   dS (query side) and P, then dS (key side) of the warp's 16 rows passing
 //   through a per-warp buffer; about 95 KB a block, two blocks an SM;
 // - bf16 above 320 tokens (ViT-L/14 with a prompt above 63 tokens, 577 at
-//   ViT-L/14@336), where the resident head would pass 227 KB: the same two
-//   launches instantiated for bf16 rows (staged as bf16, D + 8 a row, read
-//   as fp32; plain FFMA, fp32 accumulation, about 55 KB a block), with P
-//   and dS rounded to bf16 where the resident kernel rounds them (dS from
-//   the fp32 P, kept in registers on the key side).  Nothing depends on T
-//   but the grid and the workspace, so every T is taken.  A simple form,
-//   not tuned: its FFMA rate is the fp32 pair's.
+//   ViT-L/14@336), where the resident head would pass 227 KB: two launches,
+//   the resident kernel's phase A and phase B, each a block per (batch row,
+//   head, 64-row tile) of 4 warps with one operand pair streamed.  The query
+//   side holds the tile's q and g (their A fragments loaded once) and
+//   streams 64-key chunks of k and v through a 3-stage cp.async ring, both
+//   sweeps as one stream of steps; it writes dq and each row's base-2
+//   log-sum-exp and r * D^-0.5 to a (B, H, 2, round64(T)) fp32 workspace.
+//   The key side holds the tile's k and v and streams 64-query chunks of q,
+//   g and their two statistics (causal: from its own diagonal chunk).
+//   Every product on mma.sync m16n8k16, at the resident kernel's rounding
+//   points; about 75 KB a block, three blocks an SM.  Nothing depends on T
+//   but the grid and the workspace, so every T is taken.
 
 #include "attention_common.cuh"
 
@@ -114,15 +119,16 @@ using namespace mnt;
 
 constexpr int kWholeMaxSeq = 128;  // up to here one block holds a whole (row, head) and P, dS
 // bf16 up to here holds the head resident (184 KB of shared memory at 320);
-// above, it takes the streamed pair as fp32 does above kWholeMaxSeq
+// above, it takes its own streamed pair (fp32 a pair above kWholeMaxSeq)
 constexpr int kResidentMaxSeq = 320;
 // T > 128, bf16: the most warps a block takes (10 fit ptxas's 168 registers;
 // scripts/k2_resident_warps.py measures other counts on the card), and keys
 // per staging group and sweep-1 step
 constexpr int kResidentWarps = 10;
 constexpr int kChunk = 64;
-// T > 128, fp32: rows per block, a warp per 16 of them, rows per streamed
-// chunk, chunks in the ring
+// The streamed pairs (fp32 above 128 tokens, bf16 above kResidentMaxSeq):
+// rows per block, a warp per 16 of them, and stages in the ring; fp32
+// streams chunks of kSub rows, bf16 of kChunk
 constexpr int kTile = 64;
 constexpr int kTileThreads = 128;
 constexpr int kSub = 32;
@@ -544,14 +550,6 @@ size_t resident_bf16_smem(int seq, int D) {
   return 4 * tp * (D + 8) * sizeof(bf16) + 2 * tp * sizeof(float);
 }
 
-// 2^x, one MUFU operation (ex2.approx.ftz: relative error below 2^-22,
-// results below 2^-126 flushed to 0, 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Warps of the bf16 kernel: at most kResidentWarps, and as few as keep each
 // warp's rounds of 16-row tiles at their least (T = 273: 18 tiles, 9 warps
 // of 2), so that no warp waits at the barrier for one with a round more.
@@ -831,44 +829,30 @@ attention_bwd_resident_bf16(const bf16* __restrict__ qkv, const bf16* __restrict
   }
 }
 
-// The streamed pair (fp32 above 128 tokens, bf16 above kResidentMaxSeq):
-// the block's 64 rows of two operands, a ring of kStages chunks of two
-// 32-row operands and three fp32 statistics rows (the key side's; the query
-// side leaves them unused), and a 16 x (kSub + 4) fp32 buffer per warp.
-// Rows of T elements are padded to D + 4 floats or D + 8 bf16 (16-byte
-// multiples, free of bank conflicts for the float4 / 8-byte reads).
-template <typename T>
-__host__ __device__ constexpr int tiled_ld(int D) { return D + 16 / (int)sizeof(T); }
-
-template <typename T>
+// The fp32 streamed pair (above 128 tokens): the block's 64 rows of two
+// operands, a ring of kStages chunks of two 32-row operands and three fp32
+// statistics rows (the key side's; the query side leaves them unused), and
+// a 16 x (kSub + 4) fp32 buffer per warp.  Rows are padded to D + 4 floats
+// (16-byte multiples, free of bank conflicts for the float4 reads).
 __host__ __device__ constexpr size_t ring_bytes(int D) {
-  return 2 * kSub * (size_t)tiled_ld<T>(D) * sizeof(T) + 3 * kSub * sizeof(float);
+  return 2 * kSub * (size_t)(D + 4) * sizeof(float) + 3 * kSub * sizeof(float);
 }
 
-template <typename T>
 size_t tiled_smem(int D) {
-  return 2 * kTile * (size_t)tiled_ld<T>(D) * sizeof(T) + kStages * ring_bytes<T>(D) +
+  return 2 * kTile * (size_t)(D + 4) * sizeof(float) + kStages * ring_bytes(D) +
          4 * 16 * (kSub + 4) * sizeof(float);
 }
 
-// the workspace's rows per (batch row, head): T rounded up to the query tile
+// the workspace's rows per (batch row, head): T rounded up to the 64-row tile
 __host__ __device__ constexpr int stats_rows(int seq) { return (seq + kTile - 1) / kTile * kTile; }
 
-// x rounded to the element type (the plain version's .to(dtype) points)
-__device__ __forceinline__ float round_to(float x, float*) { return x; }
-__device__ __forceinline__ float round_to(float x, bf16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-template <typename T>
-__device__ __forceinline__ float rnd(float x) { return round_to(x, static_cast<T*>(nullptr)); }
-
 // acc[i][jj] = sum_d a[4ry + i][d] * b[8jj + kx][d]: the warp's 16 rows of
-// `a` against the 8 * NS rows of `b`, both row-major with tiled_ld<T>(D)
-// elements a row, accumulated in fp32.
-template <typename T, int D, int NS>
-__device__ __forceinline__ void dots_tiled(float (&acc)[4][NS], const T* a, const T* b, int ry,
-                                           int kx) {
-  constexpr int LD = tiled_ld<T>(D);
+// `a` against the 8 * NS rows of `b`, both row-major with D + 4 floats a
+// row.
+template <int D, int NS>
+__device__ __forceinline__ void dots_tiled(float (&acc)[4][NS], const float* a, const float* b,
+                                           int ry, int kx) {
+  constexpr int LD = D + 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -893,11 +877,11 @@ __device__ __forceinline__ void dots_tiled(float (&acc)[4][NS], const T* a, cons
 // acc[i][c] += sum_{j < n} w[4ry + i][j] * b[j][col c]: the lane's 4 rows of
 // the warp's (16, LDW) fp32 buffer against the first n (a multiple of 4)
 // rows of a chunk, in the lane's Cols<D> columns.
-template <typename T, int D, int LDW>
+template <int D, int LDW>
 __device__ __forceinline__ void rows_times_tiled(float (&acc)[4][D / 8], const float* w,
-                                                 const T* b, int n, int ry, int kx) {
+                                                 const float* b, int n, int ry, int kx) {
   using C = Cols<D>;
-  constexpr int LD = tiled_ld<T>(D);
+  constexpr int LD = D + 4;
 #pragma unroll 2
   for (int j = 0; j < n; j += 4) {
     float p[4][4];
@@ -922,40 +906,40 @@ __device__ __forceinline__ void rows_times_tiled(float (&acc)[4][D / 8], const f
 // rows, lane (ry, kx) holding rows r0 + 4ry + i against keys c0 + 8jj + kx;
 // the key chunks stream through the ring, sweep 1 (the statistics) and
 // sweep 2 (dS, dq) one after the other, so that chunk step + 2 is staged
-// while step computes.  dS is rounded to T before dq (bf16).
-template <typename T, int D>
+// while step computes.
+template <int D>
 __global__ void __launch_bounds__(kTileThreads, 2)
-attention_bwd_q_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
-                      T* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
+attention_bwd_q_tiled(const float* __restrict__ qkv, const float* __restrict__ grad,
+                      float* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
                       int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using C = Cols<D>;
-  constexpr int LD = tiled_ld<T>(D), NS = kSub / 8, LDW = kSub + 4;
-  constexpr size_t RING = ring_bytes<T>(D);
+  constexpr int LD = D + 4, NS = kSub / 8, LDW = kSub + 4;
+  constexpr size_t RING = ring_bytes(D);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
-  T* qs = reinterpret_cast<T*>(smem_raw);  // the block's query rows
-  T* gs = qs + kTile * LD;
+  float* qs = reinterpret_cast<float*>(smem_raw);  // the block's query rows
+  float* gs = qs + kTile * LD;
   unsigned char* ring = reinterpret_cast<unsigned char*>(gs + kTile * LD);  // keys, values
   float* ws = reinterpret_cast<float*>(ring + kStages * RING) + warp * 16 * LDW;  // its dS
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads, rb = kTile * blockIdx.y;
   const size_t stride = 3 * (size_t)width;
-  const T* base = qkv + (size_t)b * seq * stride + h * D;
+  const float* base = qkv + (size_t)b * seq * stride + h * D;
   const int r0 = rb + 16 * warp, row0 = r0 + 4 * ry;  // rows row0 .. row0 + 3
   const bool active = r0 < seq;
   const int kend = causal ? min(seq, r0 + 16) : seq;
   const int nch = ((causal ? min(seq, rb + kTile) : seq) + kSub - 1) / kSub, steps = 2 * nch;
   auto stage = [&](int step) {
     const int c0 = (step % nch) * kSub;
-    T* dst = reinterpret_cast<T*>(ring + (step % kStages) * RING);
-    stage_rows<T, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kSub, tid,
-                     kTileThreads);
-    stage_rows<T, D>(dst + kSub * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
-                     kSub, tid, kTileThreads);
+    float* dst = reinterpret_cast<float*>(ring + (step % kStages) * RING);
+    stage_rows<float, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kSub, tid,
+                         kTileThreads);
+    stage_rows<float, D>(dst + kSub * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
+                         kSub, tid, kTileThreads);
   };
-  stage_rows<T, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
-  stage_rows<T, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width, seq - rb,
-                   kTile, tid, kTileThreads);
+  stage_rows<float, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
+  stage_rows<float, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width, seq - rb,
+                       kTile, tid, kTileThreads);
   stage(0);
   cp_async_commit();
   stage(1);
@@ -980,10 +964,10 @@ attention_bwd_q_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
     }
     const int c0 = (step % nch) * kSub;
     if (c0 >= kend) continue;
-    const T* ks = reinterpret_cast<const T*>(ring + (step % kStages) * RING);
-    const T* vs = ks + kSub * LD;
+    const float* ks = reinterpret_cast<const float*>(ring + (step % kStages) * RING);
+    const float* vs = ks + kSub * LD;
     float s[4][NS], dp[4][NS];
-    dots_tiled<T, D, NS>(s, qs + 16 * warp * LD, ks, ry, kx);
+    dots_tiled<D, NS>(s, qs + 16 * warp * LD, ks, ry, kx);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -992,7 +976,7 @@ attention_bwd_q_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
         const bool valid = col < seq && (!causal || col <= row0 + i);
         s[i][jj] = valid ? s[i][jj] * scale : -INFINITY;
       }
-    dots_tiled<T, D, NS>(dp, gs + 16 * warp * LD, vs, ry, kx);
+    dots_tiled<D, NS>(dp, gs + 16 * warp * LD, vs, ry, kx);
     if (step < nch) {  // sweep 1: online m, l, rho (key 0 keeps m finite)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1019,15 +1003,15 @@ attention_bwd_q_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const float p = expf(s[i][jj] - m[i]) * inv_l[i];
-        ws[(4 * ry + i) * LDW + 8 * jj + kx] = rnd<T>(p * (dp[i][jj] - r[i]) * scale);
+        ws[(4 * ry + i) * LDW + 8 * jj + kx] = p * (dp[i][jj] - r[i]) * scale;
       }
     __syncwarp();
-    rows_times_tiled<T, D, LDW>(dq, ws, ks, (min(kSub, kend - c0) + 3) / 4 * 4, ry, kx);
+    rows_times_tiled<D, LDW>(dq, ws, ks, (min(kSub, kend - c0) + 3) / 4 * 4, ry, kx);
     __syncwarp();
   }
   // dq, and (m, 1/l, r) of every row of the tile (zeros past the warps
   // that hold a row), which the key side reads
-  T* out = dqkv + (size_t)b * seq * stride + h * D;
+  float* out = dqkv + (size_t)b * seq * stride + h * D;
   const int tw = stats_rows(seq);
   float* st = stats + (size_t)blockIdx.x * 3 * tw;
 #pragma unroll
@@ -1048,28 +1032,27 @@ attention_bwd_q_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
 
 // Key side: lane (ry, kx) holds keys j0 + 4ry + t against queries
 // i0c + 8jj + kx; the query chunks and their statistics stream through the
-// ring (chunk c + 2 staged while c computes); P rounded to T, then dS
-// rounded to T (from the fp32 P, kept in registers), of the warp's keys
-// pass through its buffer.
-template <typename T, int D>
+// ring (chunk c + 2 staged while c computes); P, then dS (from P, kept in
+// registers), of the warp's keys pass through its buffer.
+template <int D>
 __global__ void __launch_bounds__(kTileThreads, 2)
-attention_bwd_kv_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
-                       T* __restrict__ dqkv, const float* __restrict__ stats, int seq,
+attention_bwd_kv_tiled(const float* __restrict__ qkv, const float* __restrict__ grad,
+                       float* __restrict__ dqkv, const float* __restrict__ stats, int seq,
                        int width, int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using C = Cols<D>;
-  constexpr int LD = tiled_ld<T>(D), NS = kSub / 8, LDW = kSub + 4;
-  constexpr size_t RING = ring_bytes<T>(D);
+  constexpr int LD = D + 4, NS = kSub / 8, LDW = kSub + 4;
+  constexpr size_t RING = ring_bytes(D);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
-  T* ks = reinterpret_cast<T*>(smem_raw);  // the block's keys
-  T* vs = ks + kTile * LD;
+  float* ks = reinterpret_cast<float*>(smem_raw);  // the block's keys
+  float* vs = ks + kTile * LD;
   unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTile * LD);  // queries, g, stats
   float* ws = reinterpret_cast<float*>(ring + kStages * RING) + warp * 16 * LDW;
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads, jb = kTile * blockIdx.y;
   const size_t stride = 3 * (size_t)width;
-  const T* base = qkv + (size_t)b * seq * stride + h * D;
-  const T* gbase = grad + (size_t)b * seq * width + h * D;
+  const float* base = qkv + (size_t)b * seq * stride + h * D;
+  const float* gbase = grad + (size_t)b * seq * width + h * D;
   const int tw = stats_rows(seq);
   const float* st = stats + (size_t)blockIdx.x * 3 * tw;
   // causal: query chunks before the block's first key see none of its keys
@@ -1077,10 +1060,11 @@ attention_bwd_kv_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
   auto stage = [&](int c) {
     const int i0c = c * kSub;
     unsigned char* slot = ring + ((c - first) % kStages) * RING;
-    T* dst = reinterpret_cast<T*>(slot);
-    stage_rows<T, D>(dst, LD, base + i0c * stride, stride, seq - i0c, kSub, tid, kTileThreads);
-    stage_rows<T, D>(dst + kSub * LD, LD, gbase + (size_t)i0c * width, width, seq - i0c, kSub,
-                     tid, kTileThreads);
+    float* dst = reinterpret_cast<float*>(slot);
+    stage_rows<float, D>(dst, LD, base + i0c * stride, stride, seq - i0c, kSub, tid,
+                         kTileThreads);
+    stage_rows<float, D>(dst + kSub * LD, LD, gbase + (size_t)i0c * width, width, seq - i0c,
+                         kSub, tid, kTileThreads);
     // the statistics rows run to stats_rows(seq) >= i0c + kSub
     float* sdst = reinterpret_cast<float*>(dst + 2 * kSub * LD);
     for (int idx = tid; idx < 3 * kSub / 4; idx += kTileThreads) {
@@ -1088,10 +1072,10 @@ attention_bwd_kv_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
       cp_async16(sdst + a * kSub + o, st + a * tw + i0c + o, true);
     }
   };
-  stage_rows<T, D>(ks, LD, base + width + jb * stride, stride, seq - jb, kTile, tid,
-                   kTileThreads);
-  stage_rows<T, D>(vs, LD, base + 2 * width + jb * stride, stride, seq - jb, kTile, tid,
-                   kTileThreads);
+  stage_rows<float, D>(ks, LD, base + width + jb * stride, stride, seq - jb, kTile, tid,
+                       kTileThreads);
+  stage_rows<float, D>(vs, LD, base + 2 * width + jb * stride, stride, seq - jb, kTile, tid,
+                       kTileThreads);
   stage(first);
   cp_async_commit();
   if (first + 1 < nch) stage(first + 1);
@@ -1108,12 +1092,12 @@ attention_bwd_kv_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
     const int i0c = c * kSub;
     // (causal: every query of the chunk is before the warp's keys)
     if (!active || (causal && i0c + kSub <= j0)) continue;
-    const T* qs = reinterpret_cast<const T*>(ring + ((c - first) % kStages) * RING);
-    const T* gs = qs + kSub * LD;
+    const float* qs = reinterpret_cast<const float*>(ring + ((c - first) % kStages) * RING);
+    const float* gs = qs + kSub * LD;
     const float* sts = reinterpret_cast<const float*>(gs + kSub * LD);  // m, 1/l, r
     const int n4 = (min(kSub, seq - i0c) + 3) / 4 * 4;
     float s[4][NS], p[4][NS];
-    dots_tiled<T, D, NS>(s, ks + 16 * warp * LD, qs, ry, kx);  // S^T: (key, query)
+    dots_tiled<D, NS>(s, ks + 16 * warp * LD, qs, ry, kx);  // S^T: (key, query)
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
@@ -1121,34 +1105,376 @@ attention_bwd_kv_tiled(const T* __restrict__ qkv, const T* __restrict__ grad,
         const int qi = 8 * jj + kx, key = key0 + t;
         const bool valid = key < seq && i0c + qi < seq && (!causal || key <= i0c + qi);
         p[t][jj] = valid ? expf(s[t][jj] * scale - sts[qi]) * sts[kSub + qi] : 0.f;
-        ws[(4 * ry + t) * LDW + qi] = rnd<T>(p[t][jj]);
+        ws[(4 * ry + t) * LDW + qi] = p[t][jj];
       }
     __syncwarp();
-    rows_times_tiled<T, D, LDW>(dv, ws, gs, n4, ry, kx);
+    rows_times_tiled<D, LDW>(dv, ws, gs, n4, ry, kx);
     __syncwarp();
-    dots_tiled<T, D, NS>(s, vs + 16 * warp * LD, gs, ry, kx);  // dP^T
+    dots_tiled<D, NS>(s, vs + 16 * warp * LD, gs, ry, kx);  // dP^T
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int jj = 0; jj < NS; ++jj) {
         const int qi = 8 * jj + kx;
-        ws[(4 * ry + t) * LDW + qi] = rnd<T>(p[t][jj] * (s[t][jj] - sts[2 * kSub + qi]) * scale);
+        ws[(4 * ry + t) * LDW + qi] = p[t][jj] * (s[t][jj] - sts[2 * kSub + qi]) * scale;
       }
     __syncwarp();
-    rows_times_tiled<T, D, LDW>(dk, ws, qs, n4, ry, kx);
+    rows_times_tiled<D, LDW>(dk, ws, qs, n4, ry, kx);
     __syncwarp();
   }
   if (!active) return;
-  T* out = dqkv + (size_t)b * seq * stride + h * D;
+  float* out = dqkv + (size_t)b * seq * stride + h * D;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int row = key0 + t;
     if (row >= seq) continue;
 #pragma unroll
     for (int u = 0; u < C::kRuns; ++u) {
-      T* dst = out + row * stride + C::col(u, kx);
+      float* dst = out + row * stride + C::col(u, kx);
       store_vec<C::kVec>(dst + width, dk[t] + u * C::kVec);
       store_vec<C::kVec>(dst + 2 * width, dv[t] + u * C::kVec);
+    }
+  }
+}
+
+// ------------------------------------------------ bf16, T > kResidentMaxSeq
+
+// The bf16 streamed pair: the resident kernel's phase A (query side) and
+// phase B (key side), each a launch of blocks over one 64-row tile with one
+// operand pair streamed in 64-row chunks through a ring of kStages stages.
+// A stage holds 64 rows of two operands (k and v, or q and g; D + 8 bf16 a
+// row) and, on the key side, the chunk's lse and r * D^-0.5 (64 floats
+// each); the block's own two operands stay resident (75 KB at D = 64,
+// three blocks an SM).
+__host__ __device__ constexpr size_t bf16_stage_bytes(int D) {
+  return 2 * kChunk * (size_t)(D + 8) * sizeof(bf16) + 2 * kChunk * sizeof(float);
+}
+
+size_t bf16_streamed_smem(int D) {
+  return 2 * kTile * (size_t)(D + 8) * sizeof(bf16) + kStages * bf16_stage_bytes(D);
+}
+
+// Query side.  Block (batch row x head, 64-query tile), a warp per 16 rows
+// with the A fragments of its q and g rows loaded once.  The key chunks
+// stream through the ring as one stream of 2 * nch steps (causal: up to the
+// block's last row's diagonal), chunk step + 2 staged while step computes:
+// sweep 1 keeps the online m, l and rho in base 2 (updated every 32 keys),
+// sweep 2 forms P = 2^(s * scale2 - lse), dP and dS = P * (dP * D^-0.5 -
+// r * D^-0.5) rounded straight into the A fragments of dq = dS . k.  Every row of the tile
+// leaves lse (+inf past T: P = 0) and r * D^-0.5 in the workspace.
+template <int D>
+__global__ void __launch_bounds__(kTileThreads, 3)
+attention_bwd_q_streamed_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
+                              bf16* __restrict__ dqkv, float* __restrict__ stats, int seq,
+                              int width, int heads, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 8;
+  constexpr size_t SB = bf16_stage_bytes(D);
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // the block's query rows
+  bf16* gs = qs + kTile * LD;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + kTile * LD);  // k, v
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads, rb = kTile * blockIdx.y;
+  const size_t stride = 3 * (size_t)width;
+  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
+  const int r0 = rb + 16 * warp, row0 = r0 + lane / 4;  // rows row0 and row0 + 8
+  const bool active = r0 < seq;
+  const int kend = causal ? min(seq, r0 + 16) : seq;  // the keys this warp's rows see
+  const int nch = ((causal ? min(seq, rb + kTile) : seq) + kChunk - 1) / kChunk;
+  const int steps = 2 * nch;
+  auto stage = [&](int step) {
+    if (step >= steps) return;
+    const int c0 = (step < nch ? step : step - nch) * kChunk;
+    bf16* dst = reinterpret_cast<bf16*>(ring + (step % kStages) * SB);
+    stage_rows<bf16, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kChunk, tid,
+                        kTileThreads);
+    stage_rows<bf16, D>(dst + kChunk * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
+                        kChunk, tid, kTileThreads);
+  };
+  stage_rows<bf16, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
+  stage_rows<bf16, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width, seq - rb,
+                      kTile, tid, kTileThreads);
+  stage(0);
+  cp_async_commit();
+  stage(1);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+  // sweep 1: the online max m (of the raw dots: the scale is positive), sum
+  // l and rho = sum of 2^(s * scale2 - m * scale2) * dP, l and rho rescaled
+  // alike when m grows (lane-partial sums over a quad-uniform m)
+  // (from sweep 2 on, m and rho hold each row's lse and r * D^-0.5)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rho[2] = {0.f, 0.f};
+  float dq[D / 8][4] = {};
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<1>();  // this step's chunk has landed
+    __syncthreads();     // ... for every thread; and step - 1's stage is free
+    stage(step + 2);
+    cp_async_commit();
+    if (!active) continue;
+    if (step == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        load_a(qf[kk], qs, LD, 16 * warp, 16 * kk, lane);
+        load_a(gf[kk], gs, LD, 16 * warp, 16 * kk, lane);
+      }
+    }
+    if (step == nch) {  // sweep 1 is done: lse (+inf past T: P = 0) and r * D^-0.5
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const float lsum = group_sum<4>(l[e2]);
+        rho[e2] = group_sum<4>(rho[e2]) / lsum * scale;
+        m[e2] = row0 + 8 * e2 < seq ? fmaf(m[e2], scale2, log2f(lsum)) : INFINITY;
+      }
+    }
+    const int c0 = (step < nch ? step : step - nch) * kChunk;
+    if (c0 >= kend) continue;
+    const bf16* ks = reinterpret_cast<const bf16*>(ring + (step % kStages) * SB);
+    const bf16* vs = ks + kChunk * LD;
+    if (step < nch) {
+      // 32 keys at a time (two 16-key tiles), so that few scores are live
+#pragma unroll 1
+      for (int n1 = 0; n1 < kChunk && c0 + n1 < kend; n1 += 32) {
+        float s[2][2][4], dp[2][2][4];
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int n0 = c0 + n1 + 16 * w;
+          if (n0 < kend) {
+            dots_bf16<D>(s[w], qf, ks, n1 + 16 * w, lane);
+            dots_bf16<D>(dp[w], gf, vs, n1 + 16 * w, lane);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[w][u][e] = dp[w][u][e] = 0.f;
+          }
+          if (n0 + 16 > seq || (causal && n0 + 15 > r0) || n0 >= kend) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = n0 + 8 * u + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
+                const bool valid = n0 < kend && col < seq && (!causal || col <= row);
+                s[w][u][e] = valid ? s[w][u][e] : -INFINITY;
+              }
+          }
+        }
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          float cm = -INFINITY;
+#pragma unroll
+          for (int w = 0; w < 2; ++w)
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              cm = fmaxf(cm, fmaxf(s[w][u][2 * e2], s[w][u][2 * e2 + 1]));
+          // key 0 is in every row's first step, so mn is finite from there on
+          const float mn = fmaxf(m[e2], group_max<4>(cm)), mn2 = mn * scale2;
+          const float alpha = ex2(m[e2] * scale2 - mn2);
+          float ls = 0.f, rsum = 0.f;
+#pragma unroll
+          for (int w = 0; w < 2; ++w)
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int e = 2 * e2; e < 2 * e2 + 2; ++e) {
+                const float p = ex2(fmaf(s[w][u][e], scale2, -mn2));
+                ls += p;
+                rsum = fmaf(p, dp[w][u][e], rsum);
+              }
+          l[e2] = fmaf(l[e2], alpha, ls);
+          rho[e2] = fmaf(rho[e2], alpha, rsum);
+          m[e2] = mn;
+        }
+      }
+      continue;
+    }
+    // sweep 2, two 16-key tiles a step: P and dP in fp32, dS rounded
+    // straight into the A fragments of dq = dS . k.  Keys past T (zero k
+    // and v rows) are masked on the tile that crosses T
+    const int nk = min(kChunk, kend - c0);
+#pragma unroll 1
+    for (int n1 = 0; n1 < nk; n1 += 32) {
+      float s[2][2][4], dp[2][2][4];
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        dots_bf16<D>(s[w], qf, ks, n1 + 16 * w, lane);
+        dots_bf16<D>(dp[w], gf, vs, n1 + 16 * w, lane);
+      }
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const int n0 = c0 + n1 + 16 * w;
+        const bool edge = n0 + 16 > seq || (causal && n0 + 15 > r0);
+        uint32_t a[4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n0 + 8 * u + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
+            const bool valid = !edge || (col < seq && (!causal || col <= row));
+            const float p = valid ? ex2(fmaf(s[w][u][e], scale2, -m[e >> 1])) : 0.f;
+            v[e] = p * fmaf(dp[w][u][e], scale, -rho[e >> 1]);
+          }
+          a[2 * u] = pack_bf16(v[0], v[1]);
+          a[2 * u + 1] = pack_bf16(v[2], v[3]);
+        }
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t bk[4];
+          load_b_cols(bk, ks, LD, n1 + 16 * w, 16 * dd, lane);
+          mma_bf16(dq[2 * dd], a, bk[0], bk[1]);
+          mma_bf16(dq[2 * dd + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+  bf16* out = dqkv + (size_t)b * seq * stride + h * D;
+  const int tw = stats_rows(seq);
+  float* st = stats + (size_t)blockIdx.x * 2 * tw;
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = row0 + 8 * e2;
+    if (active && row < seq) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + row * stride + 8 * n + 2 * (lane & 3)) =
+            pack_bf16(dq[n][2 * e2], dq[n][2 * e2 + 1]);
+    }
+    if ((lane & 3) == 0) st[row] = active ? m[e2] : INFINITY, st[tw + row] = rho[e2];
+  }
+}
+
+// Key side.  Block (batch row x head, 64-key tile), a warp per 16 keys with
+// the A fragments of its k and v rows loaded once.  The query chunks, with
+// their lse and r * D^-0.5, stream through the ring (causal: from the
+// block's own diagonal chunk), chunk c + 2 staged while c computes; a warp
+// takes its chunk's 16-query tiles in order (causal: from its own
+// diagonal).  S^T = k . q^T and dP^T = v . g^T in the accumulator layout
+// are the A fragments of P_lp^T . g and dS^T . q, so no T x T tile touches
+// shared memory.  Queries past T have lse = +inf, so P = dS = 0; keys past
+// T own dk and dv rows that are never written.
+template <int D>
+__global__ void __launch_bounds__(kTileThreads, 3)
+attention_bwd_kv_streamed_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
+                               bf16* __restrict__ dqkv, const float* __restrict__ stats,
+                               int seq, int width, int heads, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 8;
+  constexpr size_t SB = bf16_stage_bytes(D);
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // the block's keys
+  bf16* vs = ks + kTile * LD;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTile * LD);  // q, g, statistics
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads, jb = kTile * blockIdx.y;
+  const size_t stride = 3 * (size_t)width;
+  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
+  const bf16* gbase = grad + (size_t)b * seq * width + h * D;
+  const int tw = stats_rows(seq);
+  const float* st = stats + (size_t)blockIdx.x * 2 * tw;
+  // causal: query chunks before the block's first key see none of its keys
+  const int first = causal ? jb / kChunk : 0, nch = (seq + kChunk - 1) / kChunk;
+  auto stage = [&](int c) {
+    if (c >= nch) return;
+    const int c0 = c * kChunk;
+    bf16* dst = reinterpret_cast<bf16*>(ring + ((c - first) % kStages) * SB);
+    stage_rows<bf16, D>(dst, LD, base + c0 * stride, stride, seq - c0, kChunk, tid,
+                        kTileThreads);
+    stage_rows<bf16, D>(dst + kChunk * LD, LD, gbase + (size_t)c0 * width, width, seq - c0,
+                        kChunk, tid, kTileThreads);
+    // the statistics rows run to stats_rows(seq) >= c0 + kChunk
+    float* sdst = reinterpret_cast<float*>(dst + 2 * kChunk * LD);
+    for (int idx = tid; idx < 2 * kChunk / 4; idx += kTileThreads) {
+      const int a = idx / (kChunk / 4), o = 4 * (idx % (kChunk / 4));
+      cp_async16(sdst + a * kChunk + o, st + a * tw + c0 + o, true);
+    }
+  };
+  stage_rows<bf16, D>(ks, LD, base + width + jb * stride, stride, seq - jb, kTile, tid,
+                      kTileThreads);
+  stage_rows<bf16, D>(vs, LD, base + 2 * width + jb * stride, stride, seq - jb, kTile, tid,
+                      kTileThreads);
+  stage(first);
+  cp_async_commit();
+  stage(first + 1);
+  cp_async_commit();
+
+  const int j0 = jb + 16 * warp, key0 = j0 + lane / 4;  // keys key0 and key0 + 8
+  const bool active = j0 < seq;
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  for (int c = first; c < nch; ++c) {
+    cp_async_wait<1>();
+    __syncthreads();
+    stage(c + 2);
+    cp_async_commit();
+    if (!active) continue;
+    if (c == first) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        load_a(kf[kk], ks, LD, 16 * warp, 16 * kk, lane);
+        load_a(vf[kk], vs, LD, 16 * warp, 16 * kk, lane);
+      }
+    }
+    const int c0 = c * kChunk;
+    const bf16* qs = reinterpret_cast<const bf16*>(ring + ((c - first) % kStages) * SB);
+    const bf16* gs = qs + kChunk * LD;
+    const float* st_lse = reinterpret_cast<const float*>(gs + kChunk * LD);
+    const float* st_rs = st_lse + kChunk;
+    const int iend = min(kChunk, seq - c0);
+    for (int i1 = causal ? max(0, j0 - c0) : 0; i1 < iend; i1 += 16) {
+      const int i0 = c0 + i1;
+      float s[2][4], dp[2][4];
+      dots_bf16<D>(s, kf, qs, i1, lane);   // S^T: (key, query)
+      dots_bf16<D>(dp, vf, gs, i1, lane);  // dP^T
+      const bool edge = causal && j0 + 15 > i0;  // a tile across the diagonal
+      uint32_t ap[4], ad[4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int q1 = i1 + 8 * u + 2 * (lane & 3);  // queries c0 + q1, c0 + q1 + 1
+        const float2 lq = *reinterpret_cast<const float2*>(st_lse + q1);
+        const float2 rq = *reinterpret_cast<const float2*>(st_rs + q1);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * (e >> 1), q = c0 + q1 + (e & 1);
+          const bool valid = !edge || key <= q;
+          const float lv = e & 1 ? lq.y : lq.x, rv = e & 1 ? rq.y : rq.x;
+          p[e] = valid ? ex2(fmaf(s[u][e], scale2, -lv)) : 0.f;
+          ds[e] = p[e] * fmaf(dp[u][e], scale, -rv);
+        }
+        ap[2 * u] = pack_bf16(p[0], p[1]);
+        ap[2 * u + 1] = pack_bf16(p[2], p[3]);
+        ad[2 * u] = pack_bf16(ds[0], ds[1]);
+        ad[2 * u + 1] = pack_bf16(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t bg[4], bq[4];
+        load_b_cols(bg, gs, LD, i1, 16 * dd, lane);
+        load_b_cols(bq, qs, LD, i1, 16 * dd, lane);
+        mma_bf16(dv[2 * dd], ap, bg[0], bg[1]);
+        mma_bf16(dv[2 * dd + 1], ap, bg[2], bg[3]);
+        mma_bf16(dk[2 * dd], ad, bq[0], bq[1]);
+        mma_bf16(dk[2 * dd + 1], ad, bq[2], bq[3]);
+      }
+    }
+  }
+  if (!active) return;
+  bf16* out = dqkv + (size_t)b * seq * stride + h * D;
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = key0 + 8 * e2;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(out + row * stride + width + col) =
+          pack_bf16(dk[n][2 * e2], dk[n][2 * e2 + 1]);
+      *reinterpret_cast<uint32_t*>(out + row * stride + 2 * width + col) =
+          pack_bf16(dv[n][2 * e2], dv[n][2 * e2 + 1]);
     }
   }
 }
@@ -1157,45 +1483,47 @@ template <typename Kernel>
 cudaError_t set_smem_shared_carveout(Kernel kernel, size_t bytes) {
   cudaError_t e = set_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
-  // two blocks of the fp32 tiled kernels share an SM only with the largest carveout
+  // several blocks of a streamed pair's kernel share an SM only with the largest carveout
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// The streamed pair on one stream: the query side (dq and the row
-// statistics), then the key side (dk, dv).
-template <typename T, int D>
-cudaError_t launch_streamed(const void* qkv, const void* grad, void* dqkv, float* stats, int B,
-                            int seq, int width, int heads, float scale, int causal,
-                            cudaStream_t stream) {
+// A streamed pair on one stream: the query side (dq and the row
+// statistics), then the key side (dk, dv), on 64-row tiles.
+template <typename T, typename Kq, typename Kkv>
+cudaError_t launch_pair(Kq q_side, Kkv kv_side, size_t smem, const void* qkv, const void* grad,
+                        void* dqkv, float* stats, int B, int seq, int width, int heads,
+                        float scale, int causal, cudaStream_t stream) {
   cudaError_t e;
   const dim3 grid(B * heads, stats_rows(seq) / kTile);
-  const size_t smem = tiled_smem<T>(D);
-  if ((e = set_smem_shared_carveout(attention_bwd_q_tiled<T, D>, smem)) != cudaSuccess) return e;
-  if ((e = set_smem_shared_carveout(attention_bwd_kv_tiled<T, D>, smem)) != cudaSuccess) return e;
-  attention_bwd_q_tiled<T, D><<<grid, kTileThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(grad), static_cast<T*>(dqkv), stats, seq,
-      width, heads, scale, causal);
+  if ((e = set_smem_shared_carveout(q_side, smem)) != cudaSuccess) return e;
+  if ((e = set_smem_shared_carveout(kv_side, smem)) != cudaSuccess) return e;
+  q_side<<<grid, kTileThreads, smem, stream>>>(static_cast<const T*>(qkv),
+                                               static_cast<const T*>(grad), static_cast<T*>(dqkv),
+                                               stats, seq, width, heads, scale, causal);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  attention_bwd_kv_tiled<T, D><<<grid, kTileThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(grad), static_cast<T*>(dqkv), stats, seq,
-      width, heads, scale, causal);
+  kv_side<<<grid, kTileThreads, smem, stream>>>(static_cast<const T*>(qkv),
+                                                static_cast<const T*>(grad),
+                                                static_cast<T*>(dqkv), stats, seq, width, heads,
+                                                scale, causal);
   return cudaGetLastError();
 }
 
 // T > 128: bf16 in one launch up to kResidentMaxSeq (the resident kernel),
-// the streamed pair above; fp32 always the streamed pair.
+// its streamed pair above; fp32 always the fp32 streamed pair.
 template <int D>
 cudaError_t launch_tiled(const void* qkv, const void* grad, void* dqkv, float* stats, int B,
                          int seq, int width, int heads, float scale, int causal, int dtype,
                          cudaStream_t stream) {
   if (dtype == 0) {
-    return launch_streamed<float, D>(qkv, grad, dqkv, stats, B, seq, width, heads, scale, causal,
-                                     stream);
+    return launch_pair<float>(attention_bwd_q_tiled<D>, attention_bwd_kv_tiled<D>, tiled_smem(D),
+                              qkv, grad, dqkv, stats, B, seq, width, heads, scale, causal,
+                              stream);
   }
   if (seq > kResidentMaxSeq) {
-    return launch_streamed<bf16, D>(qkv, grad, dqkv, stats, B, seq, width, heads, scale, causal,
-                                    stream);
+    return launch_pair<bf16>(attention_bwd_q_streamed_bf16<D>, attention_bwd_kv_streamed_bf16<D>,
+                             bf16_streamed_smem(D), qkv, grad, dqkv, stats, B, seq, width, heads,
+                             scale, causal, stream);
   }
   cudaError_t e;
   const size_t smem = resident_bf16_smem(seq, D);
@@ -1249,10 +1577,10 @@ extern "C" {
 // it no longer depends on seq.
 size_t mnt_attention_bwd_smem(int seq, int head_dim) {
   if (seq > kResidentMaxSeq) {
-    return std::max(tiled_smem<bf16>(head_dim), tiled_smem<float>(head_dim));
+    return std::max(bf16_streamed_smem(head_dim), tiled_smem(head_dim));
   }
   if (seq > kWholeMaxSeq) {
-    return std::max(resident_bf16_smem(seq, head_dim), tiled_smem<float>(head_dim));
+    return std::max(resident_bf16_smem(seq, head_dim), tiled_smem(head_dim));
   }
   return std::max(bf16_smem(seq, head_dim), f32_smem(seq, head_dim));
 }
@@ -1270,12 +1598,14 @@ int mnt_attention_bwd_warps(int seq, int head_dim, int dtype) {
   return tp / 16 * (dtype == 0 ? f32_split(key_capacity(tp), head_dim) : 1);
 }
 
-// Bytes of fp32 workspace a call needs: the streamed pair's (m, 1/l, r) of
-// every (row, head, query), rows rounded up to 64 (fp32 above 128 tokens,
-// bf16 above kResidentMaxSeq); 0 otherwise.
+// Bytes of fp32 workspace a call needs: the streamed pair's row statistics
+// for every (row, head, query), queries rounded up to 64: (m, 1/l, r) for
+// fp32 above 128 tokens, (lse, r * D^-0.5) for bf16 above kResidentMaxSeq;
+// 0 otherwise.
 size_t mnt_attention_bwd_workspace(int B, int seq, int heads, int dtype) {
-  const bool streamed = dtype == 0 ? seq > kWholeMaxSeq : seq > kResidentMaxSeq;
-  return streamed ? 3 * sizeof(float) * (size_t)B * heads * stats_rows(seq) : 0;
+  const size_t rows = (size_t)B * heads * stats_rows(seq);
+  if (dtype == 0) return seq > kWholeMaxSeq ? 3 * sizeof(float) * rows : 0;
+  return seq > kResidentMaxSeq ? 2 * sizeof(float) * rows : 0;
 }
 
 // qkv: (B, seq, 3*width) contiguous; grad: (B, seq, width) contiguous;

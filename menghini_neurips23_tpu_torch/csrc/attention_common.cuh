@@ -1,6 +1,7 @@
 // Building blocks shared by the attention kernels K1 (attention_fwd.cu) and
 // K2 (attention_bwd.cu): 16-byte cp.async staging, ldmatrix, the bf16
-// m16n8k16 tensor-core product with fp32 accumulators, warp reductions, the
+// m16n8k16 and the TF32 m16n8k8 tensor-core products with fp32
+// accumulators (fp32 as 3xTF32), base-2 exponentials, warp reductions, the
 // fp32 register tiles, and the scaled, masked scores both kernels start from.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane l, g = l / 4,
@@ -77,6 +78,52 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo (+ what lo drops): hi is x rounded to TF32's 10 fraction bits
+// (on the bit pattern, to nearest, ties away from zero, as cvt.rna.tf32.f32
+// rounds: integer operations, not the slower cvt), x - hi is exact in fp32,
+// and lo is that cut to TF32 (the bits the tensor core reads)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// c += a . b on the tensor cores: TF32 operands, fp32 accumulators.
+// Fragments (PTX ISA, mma.m16n8k8 .tf32): lane l, g = l / 4, q = l % 4;
+// A holds (g, q), (g + 8, q), (g, q + 4), (g + 8, q + 4); B holds (k = q,
+// n = g), (k = q + 4, n = g); C as for m16n8k16.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b to fp32 accuracy as 3xTF32: lo.hi + hi.lo + hi.hi (what is
+// dropped, lo.lo and the bits below lo, is ~2^-21 of the product), summed
+// on the tensor cores in a zeroed tile and then added to c with one fp32
+// add (rounded to nearest), so that no sum runs long inside the tensor
+// cores' adders, which truncate
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh0, bh1);
+  mma_tf32(t, ah, bl0, bl1);
+  mma_tf32(t, ah, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// 2^x, one MUFU operation (ex2.approx.ftz: relative error below 2^-22,
+// results below 2^-126 flushed to 0, 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two fp32 values rounded to bf16 (nearest even), lo in the low half
@@ -233,6 +280,60 @@ __device__ __forceinline__ void scores_bf16(float (&s)[KC / 8][4], const uint32_
         s[2 * j + t][e] = valid ? s[2 * j + t][e] * scale : -INFINITY;
       }
   }
+}
+
+// The same for fp32 rows (D + 4 floats a row) as 3xTF32 on m16n8k8, the
+// A fragments of the warp's 16 rows of q read from qw (its first row) at
+// each k-step, two k-steps at a time, so that few of them are live at once;
+// ldmatrix reads fp32 rows as well (an 8 x 8 matrix of b16 pairs is an
+// 8 x 4 matrix of floats).  The accumulator layout is scores_bf16's.
+template <int D, int KC>
+__device__ __forceinline__ void scores_tf32(float (&s)[KC / 8][4], const float* qw,
+                                            const float* ks, int c0, int kend, int seq, int r0,
+                                            bool causal, float scale, int lane, int ks0 = 0) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = c0 + 8 * n < kend ? 0.f : -INFINITY;
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+    // matrices (rows 0-7, d 8kk..), (8-15, 8kk..), (0-7, 8kk + 4..), (8-15, 8kk + 4..)
+    uint32_t a[4], ah[4], al[4];
+    ldmatrix_x4(a, qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + 8 * kk + (lane >> 4) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+#pragma unroll
+    for (int j = 0; j < KC / 16; ++j) {
+      const int n0 = c0 + 16 * j;
+      if (n0 >= kend) continue;
+      // matrices (keys n0.., d 8kk..), (n0.., 8kk + 4..), (n0 + 8.., 8kk..), (n0 + 8.., 8kk + 4..)
+      uint32_t b[4], bh[4], bl[4];
+      ldmatrix_x4(b, ks + (n0 - ks0 + (lane & 7) + (lane >> 4) * 8) * LD + 8 * kk +
+                         ((lane >> 3) & 1) * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(b[e], bh[e], bl[e]);
+      mma_3xtf32(s[2 * j], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma_3xtf32(s[2 * j + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KC / 16; ++j) {
+    const int n0 = c0 + 16 * j;
+    if (n0 >= kend || !(n0 + 16 > seq || (causal && n0 + 15 > r0))) continue;
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n0 + 8 * t + 2 * (lane & 3) + (e & 1);
+        const int row = r0 + lane / 4 + (e >> 1) * 8;
+        if (col >= seq || (causal && col > row)) s[2 * j + t][e] = -INFINITY;
+      }
+  }
+#pragma unroll
+  for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] *= scale;  // -inf stays -inf
 }
 
 // Scores of lane (ry, kx)'s rows r0 + 4ry + i against keys c0 + kx + 8jj

@@ -13,13 +13,18 @@
 // it is rounded and multiplied by V, as the Pallas kernel does (no deferred
 // flash-style normalisation, which would move a rounding point).
 //
-// What bounds it on an H100: memory.  CLIP's sequences are short (T = 50
-// vision tokens, <= 77 text tokens, 257/273 for ViT-L/14) and D = 64, so the
-// work is 4*B*H*T^2*D operations against B*T*4W elements read and written:
-// about 25 operations per byte at the ViT-B/32 vision shape, far below the
-// ~295 per byte where the bf16 tensor cores would become the limit.  What
-// the design has to avoid is paying more than the bytes: scalar 2-byte
-// staging, fp32 conversions and two shared-memory loads per FMA.
+// What bounds it on an H100.  The work is 4*B*H*T^2*D operations against
+// B*T*4W elements read and written.  bf16: memory.  CLIP's sequences are
+// short (T = 50 vision tokens, <= 77 text tokens, 257/273 for ViT-L/14)
+// and D = 64: about 25 operations per byte at the ViT-B/32 vision shape and
+// about 170 at T = 337, below the ~295 per byte where the bf16 tensor cores
+// would become the limit.  What the design has to avoid is
+// paying more than the bytes: scalar 2-byte staging, fp32 conversions, two
+// shared-memory loads per FMA, loads that wait on nothing to overlap.
+// fp32: operations.  An fp32-accurate product on the tensor cores is three
+// TF32 products (3xTF32, below), so the least time is 3 x FLOPs at the TF32
+// rate (494 TFLOP/s), which is under FLOPs at the FMA rate (67 TFLOP/s);
+// PyTorch's own fp32 attention takes the same route.
 //
 // Design, one block per (batch row, head), reading the fused layout in place
 // (no head-split copies), one warp per 16-row query tile (up to 8 tiles;
@@ -38,26 +43,50 @@
 //   registers (16 x 128 fp32 across the warp), the row max and sum are quad
 //   shuffles, and P = exp(s - m) * (1/l) is rounded to bf16 straight into
 //   the A fragments of P.V;
-// - fp32, full-fp32 FFMA (no TF32: it would break the 1e-5 agreement),
-//   register-tiled: lane (ry, kx) owns a 4-row x KC/8-key tile of S and a
-//   4-row x D/8 tile of O, each shared-memory float4 feeding 4-16 FMAs; the
-//   rounded P of the warp's rows goes through shared memory once per chunk;
+// - fp32 up to kResidentMaxSeq, full-fp32 FFMA register tiles: lane (ry,
+//   kx) owns a 4-row x KC/8-key tile of S and a 4-row x D/8 tile of O, each
+//   shared-memory float4 feeding 4-16 FMAs; the rounded P of the warp's
+//   rows goes through shared memory once per chunk;
 // - T above 128 keys (ViT-L/14): two sweeps over 128-key chunks, the first
 //   for the row max and sum (rescaled from chunk to chunk), the second for
 //   the normalised, rounded P.V; up to 128 keys the scores are computed once
 //   and exp(s - m) is taken once;
 // - causal rows skip whole 16-key tiles above the diagonal and mask inside
 //   the diagonal tile (and the tile holding T); masked and padded keys give
-//   P = 0 exactly;
-// - T above kResidentMaxSeq (320; ViT-L/14 with a prompt above 63 tokens,
-//   ViT-L/14@336's 577): the whole of K and V no longer fits a block (fp32
-//   runs out first, at 333 keys), so both sweeps stream 128-key chunks
-//   (K in sweep 1, K and V in sweep 2) from device memory through one
-//   chunk buffer each, behind a block barrier: the block's shared memory no
-//   longer depends on T (55 KB bf16, 118 KB fp32 at D = 64).  The chunks
-//   are the resident form's chunks and the arithmetic is the same, so a
-//   streamed call gives the bits the resident one would.  K is read twice
-//   and there is no double buffering: a simple form, not yet tuned.
+//   P = 0 exactly.
+//
+// T above kResidentMaxSeq (320; ViT-L/14 with a prompt above 63 tokens,
+// ViT-L/14@336's 577): the whole of K and V no longer fits a block, so K
+// and V stream from device memory (attention_fwd_streamed):
+// - a block per (batch row, head, 64-query tile), a warp per 16 rows; both
+//   sweeps are one stream of steps over the block's key chunks (sweep 1
+//   stages K alone, sweep 2 K and V) through a cp.async ring, the chunk of
+//   step + stages - 1 landing while step computes, one barrier a step;
+//   the block's shared memory does not depend on T (bf16: 2 stages of
+//   64-key chunks, 46 KB, four blocks and 16 warps an SM; fp32: 3 stages
+//   of 32-key chunks, 70 KB, three blocks and 12 warps an SM); a warp reads
+//   its q fragments from shared memory at each step rather than holding
+//   them, which keeps bf16 within the 128 registers four blocks allow;
+// - the softmax in base 2, D^-0.5 * log2(e) folded into the scores' scale
+//   and every exponential one ex2; the scores are computed in both sweeps
+//   (on the tensor cores they cost less than keeping them), since P is
+//   normalised before the P.V that rounds it: the row's max and sum must be
+//   whole first;
+// - bf16: the resident arithmetic (mma.sync m16n8k16, quad shuffles, P
+//   packed straight into the A fragments of P.V);
+// - fp32 as 3xTF32 on mma.sync m16n8k8 (attention_common.cuh): each operand
+//   x = hi + lo (hi rounded to TF32 as cvt.rna.tf32.f32 rounds, lo the rest
+//   cut to TF32), every product lo.hi + hi.lo + hi.hi summed in a zeroed
+//   tile and then added to the fp32 accumulator, so the tensor cores'
+//   truncating adders see short sums; P stays fp32 and is split like any
+//   operand; its A fragments come from the scores' accumulators with the
+//   keys of a k-step in the order (2q, 2q + 1) for k = (q, q + 4), and V is
+//   read in that order.  Why three products: one TF32 product keeps 10
+//   fraction bits, and this schedule over T = 337 keys at D = 64 then errs
+//   by 3.4e-4 against the JAX package's forward, past the 1e-5 the kernel
+//   is held to; hi.hi + hi.lo + lo.hi leaves out only lo.lo (2^-22 of a
+//   product) and errs by 5.7e-7, about what two fp32 sums in different
+//   orders differ by (tests/test_torch_port_streamed.py emulates both).
 
 #include "attention_common.cuh"
 
@@ -71,8 +100,6 @@ using namespace mnt;
 // (grid.y), each staging the whole of K and V.
 // Up to here K and V are resident in shared memory; above, they stream.
 constexpr int kResidentMaxSeq = 320;
-constexpr int kStreamWarpsBf16 = 8;
-constexpr int kStreamWarpsF32 = 4;
 
 int bf16_warps(int seq) { return std::min(8, round16(seq) / 16); }
 int f32_warps(int seq) { return round16(seq) <= 128 ? round16(seq) / 16 : 4; }
@@ -86,15 +113,30 @@ size_t f32_smem(int seq, int D) {
           (size_t)f32_warps(seq) * 16 * (D + 4 + key_capacity(tp) + 4)) * sizeof(float);
 }
 
-// streamed (T > kResidentMaxSeq): the block's query rows and one 128-key
-// chunk of K and of V (bf16); one chunk of K and V and each warp's q rows
-// and P (fp32)
-size_t bf16_streamed_smem(int D) {
-  return (16 * (size_t)kStreamWarpsBf16 + 2 * 128) * (D + 8) * sizeof(bf16);
-}
-size_t f32_streamed_smem(int D) {
-  return (2 * 128 * (size_t)(D + 4) + (size_t)kStreamWarpsF32 * 16 * (D + 4 + 128 + 4)) *
-         sizeof(float);
+// streamed (T > kResidentMaxSeq): a block of kStreamRows query rows, a warp
+// per 16; chunks of kKeys keys in a ring of kStages (bf16: 64 keys, 2
+// stages, 46 KB at D = 64, four blocks of 128 registers a thread, 16 warps
+// an SM; fp32: 32 keys, 3 stages, 70 KB, three blocks, 12 warps an SM).
+// Rows are padded to D + 8 bf16 or D + 4 floats (16-byte multiples, free
+// of bank conflicts for ldmatrix and for the fp32 P.V's column reads of V).
+constexpr int kStreamRows = 64;
+constexpr int kStreamThreads = 2 * kStreamRows;
+template <typename T>
+struct Stream;
+template <>
+struct Stream<bf16> {
+  static constexpr int kKeys = 64, kStages = 2, kBlocks = 4;
+};
+template <>
+struct Stream<float> {
+  static constexpr int kKeys = 32, kStages = 3, kBlocks = 3;
+};
+template <typename T>
+__host__ __device__ constexpr int row_ld(int D) { return D + 16 / (int)sizeof(T); }
+template <typename T>
+size_t streamed_smem(int D) {
+  return (kStreamRows + 2 * Stream<T>::kKeys * Stream<T>::kStages) * (size_t)row_ld<T>(D) *
+         sizeof(T);
 }
 
 // ------------------------------------------------------------------ bf16
@@ -323,248 +365,187 @@ attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int se
 
 // ------------------------------------------------------------ streamed
 
-// bf16, T > kResidentMaxSeq: 8 warps of 16 query rows; each sweep walks the
-// block's 128-key chunks (causal: up to its last row's diagonal), staging
-// the chunk after a barrier, so that every warp is done with the last one.
-// Per warp the arithmetic is the resident kernel's at KC = 128.
-template <int D>
-__global__ void __launch_bounds__(32 * kStreamWarpsBf16, 1)
-attention_fwd_bf16_streamed(const bf16* __restrict__ qkv, bf16* __restrict__ out, int seq,
-                            int width, int heads, float scale, int causal) {
+// T > kResidentMaxSeq, both types.  Block (batch row x head, 64-query
+// tile), a warp per 16 rows.  The two sweeps are one stream of 2 * nch
+// steps over the block's chunks (causal: up to its last row's diagonal):
+// steps 0 .. nch - 1 stage K alone and take each row's online max m and
+// sum l (base 2: scale2 = D^-0.5 * log2(e) is folded into the scores, P =
+// 2^(s - m)); steps nch .. 2 nch - 1 stage K and V, recompute the scores
+// and add the normalised P = 2^(s - m) / l (rounded to bf16 for bf16) times
+// V.  Chunk step + kStages - 1 is staged while step computes, behind one
+// barrier a step.  bf16: every product on mma.sync m16n8k16, P packed
+// straight into the A fragments of P.V.  fp32: every product as 3xTF32
+// on m16n8k8; P.V takes P from the scores' accumulators with the chunk's
+// keys in the order (n0 + 2q, n0 + 2q + 1) for the fragment's k = (q, q +
+// 4), and V's column reads in that order.
+template <typename T, int D>
+__global__ void __launch_bounds__(kStreamThreads, Stream<T>::kBlocks)
+attention_fwd_streamed(const T* __restrict__ qkv, T* __restrict__ out, int seq, int width,
+                       int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int KC = 128, LD = D + 8, NW = kStreamWarpsBf16, NT = 32 * NW;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int KC = Stream<T>::kKeys, S = Stream<T>::kStages, LD = row_ld<T>(D);
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
   const int tp = round16(seq);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rb = 16 * NW * blockIdx.y;  // the block's first query row
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + 16 * NW * LD;
-  bf16* vs = ks + KC * LD;
+  const int rb = kStreamRows * blockIdx.y, r0 = rb + 16 * warp;
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ring = qs + kStreamRows * LD;  // stage i: KC rows of K, then KC of V
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
-  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
-  const int r0 = rb + 16 * warp;
+  const T* base = qkv + (size_t)b * seq * stride + h * D;
   const bool active = r0 < tp;
-  const int kend = causal ? min(tp, r0 + 16) : tp;
-  const int nch = ((causal ? min(tp, rb + 16 * NW) : tp) + KC - 1) / KC;  // the block's chunks
-  stage_rows<bf16, D>(qs, LD, base + rb * stride, stride, seq - rb, min(16 * NW, tp - rb), tid,
-                      NT);
+  const int kend = causal ? min(tp, r0 + 16) : tp;  // the keys this warp's rows see
+  const int nch = ((causal ? min(tp, rb + kStreamRows) : tp) + KC - 1) / KC;
+  const int steps = 2 * nch;
+  auto stage = [&](int step) {
+    if (step >= steps) return;
+    const int c0 = (step < nch ? step : step - nch) * KC;
+    T* dst = ring + (step % S) * 2 * KC * LD;
+    stage_rows<T, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, KC, tid,
+                     kStreamThreads);
+    if (step >= nch) {
+      stage_rows<T, D>(dst + KC * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0, KC,
+                       tid, kStreamThreads);
+    }
+  };
+  // group 0: the block's q rows and step 0; then steps 1 .. S - 2
+  stage_rows<T, D>(qs, LD, base + rb * stride, stride, seq - rb, kStreamRows, tid,
+                   kStreamThreads);
+  stage(0);
   cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float s[KC / 8][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  // sweep 1: row max and sum, rescaled from chunk to chunk
-  for (int c = 0; c < nch; ++c) {
-    const int c0 = c * KC;
-    __syncthreads();  // every warp is done with the previous chunk
-    stage_rows<bf16, D>(ks, LD, base + width + c0 * stride, stride, seq - c0, KC, tid, NT);
+#pragma unroll
+  for (int i = 1; i < S - 1; ++i) {
+    stage(i);
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active || c0 >= kend) continue;
-    if (c == 0) {
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
+  float o[D / 8][4] = {};
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<S - 2>();  // this step's chunk has landed
+    __syncthreads();         // ... for every thread; and step - 1's stage is free
+    stage(step + S - 1);
+    cp_async_commit();
+    if (!active) continue;
+    if (step == nch) {  // sweep 1 is done: reduce l over the row's quad
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / group_sum<4>(l[r]);
+    }
+    const int c0 = (step < nch ? step : step - nch) * KC;
+    if (c0 >= kend) continue;
+    const T* ks = ring + (step % S) * 2 * KC * LD;
+    const T* vs = ks + KC * LD;
+    float s[KC / 8][4];
+    if constexpr (kBf16) {
+      // the A fragments of the warp's q rows, read again each step rather
+      // than held (bf16 fits the 128 registers of four blocks an SM so)
+      uint32_t qf[D / 16][4];
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], qs, LD, r0 - rb, 16 * kk, lane);
+      scores_bf16<D, KC>(s, qf, ks, c0, kend, seq, r0, causal, scale2, lane, c0);
+    } else {
+      scores_tf32<D, KC>(s, qs + (r0 - rb) * LD, ks, c0, kend, seq, r0, causal, scale2, lane,
+                         c0);
     }
-    scores_bf16<D, KC>(s, qf, ks, c0, kend, seq, r0, causal, scale, lane, c0);
+    if (step < nch) {
+      // online m and l: m quad-uniform, l lane-partial (key 0, in every
+      // row's first chunk, keeps m finite from there on)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float cm = -INFINITY;
+      for (int r = 0; r < 2; ++r) {
+        float cm = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < KC / 8; ++n) cm = fmaxf(cm, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      const float mn = fmaxf(m[r], group_max<4>(cm));
-      float sum = 0.f;
+        for (int n = 0; n < KC / 8; ++n) cm = fmaxf(cm, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        const float mn = fmaxf(m[r], group_max<4>(cm));
+        float sum = 0.f;
 #pragma unroll
-      for (int n = 0; n < KC / 8; ++n)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) sum += expf(s[n][e] - mn);
-      l[r] = l[r] * expf(m[r] - mn) + group_sum<4>(sum);
-      m[r] = mn;
+        for (int n = 0; n < KC / 8; ++n) sum += ex2(s[n][2 * r] - mn) + ex2(s[n][2 * r + 1] - mn);
+        l[r] = fmaf(l[r], ex2(m[r] - mn), sum);
+        m[r] = mn;
+      }
+      continue;
     }
-  }
-  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
-
-  // sweep 2: P = exp(s - m) / l rounded to bf16 into the A fragments of P.V
-  float o[D / 8][4] = {};
-  for (int c = 0; c < nch; ++c) {
-    const int c0 = c * KC;
-    __syncthreads();
-    stage_rows<bf16, D>(ks, LD, base + width + c0 * stride, stride, seq - c0, KC, tid, NT);
-    stage_rows<bf16, D>(vs, LD, base + 2 * width + c0 * stride, stride, seq - c0, KC, tid, NT);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active || c0 >= kend) continue;
-    scores_bf16<D, KC>(s, qf, ks, c0, kend, seq, r0, causal, scale, lane, c0);
+    // P = 2^(s - m) / l in fp32
 #pragma unroll
     for (int n = 0; n < KC / 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - m[e >> 1]);
+      for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - m[e >> 1]) * inv_l[e >> 1];
+    if constexpr (kBf16) {
+      // rounded to bf16 straight into the A fragments of P.V
 #pragma unroll
-    for (int j = 0; j < KC / 16; ++j) {
-      const int n0 = c0 + 16 * j;
-      if (n0 >= kend) break;
-      uint32_t a[4];
+      for (int j = 0; j < KC / 16; ++j) {
+        if (c0 + 16 * j >= kend) break;
+        uint32_t a[4];
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        a[2 * t] = pack_bf16(s[2 * j + t][0] * inv_l[0], s[2 * j + t][1] * inv_l[0]);
-        a[2 * t + 1] = pack_bf16(s[2 * j + t][2] * inv_l[1], s[2 * j + t][3] * inv_l[1]);
+        for (int t = 0; t < 2; ++t) {
+          a[2 * t] = pack_bf16(s[2 * j + t][0], s[2 * j + t][1]);
+          a[2 * t + 1] = pack_bf16(s[2 * j + t][2], s[2 * j + t][3]);
+        }
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t bv[4];
+          load_b_cols(bv, vs, LD, 16 * j, 16 * dd, lane);
+          mma_bf16(o[2 * dd], a, bv[0], bv[1]);
+          mma_bf16(o[2 * dd + 1], a, bv[2], bv[3]);
+        }
       }
+    } else {
+      // k-step kk: keys c0 + 8kk + (2q, 2q + 1) as the fragment's k = (q, q + 4)
+      const int q = lane & 3, g = lane / 4;
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t bv[4];
-        load_b_cols(bv, vs, LD, 16 * j, 16 * dd, lane);
-        mma_bf16(o[2 * dd], a, bv[0], bv[1]);
-        mma_bf16(o[2 * dd + 1], a, bv[2], bv[3]);
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        if (c0 + 8 * kk >= kend) break;
+        const uint32_t a[4] = {__float_as_uint(s[kk][0]), __float_as_uint(s[kk][2]),
+                               __float_as_uint(s[kk][1]), __float_as_uint(s[kk][3])};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+        const float* v0 = reinterpret_cast<const float*>(vs) + (8 * kk + 2 * q) * LD + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(__float_as_uint(v0[8 * n]), bh0, bl0);
+          split_tf32(__float_as_uint(v0[LD + 8 * n]), bh1, bl1);
+          mma_3xtf32(o[n], ah, al, bh0, bh1, bl0, bl1);
+        }
       }
     }
   }
   if (!active) return;
-  bf16* out_b = out + (size_t)b * seq * width + h * D;
+  T* out_b = out + (size_t)b * seq * width + h * D;
   const int row0 = r0 + lane / 4;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = 8 * n + 2 * (lane & 3);
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row0 + 8 * r < seq)
-        *reinterpret_cast<uint32_t*>(out_b + (size_t)(row0 + 8 * r) * width + col) =
-            pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
-  }
-}
-
-// fp32, T > kResidentMaxSeq: 4 warps of 16 query rows, the resident fp32
-// kernel's register tiles at KC = 128 over streamed chunks of K and V.
-template <int D>
-__global__ void __launch_bounds__(32 * kStreamWarpsF32, 1)
-attention_fwd_f32_streamed(const float* __restrict__ qkv, float* __restrict__ out, int seq,
-                           int width, int heads, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  using C = Cols<D>;
-  constexpr int KC = 128, LD = D + 4, LDP = KC + 4, NS = KC / 8, NW = kStreamWarpsF32;
-  constexpr int NT = 32 * NW;
-  const int tp = round16(seq);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + KC * LD;
-  float* qw = vs + KC * LD + warp * 16 * (LD + LDP);  // this warp's q rows, then its P
-  float* pw = qw + 16 * LD;
-
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const size_t stride = 3 * (size_t)width;
-  const float* base = qkv + (size_t)b * seq * stride + h * D;
-  const int rb = 16 * NW * blockIdx.y, r0 = rb + 16 * warp;
-  const bool active = r0 < tp;
-  if (active) stage_rows<float, D>(qw, LD, base + r0 * stride, stride, seq - r0, 16, lane, 32);
-  cp_async_commit();
-
-  const int ry = lane / 8, kx = lane % 8;
-  const int kend = causal ? min(tp, r0 + 16) : tp;
-  const int nch = ((causal ? min(tp, rb + 16 * NW) : tp) + KC - 1) / KC;
-  float s[4][NS];
-  float m[4], l[4], inv_l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
-  for (int c = 0; c < nch; ++c) {
-    const int c0 = c * KC;
-    __syncthreads();
-    stage_rows<float, D>(ks, LD, base + width + c0 * stride, stride, seq - c0, KC, tid, NT);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active || c0 >= kend) continue;
-    scores_f32<D, KC>(s, qw, ks, c0, kend, seq, r0, causal, scale, ry, kx, c0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float cm = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < NS; ++jj) cm = fmaxf(cm, s[i][jj]);
-      const float mn = fmaxf(m[i], group_max<8>(cm));
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < NS; ++jj) sum += expf(s[i][jj] - mn);
-      l[i] = l[i] * expf(m[i] - mn) + group_sum<8>(sum);
-      m[i] = mn;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) inv_l[i] = 1.f / l[i];
-
-  float o[4][C::kPer] = {};
-  for (int c = 0; c < nch; ++c) {
-    const int c0 = c * KC;
-    __syncthreads();
-    stage_rows<float, D>(ks, LD, base + width + c0 * stride, stride, seq - c0, KC, tid, NT);
-    stage_rows<float, D>(vs, LD, base + 2 * width + c0 * stride, stride, seq - c0, KC, tid, NT);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active || c0 >= kend) continue;
-    scores_f32<D, KC>(s, qw, ks, c0, kend, seq, r0, causal, scale, ry, kx, c0);
-    // P of the warp's rows, once per chunk, for every lane of the row
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < NS; ++jj)
-        pw[(4 * ry + i) * LDP + 8 * jj + kx] = expf(s[i][jj] - m[i]) * inv_l[i];
-    __syncwarp();
-    const int n = min(KC, kend - c0);
-#pragma unroll 1
-    for (int j = 0; j < n; j += 4) {
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) load_vec<4>(p[i], pw + (4 * ry + i) * LDP + j);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float* vrow = vs + (j + t) * LD;
-#pragma unroll
-        for (int u = 0; u < C::kRuns; ++u) {
-          float v[C::kVec];
-          load_vec<C::kVec>(v, vrow + C::col(u, kx));
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < C::kVec; ++e)
-              o[i][u * C::kVec + e] = fmaf(p[i][t], v[e], o[i][u * C::kVec + e]);
-        }
+    for (int r = 0; r < 2; ++r) {
+      if (row0 + 8 * r >= seq) continue;
+      T* dst = out_b + (size_t)(row0 + 8 * r) * width + col;
+      if constexpr (kBf16) {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
+      } else {
+        *reinterpret_cast<float2*>(dst) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
       }
     }
-    __syncwarp();
   }
-  if (!active) return;
-  float* out_b = out + (size_t)b * seq * width + h * D;
-  const int row0 = r0 + 4 * ry;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (row0 + i < seq)
-#pragma unroll
-      for (int u = 0; u < C::kRuns; ++u)
-        store_vec<C::kVec>(out_b + (size_t)(row0 + i) * width + C::col(u, kx), o[i] + u * C::kVec);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_streamed(const void* qkv, void* out, int B, int seq, int width, int heads,
-                            float scale, int causal, int dtype, cudaStream_t stream) {
+                            float scale, int causal, cudaStream_t stream) {
   cudaError_t e;
-  const int tiles = round16(seq) / 16;
-  if (dtype == 0) {
-    const size_t smem = f32_streamed_smem(D);
-    const int nw = kStreamWarpsF32;
-    if ((e = set_smem(attention_fwd_f32_streamed<D>, smem)) != cudaSuccess) return e;
-    attention_fwd_f32_streamed<D><<<dim3(B * heads, (tiles + nw - 1) / nw), 32 * nw, smem,
-                                    stream>>>(static_cast<const float*>(qkv),
-                                              static_cast<float*>(out), seq, width, heads, scale,
-                                              causal);
-  } else {
-    const size_t smem = bf16_streamed_smem(D);
-    const int nw = kStreamWarpsBf16;
-    if ((e = set_smem(attention_fwd_bf16_streamed<D>, smem)) != cudaSuccess) return e;
-    attention_fwd_bf16_streamed<D><<<dim3(B * heads, (tiles + nw - 1) / nw), 32 * nw, smem,
-                                     stream>>>(static_cast<const bf16*>(qkv),
-                                               static_cast<bf16*>(out), seq, width, heads, scale,
-                                               causal);
+  const size_t smem = streamed_smem<T>(D);
+  if ((e = set_smem(attention_fwd_streamed<T, D>, smem)) != cudaSuccess) return e;
+  // several blocks an SM only with the largest carveout
+  if ((e = cudaFuncSetAttribute(attention_fwd_streamed<T, D>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared)) != cudaSuccess) {
+    return e;
   }
+  const dim3 grid(B * heads, (round16(seq) + kStreamRows - 1) / kStreamRows);
+  attention_fwd_streamed<T, D><<<grid, kStreamThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), seq, width, heads, scale, causal);
   return cudaGetLastError();
 }
 
@@ -595,7 +576,9 @@ template <int D>
 cudaError_t dispatch_kc(const void* qkv, void* out, int B, int seq, int width, int heads,
                         float scale, int causal, int dtype, cudaStream_t stream) {
   if (seq > kResidentMaxSeq) {
-    return launch_streamed<D>(qkv, out, B, seq, width, heads, scale, causal, dtype, stream);
+    return dtype == 0
+               ? launch_streamed<float, D>(qkv, out, B, seq, width, heads, scale, causal, stream)
+               : launch_streamed<bf16, D>(qkv, out, B, seq, width, heads, scale, causal, stream);
   }
   switch (key_capacity(round16(seq))) {
     case 16: return launch<D, 16>(qkv, out, B, seq, width, heads, scale, causal, dtype, stream);
@@ -615,7 +598,7 @@ extern "C" {
 // Above kResidentMaxSeq it no longer depends on seq.
 size_t mnt_attention_fwd_smem(int seq, int head_dim) {
   if (seq > kResidentMaxSeq) {
-    return std::max(bf16_streamed_smem(head_dim), f32_streamed_smem(head_dim));
+    return std::max(streamed_smem<bf16>(head_dim), streamed_smem<float>(head_dim));
   }
   return std::max(bf16_smem(seq, head_dim), f32_smem(seq, head_dim));
 }

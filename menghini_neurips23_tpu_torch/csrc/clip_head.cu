@@ -63,6 +63,8 @@ using mnt::cp_async16;
 using mnt::cp_async_commit;
 using mnt::cp_async_wait;
 using mnt::ldmatrix_x4;
+using mnt::mma_tf32;
+using mnt::split_tf32;
 
 constexpr int kMaxE = 1024;
 constexpr int kMaxC = 2048;
@@ -115,27 +117,6 @@ struct Cfg {
   static_assert((kKS - 1) * TB * kLdo * 4 <= kStages * kStageBytes,
                 "the split-E partial sums reuse the staging ring");
 };
-
-// x = hi + lo (+ what lo drops): hi is x rounded to TF32's 10 fraction bits
-// (on the bit pattern: integer operations, not the slower cvt), x - hi is
-// exact in fp32, and lo is that cut to TF32 (the bits the tensor core reads)
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  hi = (x + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// c += a . b on the tensor cores: TF32 operands, fp32 accumulators.
-// Fragments (PTX ISA, mma.m16n8k8 .tf32): lane l, g = l / 4, q = l % 4;
-// A holds (g, q), (g + 8, q), (g, q + 4), (g + 8, q + 4); B holds (k = q,
-// n = g), (k = q + 4, n = g); C as for m16n8k16.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // sum of squares of the 32 bytes at p (8 floats or 16 bf16), in order
 __device__ __forceinline__ float sumsq32(const float* p, float s) {

@@ -195,7 +195,8 @@ def attention_bwd(
     tokens in `attention_bwd.streamed_launches` too) or raise.  A
     call is one grid launch, except fp32 above 128 tokens and bf16 above
     320: two (the query side, then the key side), on an fp32 workspace of
-    B*H*round64(T)*12 bytes allocated here."""
+    the row statistics allocated here, B*H*round64(T)*12 bytes in fp32 and
+    B*H*round64(T)*8 in bf16."""
     _check_mask(mask)
     if qkv.device != g.device:
         raise ValueError(f"attention_bwd: qkv on {qkv.device}, g on {g.device}")

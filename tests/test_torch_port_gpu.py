@@ -117,6 +117,24 @@ def test_attention_kernel_matches_plain(case, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(16, 337, 1024, 16, None), (2, 1024, 128, 2, "causal")],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_attention_streamed_kernel_is_deterministic(case, dtype):
+    """The streamed forward (T > 320): every output has one owner, summed in
+    a fixed order, so two launches on the same inputs give the same bits."""
+    _require_card()
+    B, T, W, H, mask = case
+    g = torch.Generator(device="cuda").manual_seed(6)
+    qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dtype)
+    before = fused_attention.streamed_launches
+    first = fused_attention(qkv, mask, H)
+    second = fused_attention(qkv, mask, H)
+    torch.cuda.synchronize()
+    assert fused_attention.streamed_launches == before + 2
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
 # (B, T, W, heads, mask): tiny-test widths, then the CoOp text tower (C = 10
 # or 102 classes, truncated to 24 or at the full 77; UPT's text tower is the
 # (10, 77) case) and the ViT-B/32 vision tower with and without a 16-token
@@ -220,8 +238,9 @@ def test_attention_bwd_reports_its_warps_and_workspace():
     """Above 128 tokens bf16 runs in one launch with no workspace up to 320
     tokens, its warps sized so that each takes the same number of 16-row
     tiles (T = 273: 18 tiles, 9 warps of 2); fp32, and bf16 above 320, in
-    two launches of 4 warps, on 12 bytes per (row, head, query), queries
-    rounded up to 64, with shared memory that no longer grows with T."""
+    two launches of 4 warps, on 12 bytes (fp32: m, 1/l, r) or 8 bytes
+    (bf16: lse, r * D^-0.5) per (row, head, query), queries rounded up to
+    64, with shared memory that no longer grows with T."""
     _require_card()
     from menghini_neurips23_tpu_torch.ops import _cuda
     from menghini_neurips23_tpu_torch.ops.attention import _BWD_SIGNATURES
@@ -239,7 +258,8 @@ def test_attention_bwd_reports_its_warps_and_workspace():
     assert lib.mnt_attention_bwd_warps(66, 64, 1) == 5
     assert lib.mnt_attention_bwd_smem(320, 64) <= 227 * 1024
     assert lib.mnt_attention_bwd_workspace(16, 320, 16, 1) == 0
-    assert lib.mnt_attention_bwd_workspace(16, 321, 16, 1) == 12 * 16 * 16 * 384
+    assert lib.mnt_attention_bwd_workspace(16, 321, 16, 1) == 8 * 16 * 16 * 384
+    assert lib.mnt_attention_bwd_workspace(16, 321, 16, 0) == 12 * 16 * 16 * 384
     assert lib.mnt_attention_bwd_warps(321, 64, 1) == 4
     assert lib.mnt_attention_bwd_smem(321, 64) == lib.mnt_attention_bwd_smem(4096, 64)
     assert lib.mnt_attention_bwd_smem(4096, 64) <= 227 * 1024
