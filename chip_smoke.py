@@ -24,12 +24,13 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      registers
   3. kernels: each kernel against its plain version on the card, fp32 and
      bf16, at the main path's shapes (K1 and K2 also at ViT-L/14's and up
-     to 320 tokens, where K2 keeps no T x T tile, and past it at T = 321,
-     337, 384, 577 and 1024, where both stream K and V through shared
-     memory; K3 also at pseudolabel pools of 65,536 rows; two K1 launches
-     and two K2 launches must give the same bits; each K2 case names its
-     block's warps), with CUDA-event times of the kernel, the plain
-     version and, for attention,
+     to 320 tokens, where neither keeps a T x T tile, K1 also at the frozen
+     ViT-L/14 pass's 256-image batch, and past 320 at T = 321, 337, 384,
+     577 and 1024, where both stream K and V through shared memory, as K1
+     does in fp32 from 129 tokens; K3 also at pseudolabel pools of 65,536
+     rows; two K1 launches and two K2 launches must give the same bits;
+     each K2 case names its block's warps), with CUDA-event times of the
+     kernel, the plain version and, for attention,
      scaled_dot_product_attention as a yardstick (forward alone; forward +
      backward through autograd beside the K1 + K2 pair - the port never
      calls it), and bound_share = bound_ms / ms; the FusedAttention
@@ -78,10 +79,11 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      prompt (T = 337, K1 and K2 streamed), 3 epochs; each run must log one
      `fused train:` line per training run, with its graphs captured
   8. breakdown: set-up, host decode and device encode of the bf16 pass,
-     each timed alone; one bf16 training step of textual_fpl (10 and 102
-     classes), of visual_fpl and of grip_multimodal (UPT), and of ViT-L/14's
-     visual_fpl and multimodal_fpl, in the per-step loop on the host clock
-     (with peak device memory) and under torch.profiler (device busy time,
+     each timed alone, and the device encode of the same 256-image batch
+     by ViT-L/14 (K1's ms in it); one bf16 training step of textual_fpl
+     (10 and 102 classes), of visual_fpl and of grip_multimodal (UPT), and
+     of ViT-L/14's visual_fpl and multimodal_fpl, in the per-step loop on
+     the host clock (with peak device memory) and under torch.profiler (device busy time,
      kernels by name, K2's time and share of the busy time), then in the
      whole-run trainer (10 epochs of 10 steps: wall ms per step with the
      epoch ends, device busy time and idle share, capture seconds,
@@ -106,7 +108,8 @@ the IFPL/GRIP/UPT runs with the resume check, the ViT-L/14 runs and the
 ViT-L/14 80-token VPT run of phase 7 (five training paths), and phase 9
 each run with every launch count set to 0 just before and read just after;
 a kernel the path runs must show a launch (the streamed forms of K1 and K2
-count apart, and the 80-token path must launch them).  A graph replay
+and K1's resident bf16 form count apart; the ViT-L/14 path must launch the
+resident form, the 80-token path the streamed ones).  A graph replay
 passes no Python counter: each capture records what it launched, and every
 replay loop adds captured x replays.  Then one JSON line listing each
 kernel with its launches (the sum over the paths, and by path), and last
@@ -154,12 +157,18 @@ STEP_LOSS_RTOL = 1e-5  # ... and the loss (relative)
 FUSED_FORM_TOL = 1e-6
 
 N_CLASSES, N_PER_CLASS, RES = 10, 64, 224
-# Past RESIDENT_MAX_SEQ tokens K1 and K2 stream K and V through shared
-# memory; the kernel phase holds them there at ViT-L/14's width (16 heads of
-# 64): 321, ViT-L/14 with an 80-token prompt (337, the main path's), 384,
+# K2 streams K and V through shared memory past RESIDENT_MAX_SEQ tokens, and
+# so does K1 in bf16; K1 in fp32 streams past K1_RESIDENT_MAX_SEQ["float32"]
+# (the wrappers count those launches in `streamed_launches`).  The kernel
+# phase holds the streamed forms at ViT-L/14's width (16 heads of 64): 321,
+# ViT-L/14 with an 80-token prompt (337, the main path's), 384,
 # ViT-L/14@336's 577 and 1024, with B chosen so that each case's plain
 # version takes a millisecond or more (337 keeps the training batch of 16)
 RESIDENT_MAX_SEQ = 320
+K1_RESIDENT_MAX_SEQ = {"float32": 128, "bfloat16": RESIDENT_MAX_SEQ}
+# up to here K1 keeps a warp's scores in registers; from here to 320 bf16
+# takes its resident kernel (counted in `resident_launches`)
+K1_SHORT_MAX_SEQ = 128
 LONG_SHAPES = [(48, 321, 1024, 16, None), (16, 337, 1024, 16, None),
                (32, 384, 1024, 16, None), (16, 577, 1024, 16, None),
                (8, 1024, 1024, 16, None)]
@@ -169,6 +178,12 @@ VPT_LONG_PREFIX = 80  # ViT-L/14: T = 1 + 256 + 80 = 337
 # tower (16, 273) at m = 2 (8 heads) and m = 4 (4 heads), and the text tower
 # over Flowers102's 102 classes at full length (102, 77) at m = 2 (6 of its
 # 12 heads); each held to its unsharded case's tolerance
+# K1 from 129 to 320 tokens, ViT-L/14's vision tower: the frozen pass over
+# 8 images and over a 256-image batch (T = 257), VPT's training batch with a
+# 16-token prompt (273, and 8 rows of it), UPT's with its 4-token prompt (261)
+RESIDENT_SHAPES = [(8, 257, 1024, 16, None), (8, 273, 1024, 16, None),
+                   (16, 273, 1024, 16, None), (16, 261, 1024, 16, None),
+                   (256, 257, 1024, 16, None)]
 SHARD_SHAPES = [(16, 273, 512, 8, None, "ViT-L/14 vision, m=2"),
                 (16, 273, 256, 4, None, "ViT-L/14 vision, m=4"),
                 (102, 77, 384, 6, "causal", "ViT-L/14 text, m=2")]
@@ -323,9 +338,7 @@ def phase_kernels(torch):
     shapes = [(256, 50, 768, 12, None)] + [
         (b, t, 512, 8, "causal") for b in (10, 102) for t in (16, 24, 77)
     ] + [(102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
-         (16, 54, 768, 12, None), (256, 54, 768, 12, None),
-         (8, 257, 1024, 16, None), (8, 273, 1024, 16, None),
-         (16, 273, 1024, 16, None), (16, 261, 1024, 16, None)] + LONG_SHAPES
+         (16, 54, 768, 12, None), (256, 54, 768, 12, None)] + RESIDENT_SHAPES + LONG_SHAPES
     shapes = [s + (None,) for s in shapes] + SHARD_SHAPES
     for dname, dt in dtypes.items():
         for B, T, W, H, mask, shard in shapes:
@@ -350,7 +363,8 @@ def phase_kernels(torch):
                         tol=ATTN_TOL[dname], bit_identical=same, ms=ms, eager_ms=eager,
                         plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                         bound_share=b_ms / ms,
-                        streamed=T > RESIDENT_MAX_SEQ, shard=shard)
+                        streamed=T > K1_RESIDENT_MAX_SEQ[dname],
+                        resident=K1_SHORT_MAX_SEQ < T <= K1_RESIDENT_MAX_SEQ[dname], shard=shard)
             attn_cases.append(case)
             log("  attention_fwd " + json.dumps(case))
             if not ok:
@@ -1926,7 +1940,11 @@ def phase_breakdown(torch, data_dir: str, work: str):
     """Where a main_clip run's wall time goes (bf16), measured apart from the
     counted main path: runtime set-up, the host's decode of the 640 test
     PNGs alone, the device's encode of one decoded 256-image batch alone,
-    and the prefetching pass that overlaps decode with the device."""
+    and the prefetching pass that overlaps decode with the device; then the
+    same batch's device encode by ViT-L/14's vision tower (T = 257), with
+    K1's share of it under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
     from menghini_neurips23_tpu_torch.data.loader import ImageLoader
     from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 
@@ -1954,6 +1972,23 @@ def phase_breakdown(torch, data_dir: str, work: str):
         "device_share_of_pass": device_s / pass_s, "features": list(feats.shape),
     }
     log("  breakdown (bf16): " + json.dumps(out))
+    del rt
+    rt = ClipRuntime(_config(data_dir, f"{work}/artifacts_breakdown", "bfloat16",
+                             encoder="ViT-L/14"), device="cuda")
+    with torch.inference_mode():
+        enc_ms = eager_ms(torch, lambda: rt._encode_images(batch), reps=5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                rt._encode_images(batch)
+            torch.cuda.synchronize()
+    kernels, ops, _ = profiled_kernels(prof, 5)
+    k1 = sum(ms for name, ms in kernels.items() if "attention_fwd" in name)
+    out = {"encoder": "ViT-L/14", "T": 1 + rt.arch.num_patches, "encode_256_ms": enc_ms,
+           "device_busy_ms": sum(kernels.values()), "device_ops": ops, "k1_ms": k1,
+           "k1_share": k1 / sum(kernels.values())}
+    log("  breakdown (bf16), device encode of the same 256 images: " + json.dumps(out))
+    del rt
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2004,10 +2039,11 @@ def main() -> int:
         f"{N_PER_CLASS} test {RES}px PNGs written in {time.perf_counter() - t0:.2f} s")
 
     # (wrapper, counter) of each kernel; the streamed forms of K1 and K2
-    # (T > RESIDENT_MAX_SEQ) count apart as well
+    # and K1's resident bf16 form (129 to 320 tokens) count apart as well
     wrappers = {"attention_fwd": (fused_attention, "launches"),
                 "attention_bwd": (attention_bwd, "launches"),
                 "clip_head": (fused_probs, "launches"),
+                "attention_fwd_resident": (fused_attention, "resident_launches"),
                 "attention_fwd_streamed": (fused_attention, "streamed_launches"),
                 "attention_bwd_streamed": (attention_bwd, "streamed_launches"),
                 "twophase_attention": (twophase_attention, "launches")}
@@ -2078,7 +2114,7 @@ def main() -> int:
 
     # full ViT-L/14 width and depth (24 + 12 layers), bf16, the training
     # runs cut to 5 epochs: VPT's vision tower at T = 273, UPT's at 261
-    counted("ViT-L/14", resident, vit_l14_path)
+    counted("ViT-L/14", resident + ("attention_fwd_resident",), vit_l14_path)
     log("[7] ViT-L/14 VPT with an 80-token prompt (T = 337)")
     # main_ul visual_fpl bf16, 3 epochs: every step and the prompted
     # evaluation stream K and V (the zero-shot pass, T = 257, does not)
@@ -2088,7 +2124,8 @@ def main() -> int:
             torch, data_dir, work, "ul", "visual_fpl", "bfloat16", 3, encoder="ViT-L/14",
             prefix=VPT_LONG_PREFIX)
 
-    counted("ViT-L/14, 80-token VPT prompt", model_kernels, vit_l14_long_prompt)
+    counted("ViT-L/14, 80-token VPT prompt",
+            tuple(n for n in model_kernels if n != "attention_fwd_resident"), vit_l14_long_prompt)
     with open(f"{data_dir}/MNIST/train.txt") as f:
         train_files = [f"{data_dir}/MNIST/train/{l.split()[0]}" for l in f if l.strip()]
     log("[9] distributed (NCCL, world size 1)")
@@ -2143,7 +2180,7 @@ def main() -> int:
             "cases": cases,
         }
 
-    short_fwd = [c for c in attn_cases if not c["streamed"]]
+    short_fwd = [c for c in attn_cases if not c["streamed"] and not c["resident"]]
     short_bwd = [c for c in bwd_cases if not c["streamed"]]
     kernels = [
         entry("attention_fwd", f"{PKG}/csrc/attention_fwd.cu",
@@ -2152,8 +2189,15 @@ def main() -> int:
         entry("attention_bwd", f"{PKG}/csrc/attention_bwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:96", short_bwd,
               lambda c: c["shape"] == [10, 24, 512, 8] and c["dtype"] == "bfloat16"),
-        # the same kernels' streamed forms past 320 tokens, headlined at
-        # ViT-L/14 with an 80-token VPT prompt (T = 337, bf16)
+        # K1's resident bf16 form (129 to 320 tokens), headlined at ViT-L/14
+        # with a 16-token VPT prompt (T = 273)
+        entry("attention_fwd_resident", f"{PKG}/csrc/attention_fwd.cu",
+              "menghini_neurips23_tpu/ops/attention.py:65",
+              [c for c in attn_cases if c["resident"]],
+              lambda c: c["shape"] == [16, 273, 1024, 16] and c["dtype"] == "bfloat16"),
+        # the streamed forms (K1: bf16 past 320 tokens, fp32 past 128; K2
+        # past 320), headlined at ViT-L/14 with an 80-token VPT prompt (T =
+        # 337, bf16)
         entry("attention_fwd_streamed", f"{PKG}/csrc/attention_fwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:65",
               [c for c in attn_cases if c["streamed"]],

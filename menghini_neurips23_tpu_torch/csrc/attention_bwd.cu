@@ -530,18 +530,6 @@ __device__ __forceinline__ void dots_bf16(float (&c)[2][4], const uint32_t (&af)
   }
 }
 
-// wait until at most n (0 .. 5) of the committed cp.async groups are in flight
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    default: cp_async_wait<5>(); break;
-  }
-}
-
 // bf16: the whole (row, head) resident, q, g, k and v of round32(T) rows
 // (so that 32-row steps stay inside), then each query row's base-2
 // log-sum-exp and r * D^-0.5.

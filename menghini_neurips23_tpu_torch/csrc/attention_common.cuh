@@ -40,6 +40,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// wait until at most n (0 .. 5) of the committed cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    default: cp_async_wait<5>(); break;
+  }
+}
+
 // Copy rows [0, rows_pad) of a strided tensor's (rows, kRowElems) slice
 // into shared memory, `ld` elements apart; rows >= rows are zero-filled.
 // kRowElems * sizeof(T) is a multiple of 16 bytes.  Call cp_async_commit

@@ -26,10 +26,9 @@
 // rate (494 TFLOP/s), which is under FLOPs at the FMA rate (67 TFLOP/s);
 // PyTorch's own fp32 attention takes the same route.
 //
-// Design, one block per (batch row, head), reading the fused layout in place
-// (no head-split copies), one warp per 16-row query tile (up to 8 tiles;
-// ViT-L/14's longer sequences split their tiles over several blocks, each
-// staging the whole of K and V):
+// Design up to 128 keys (CLIP's text tower, ViT-B/32's vision tower), one
+// block per (batch row, head), reading the fused layout in place (no
+// head-split copies), one warp per 16-row query tile:
 // - staging: q and k rows, then v rows in a second group that lands while
 //   the scores run, go to shared memory with 16-byte cp.async copies; rows
 //   past T are zero-filled; rows are padded (D + 8 bf16, D + 4 floats) so
@@ -38,26 +37,50 @@
 //   template parameter: score tiles and unrolled loops are sized by it, so
 //   short text sequences and the 50-token vision tower carry no empty slots
 //   and keep few enough registers for several blocks per SM;
+// - the scores are computed once and kept in registers, and exp(s - m) is
+//   taken once (the kernels keep the loop over 128-key chunks, with its
+//   rescaled row statistics, from when they also took longer rows: up to
+//   128 keys it runs once, and the kernels compile to what they were);
 // - bf16, on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
 //   accumulators): each warp's S = Q.K^T for up to 128 keys stays in
 //   registers (16 x 128 fp32 across the warp), the row max and sum are quad
 //   shuffles, and P = exp(s - m) * (1/l) is rounded to bf16 straight into
 //   the A fragments of P.V;
-// - fp32 up to kResidentMaxSeq, full-fp32 FFMA register tiles: lane (ry,
-//   kx) owns a 4-row x KC/8-key tile of S and a 4-row x D/8 tile of O, each
-//   shared-memory float4 feeding 4-16 FMAs; the rounded P of the warp's
-//   rows goes through shared memory once per chunk;
-// - T above 128 keys (ViT-L/14): two sweeps over 128-key chunks, the first
-//   for the row max and sum (rescaled from chunk to chunk), the second for
-//   the normalised, rounded P.V; up to 128 keys the scores are computed once
-//   and exp(s - m) is taken once;
+// - fp32, full-fp32 FFMA register tiles: lane (ry, kx) owns a 4-row x
+//   KC/8-key tile of S and a 4-row x D/8 tile of O, each shared-memory
+//   float4 feeding 4-16 FMAs; the rounded P of the warp's rows goes through
+//   shared memory once;
 // - causal rows skip whole 16-key tiles above the diagonal and mask inside
 //   the diagonal tile (and the tile holding T); masked and padded keys give
 //   P = 0 exactly.
 //
-// T above kResidentMaxSeq (320; ViT-L/14 with a prompt above 63 tokens,
-// ViT-L/14@336's 577): the whole of K and V no longer fits a block, so K
-// and V stream from device memory (attention_fwd_streamed):
+// bf16 from 129 to kResidentMaxSeq (320) keys (ViT-L/14's vision tower: 257
+// tokens, 273 with a 16-token VPT prompt, 261 with UPT's; attention_fwd_
+// resident): K and V of the whole head stay in shared memory (92 KB at
+// 320), and a warp's 16 x T scores no longer fit its registers:
+// - a block per (batch row x head, group of query tiles), a warp per 16
+//   rows, at most 9 warps; the (row, head)'s tiles split evenly over the
+//   fewest blocks (T = 273: 18 tiles, two blocks of 9 warps), and over more
+//   where the grid would give an SM fewer than two blocks, up to one wave
+//   of two an SM (B = 8: blocks of 6 warps; a tensor-parallel rank's H/m
+//   heads); two blocks share an SM (110 KB of shared memory each at 320);
+// - K lands in 64-key commit groups and V in one more, so that sweep 1
+//   starts on the first chunk while the rest of K and then V arrive (one
+//   barrier a chunk); past that, no barrier: each warp runs alone;
+// - two sweeps, the first in 64-key steps for each row's online max m and
+//   sum l, the second in 32-key steps for the normalised, rounded P.V, with
+//   the scores recomputed (the tensor cores recompute them for less than
+//   holding 16 x T fp32 scores a warp would cost in registers); the warp's
+//   q fragments are read once and held: 96 registers a thread, what 18
+//   warps an SM leave (five a scheduler);
+// - the softmax in base 2, D^-0.5 * log2(e) folded into the scores' scale
+//   and every exponential one ex2: the streamed form's schedule, so the two
+//   give the same bits.
+//
+// Above those (bf16 past 320 tokens: ViT-L/14 with a prompt above 63
+// tokens, ViT-L/14@336's 577; fp32 past 128) K and V stream from device
+// memory (attention_fwd_streamed); fp32 holding the head resident would
+// take 174 KB at 320 and one block an SM:
 // - a block per (batch row, head, 64-query tile), a warp per 16 rows; both
 //   sweeps are one stream of steps over the block's key chunks (sweep 1
 //   stages K alone, sweep 2 K and V) through a cp.async ring, the chunk of
@@ -67,11 +90,7 @@
 //   of 32-key chunks, 70 KB, three blocks and 12 warps an SM); a warp reads
 //   its q fragments from shared memory at each step rather than holding
 //   them, which keeps bf16 within the 128 registers four blocks allow;
-// - the softmax in base 2, D^-0.5 * log2(e) folded into the scores' scale
-//   and every exponential one ex2; the scores are computed in both sweeps
-//   (on the tensor cores they cost less than keeping them), since P is
-//   normalised before the P.V that rounds it: the row's max and sum must be
-//   whole first;
+// - the base-2 softmax and recomputed scores of the resident bf16 form;
 // - bf16: the resident arithmetic (mma.sync m16n8k16, quad shuffles, P
 //   packed straight into the A fragments of P.V);
 // - fp32 as 3xTF32 on mma.sync m16n8k8 (attention_common.cuh): each operand
@@ -95,25 +114,50 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace mnt;
 
-// Warps per block: one 16-row query tile each, all of a (row, head)'s tiles
-// up to 128 keys; past that the tiles are split over several blocks
-// (grid.y), each staging the whole of K and V.
-// Up to here K and V are resident in shared memory; above, they stream.
+// Up to kShortMaxSeq keys a warp's scores stay in its registers (one block
+// a (row, head), a warp per 16-row tile); up to kResidentMaxSeq bf16 K and V
+// stay resident in shared memory; above those they stream (fp32 above
+// kShortMaxSeq).
+constexpr int kShortMaxSeq = 128;
 constexpr int kResidentMaxSeq = 320;
 
-int bf16_warps(int seq) { return std::min(8, round16(seq) / 16); }
-int f32_warps(int seq) { return round16(seq) <= 128 ? round16(seq) / 16 : 4; }
+int resident_max_seq(int dtype) { return dtype == 0 ? kShortMaxSeq : kResidentMaxSeq; }
 
 size_t bf16_smem(int seq, int D) {
-  return (16 * (size_t)bf16_warps(seq) + 2 * (size_t)round16(seq)) * (D + 8) * sizeof(bf16);
+  return (size_t)3 * round16(seq) * (D + 8) * sizeof(bf16);
 }
 size_t f32_smem(int seq, int D) {
   const int tp = round16(seq);
-  return (2 * (size_t)tp * (D + 4) +
-          (size_t)f32_warps(seq) * 16 * (D + 4 + key_capacity(tp) + 4)) * sizeof(float);
+  return (2 * (size_t)tp * (D + 4) + (size_t)tp * (D + 4 + key_capacity(tp) + 4)) * sizeof(float);
 }
 
-// streamed (T > kResidentMaxSeq): a block of kStreamRows query rows, a warp
+// bf16, kShortMaxSeq < T <= kResidentMaxSeq: keys a sweep-1 step (and a
+// staging group of K), keys a sweep-2 step, the most warps a block, and
+// blocks an SM (two: 110 KB of shared memory each at T = 320 with 9 warps,
+// 96 registers a thread)
+constexpr int kResKeys = 64;
+constexpr int kResPvKeys = 32;
+constexpr int kResMaxWarps = 9;
+constexpr int kResBlocks = 2;
+
+size_t resident_smem(int seq, int warps, int D) {
+  return (16 * (size_t)warps + 2 * (size_t)round16(seq)) * (D + 8) * sizeof(bf16);
+}
+
+// Warps a block of the resident kernel: the (row, head)'s 16-row tiles split
+// evenly over the fewest blocks of at most kResMaxWarps warps; where that
+// grid would give an SM fewer than kResBlocks blocks, over as many more as
+// one wave of kResBlocks an SM holds
+int resident_warps(int seq, int rows_x_heads, int sms) {
+  const int nt = round16(seq) / 16;
+  int nb = (nt + kResMaxWarps - 1) / kResMaxWarps;
+  if ((long long)rows_x_heads * nb < (long long)kResBlocks * sms) {
+    nb = std::max(nb, std::min(nt, kResBlocks * sms / rows_x_heads));
+  }
+  return (nt + nb - 1) / nb;
+}
+
+// streamed (past resident_max_seq): a block of kStreamRows query rows, a warp
 // per 16; chunks of kKeys keys in a ring of kStages (bf16: 64 keys, 2
 // stages, 46 KB at D = 64, four blocks of 128 registers a thread, 16 warps
 // an SM; fp32: 32 keys, 3 stages, 70 KB, three blocks, 12 warps an SM).
@@ -363,9 +407,133 @@ attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int se
         store_vec<C::kVec>(out_b + (size_t)(row0 + i) * width + C::col(u, kx), o[i] + u * C::kVec);
 }
 
+// ------------------------------------------------------------ resident
+
+// bf16, kShortMaxSeq < T <= kResidentMaxSeq.  Block (batch row x head,
+// group of query tiles), a warp per 16 rows, K and V of the whole head in
+// shared memory.  Group 0 stages the block's q rows and K's first chunk,
+// group c K's chunk c, the last group V (all of them issued up front).
+// Sweep 1 takes chunk c once its group has landed for every thread (one
+// barrier a chunk) and keeps each row's online max m and sum l (base 2:
+// scale2 = D^-0.5 * log2(e) is folded into the scores, P = 2^(s - m));
+// sweep 2 recomputes the scores and adds the normalised P = 2^(s - m) / l,
+// rounded to bf16 straight into the A fragments of P.V, times V.
+template <int D>
+__global__ void __launch_bounds__(32 * kResMaxWarps, kResBlocks)
+attention_fwd_resident(const bf16* __restrict__ qkv, bf16* __restrict__ out, int seq, int width,
+                       int heads, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 8, KC = kResKeys;
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+  const int tp = round16(seq);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nthreads = blockDim.x;
+  const int rows = nthreads / 2;  // the block's query rows, 16 a warp
+  const int rb = rows * blockIdx.y, r0 = rb + 16 * warp;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + rows * LD;
+  bf16* vs = ks + tp * LD;
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t stride = 3 * (size_t)width;
+  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
+  // the keys the block's rows see (causal: up to its last row's diagonal)
+  const int kb = causal ? min(tp, rb + rows) : tp;
+  const int nch = (kb + KC - 1) / KC;  // at most 5
+  stage_rows<bf16, D>(qs, LD, base + rb * stride, stride, seq - rb, min(rows, tp - rb), tid,
+                      nthreads);
+  for (int c = 0; c < nch; ++c) {
+    const int c0 = c * KC;
+    stage_rows<bf16, D>(ks + c0 * LD, LD, base + width + c0 * stride, stride, seq - c0,
+                        min(KC, kb - c0), tid, nthreads);
+    cp_async_commit();
+  }
+  stage_rows<bf16, D>(vs, LD, base + 2 * width, stride, seq, kb, tid, nthreads);
+  cp_async_commit();
+
+  const bool active = r0 < tp;
+  const int kend = causal ? min(tp, r0 + 16) : tp;  // the keys this warp's rows see
+  // the A fragments of the warp's q rows, held through both sweeps
+  uint32_t qf[D / 16][4];
+  cp_async_wait_upto(nch);  // group 0
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], qs, LD, r0 - rb, 16 * kk, lane);
+  }
+  // sweep 1: online m (quad-uniform) and l (lane-partial); key 0, in every
+  // row's first chunk, keeps m finite from there on
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int c = 0; c < nch; ++c) {
+    if (c > 0) {
+      cp_async_wait_upto(nch - c);  // groups 0 .. c have landed
+      __syncthreads();              // ... for every thread
+    }
+    const int c0 = c * KC;
+    if (!active || c0 >= kend) continue;
+    float s[KC / 8][4];
+    scores_bf16<D, KC>(s, qf, ks, c0, kend, seq, r0, causal, scale2, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float cm = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) cm = fmaxf(cm, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      const float mn = fmaxf(m[r], group_max<4>(cm));
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) sum += ex2(s[n][2 * r] - mn) + ex2(s[n][2 * r + 1] - mn);
+      l[r] = fmaf(l[r], ex2(m[r] - mn), sum);
+      m[r] = mn;
+    }
+  }
+  cp_async_wait<0>();  // V
+  __syncthreads();
+  if (!active) return;
+
+  // sweep 2: P = 2^(s - m) / l rounded to bf16 into the A fragments of P.V
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / group_sum<4>(l[r]);
+  float o[D / 8][4] = {};
+  constexpr int KP = kResPvKeys;
+  for (int c0 = 0; c0 < kend; c0 += KP) {
+    float s[KP / 8][4];
+    scores_bf16<D, KP>(s, qf, ks, c0, kend, seq, r0, causal, scale2, lane);
+#pragma unroll
+    for (int j = 0; j < KP / 16; ++j) {
+      const int n0 = c0 + 16 * j;
+      if (n0 >= kend) break;
+      uint32_t a[4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float(&x)[4] = s[2 * j + t];
+        a[2 * t] = pack_bf16(ex2(x[0] - m[0]) * inv_l[0], ex2(x[1] - m[0]) * inv_l[0]);
+        a[2 * t + 1] = pack_bf16(ex2(x[2] - m[1]) * inv_l[1], ex2(x[3] - m[1]) * inv_l[1]);
+      }
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t bv[4];
+        load_b_cols(bv, vs, LD, n0, 16 * dd, lane);
+        mma_bf16(o[2 * dd], a, bv[0], bv[1]);
+        mma_bf16(o[2 * dd + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+  bf16* out_b = out + (size_t)b * seq * width + h * D;
+  const int row0 = r0 + lane / 4;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < seq)
+        *reinterpret_cast<uint32_t*>(out_b + (size_t)(row0 + 8 * r) * width + col) =
+            pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
+  }
+}
+
 // ------------------------------------------------------------ streamed
 
-// T > kResidentMaxSeq, both types.  Block (batch row x head, 64-query
+// Past resident_max_seq (bf16 320, fp32 128).  Block (batch row x head, 64-query
 // tile), a warp per 16 rows.  The two sweeps are one stream of 2 * nch
 // steps over the block's chunks (causal: up to its last row's diagonal):
 // steps 0 .. nch - 1 stage K alone and take each row's online max m and
@@ -553,19 +721,17 @@ template <int D, int KC>
 cudaError_t launch(const void* qkv, void* out, int B, int seq, int width, int heads,
                    float scale, int causal, int dtype, cudaStream_t stream) {
   cudaError_t e;
-  const int tiles = round16(seq) / 16;
+  const dim3 grid(B * heads), block(2 * round16(seq));
   if (dtype == 0) {
     const size_t smem = f32_smem(seq, D);
-    const int nw = f32_warps(seq);
     if ((e = set_smem(attention_fwd_f32<D, KC>, smem)) != cudaSuccess) return e;
-    attention_fwd_f32<D, KC><<<dim3(B * heads, (tiles + nw - 1) / nw), 32 * nw, smem, stream>>>(
+    attention_fwd_f32<D, KC><<<grid, block, smem, stream>>>(
         static_cast<const float*>(qkv), static_cast<float*>(out), seq, width, heads, scale,
         causal);
   } else {
     const size_t smem = bf16_smem(seq, D);
-    const int nw = bf16_warps(seq);
     if ((e = set_smem(attention_fwd_bf16<D, KC>, smem)) != cudaSuccess) return e;
-    attention_fwd_bf16<D, KC><<<dim3(B * heads, (tiles + nw - 1) / nw), 32 * nw, smem, stream>>>(
+    attention_fwd_bf16<D, KC><<<grid, block, smem, stream>>>(
         static_cast<const bf16*>(qkv), static_cast<bf16*>(out), seq, width, heads, scale,
         causal);
   }
@@ -573,12 +739,38 @@ cudaError_t launch(const void* qkv, void* out, int B, int seq, int width, int he
 }
 
 template <int D>
+cudaError_t launch_resident(const void* qkv, void* out, int B, int seq, int width, int heads,
+                            float scale, int causal, cudaStream_t stream) {
+  cudaError_t e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return e;
+  }
+  const int nw = resident_warps(seq, B * heads, sms), tiles = round16(seq) / 16;
+  const size_t smem = resident_smem(seq, nw, D);
+  if ((e = set_smem(attention_fwd_resident<D>, smem)) != cudaSuccess) return e;
+  // two blocks an SM only with the largest carveout
+  if ((e = cudaFuncSetAttribute(attention_fwd_resident<D>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared)) != cudaSuccess) {
+    return e;
+  }
+  attention_fwd_resident<D><<<dim3(B * heads, (tiles + nw - 1) / nw), 32 * nw, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), seq, width, heads, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t dispatch_kc(const void* qkv, void* out, int B, int seq, int width, int heads,
                         float scale, int causal, int dtype, cudaStream_t stream) {
-  if (seq > kResidentMaxSeq) {
+  if (seq > resident_max_seq(dtype)) {
     return dtype == 0
                ? launch_streamed<float, D>(qkv, out, B, seq, width, heads, scale, causal, stream)
                : launch_streamed<bf16, D>(qkv, out, B, seq, width, heads, scale, causal, stream);
+  }
+  if (seq > kShortMaxSeq) {
+    return launch_resident<D>(qkv, out, B, seq, width, heads, scale, causal, stream);
   }
   switch (key_capacity(round16(seq))) {
     case 16: return launch<D, 16>(qkv, out, B, seq, width, heads, scale, causal, dtype, stream);
@@ -593,19 +785,21 @@ cudaError_t dispatch_kc(const void* qkv, void* out, int B, int seq, int width, i
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs (the larger of the two
-// types'); the wrapper checks it against the card's limit before launching.
-// Above kResidentMaxSeq it no longer depends on seq.
-size_t mnt_attention_fwd_smem(int seq, int head_dim) {
-  if (seq > kResidentMaxSeq) {
-    return std::max(streamed_smem<bf16>(head_dim), streamed_smem<float>(head_dim));
+// Bytes of dynamic shared memory one block of `dtype` (0 = float32, 1 =
+// bfloat16) needs at most; the wrapper checks it against the card's limit
+// before launching.  Above the resident length it no longer depends on seq.
+size_t mnt_attention_fwd_smem(int seq, int head_dim, int dtype) {
+  if (seq > resident_max_seq(dtype)) {
+    return dtype == 0 ? streamed_smem<float>(head_dim) : streamed_smem<bf16>(head_dim);
   }
-  return std::max(bf16_smem(seq, head_dim), f32_smem(seq, head_dim));
+  if (seq > kShortMaxSeq) return resident_smem(seq, kResMaxWarps, head_dim);
+  return dtype == 0 ? f32_smem(seq, head_dim) : bf16_smem(seq, head_dim);
 }
 
-// The longest seq whose K and V stay resident in shared memory; longer ones
-// stream (the wrapper counts those launches apart).
-int mnt_attention_fwd_resident_max_seq() { return kResidentMaxSeq; }
+// The longest seq whose K and V stay resident in shared memory for `dtype`
+// (128 float32, 320 bfloat16); longer ones stream (the wrapper counts those
+// launches apart).
+int mnt_attention_fwd_resident_max_seq(int dtype) { return resident_max_seq(dtype); }
 
 // qkv: (B, seq, 3*width) contiguous, 16-byte aligned; out: (B, seq, width)
 // contiguous, same type.  scale: D^-0.5 as the caller rounds it to float32.

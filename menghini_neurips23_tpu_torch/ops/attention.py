@@ -14,9 +14,10 @@ device memory.  On a CPU tensor each takes its plain version,
 `attention_reference` and `attention_bwd_reference`, which perform the same
 arithmetic with PyTorch operators.  There is no other path: anything a
 kernel does not take raises.  Both kernels take any T at head widths 16, 32
-and 64: above 128 tokens the backward keeps no T x T tile (in bf16 up to
-320 it holds the head's q, k, v and g in shared memory), and above 320 both
-stream K and V (the backward also q and g) through shared memory in chunks.
+and 64: above 128 tokens neither keeps a T x T tile.  In bf16 up to 320
+tokens both hold the head (K and V; the backward also q and g) in shared
+memory; past that, and in fp32 past 128, they stream it through shared
+memory in chunks.
 
 When `qkv` requires grad (and grad mode is on) the call goes through
 `FusedAttention`, a `torch.autograd.Function` that saves only `qkv` and
@@ -44,6 +45,10 @@ from menghini_neurips23_tpu_torch.ops import _cuda
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 _MAX_SMEM_BYTES = 227 * 1024  # per-block shared memory on an H100
+# up to this many tokens K1 keeps a warp's scores in its registers
+# (kShortMaxSeq in csrc/attention_fwd.cu); past it, up to the resident
+# length, bf16 holds the head in shared memory (attention_fwd_resident)
+_FWD_SHORT_MAX_SEQ = 128
 
 _FWD_SIGNATURES = {
     "mnt_attention_fwd": (
@@ -51,8 +56,8 @@ _FWD_SIGNATURES = {
          ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    "mnt_attention_fwd_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
-    "mnt_attention_fwd_resident_max_seq": ([], ctypes.c_int),
+    "mnt_attention_fwd_smem": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
+    "mnt_attention_fwd_resident_max_seq": ([ctypes.c_int], ctypes.c_int),
     **_cuda.ERROR_STRING,
 }
 
@@ -167,21 +172,24 @@ def _forward(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch.Tensor
     D = _check_cuda_qkv("fused_attention", qkv, heads)
     B, T, three_w = qkv.shape
     W = three_w // 3
+    code = _DTYPE_CODES[qkv.dtype]
     lib = _cuda.library("attention_fwd", _FWD_SIGNATURES)
-    _check_smem("fused_attention", lib.mnt_attention_fwd_smem(T, D), T)
+    _check_smem("fused_attention", lib.mnt_attention_fwd_smem(T, D, code), T)
     out = torch.empty((B, T, W), dtype=qkv.dtype, device=qkv.device)
     if B == 0 or T == 0:
         return out
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = lib.mnt_attention_fwd(
+        err = lib.mnt_attention_fwd(
             qkv.data_ptr(), out.data_ptr(), B, T, W, heads, D**-0.5,
-            int(mask == "causal"), _DTYPE_CODES[qkv.dtype], stream,
+            int(mask == "causal"), code, stream,
         )
-    _cuda.check(lib, code, "fused_attention")
+    _cuda.check(lib, err, "fused_attention")
     fused_attention.launches += 1
-    if T > lib.mnt_attention_fwd_resident_max_seq():
+    if T > lib.mnt_attention_fwd_resident_max_seq(code):
         fused_attention.streamed_launches += 1
+    elif T > _FWD_SHORT_MAX_SEQ:
+        fused_attention.resident_launches += 1
     return out
 
 
@@ -259,8 +267,10 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch
     """(B, T, 3W) fused qkv -> (B, T, W) attention output.
 
     CPU tensors take `attention_reference`; CUDA tensors launch the kernel
-    (counted in `fused_attention.launches`, and above 320 tokens, where it
-    streams K and V, in `fused_attention.streamed_launches` too) or raise.  A qkv that requires
+    (counted in `fused_attention.launches`; where it streams K and V - bf16
+    above 320 tokens, fp32 above 128 - in `fused_attention.streamed_launches`
+    too, and where bf16 holds them resident above 128 tokens in
+    `fused_attention.resident_launches`) or raise.  A qkv that requires
     grad goes through `FusedAttention`, whose backward is `attention_bwd`."""
     _check_mask(mask)
     if qkv.requires_grad and torch.is_grad_enabled():
@@ -269,3 +279,4 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch
 
 
 fused_attention.launches = fused_attention.streamed_launches = 0
+fused_attention.resident_launches = 0

@@ -35,8 +35,8 @@ reach, the same two functions run eagerly: they are the plain version of the
 captured program.  A failed capture raises.
 
 Launch counts: `fused_attention.launches` and `attention_bwd.launches` (and
-their `streamed_launches`, above 320 tokens) count in Python, which a replay
-never passes through.  Capturing undoes what the
+their `streamed_launches`, and K1's `resident_launches`) count in Python,
+which a replay never passes through.  Capturing undoes what the
 capture added and keeps it as the per-replay count; `run` adds captured x
 replays after each replay loop.
 
@@ -71,12 +71,13 @@ from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_atte
 from menghini_neurips23_tpu_torch.parallel import multihost, tensor
 from menghini_neurips23_tpu_torch.training.losses import masked_mean, two_group_loss
 
-# (wrapper, counter): K1, K2, their launches above 320 tokens, the step's
-# all-reduces in a process group (every group's), and of those the model
-# group's
+# (wrapper, counter): K1, K2, their streamed launches, the step's
+# all-reduces in a process group (every group's), of those the model
+# group's, and K1's resident bf16 launches (129 to 320 tokens)
 _COUNTERS = ((fused_attention, "launches"), (attention_bwd, "launches"),
              (fused_attention, "streamed_launches"), (attention_bwd, "streamed_launches"),
-             (multihost.all_reduce_sum_, "calls"), (tensor.model_all_reduce_, "calls"))
+             (multihost.all_reduce_sum_, "calls"), (tensor.model_all_reduce_, "calls"),
+             (fused_attention, "resident_launches"))
 _WARMUP = 2  # side-stream iterations before capture (PyTorch's advice: a few)
 
 Tree = Dict[str, torch.Tensor]

@@ -56,10 +56,11 @@ def _require_card():
 # Ragged lengths around the kernels' 16-row tiles and 128-key chunks, up to
 # K2's whole-sequence path's 128, at D = 16 (the tiny-test arch), 32 and 64
 # (B = 1), unmasked and causal: (B, T, W, heads, mask); then the lengths K2
-# tiles (129 ... 320, around its 64-row tiles and chunks, ViT-L/14's 257,
-# 261 and 273, and 320, the last length K and V stay resident); then the
-# lengths both kernels stream (321 on, around their 128-key and 64-row
-# chunks, ViT-L/14's 337 with an 80-token prompt, ViT-L/14@336's 577)
+# tiles (129 ... 320, around its 64-row tiles and chunks and K1's 64-key
+# chunks, ViT-L/14's 257, 261 and 273, and 320, the last length bf16 keeps K
+# and V resident); then the lengths both kernels stream (321 on, around
+# their 64-key and 64-row chunks, ViT-L/14's 337 with an 80-token prompt,
+# ViT-L/14@336's 577)
 EDGE_T = (1, 15, 16, 17, 48, 63, 64, 65, 66, 77, 128)
 LONG_EDGE_T = (129, 143, 191, 192, 193, 257, 261, 273, 320)
 STREAMED_EDGE_T = (321, 337, 383, 384, 385, 577, 1024)
@@ -117,21 +118,34 @@ def test_attention_kernel_matches_plain(case, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+# K1 streams K and V past these lengths (the wrapper counts those launches
+# in `streamed_launches`); up to them, above 128 tokens, bf16 holds the head
+# resident in shared memory (counted in `resident_launches`)
+K1_RESIDENT_MAX_SEQ = {torch.float32: 128, torch.bfloat16: 320}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", [(16, 337, 1024, 16, None), (2, 1024, 128, 2, "causal")],
+@pytest.mark.parametrize("case", [(16, 337, 1024, 16, None), (2, 1024, 128, 2, "causal"),
+                                  (16, 273, 1024, 16, None), (2, 320, 128, 2, "causal"),
+                                  (2, 129, 128, 2, None)],
                          ids=lambda c: "x".join(map(str, c)))
 def test_attention_streamed_kernel_is_deterministic(case, dtype):
-    """The streamed forward (T > 320): every output has one owner, summed in
-    a fixed order, so two launches on the same inputs give the same bits."""
+    """K1 above 128 tokens, streamed (fp32 from 129, bf16 past 320) or
+    resident (bf16 up to 320): every output has one owner, summed in a fixed
+    order, so two launches on the same inputs give the same bits; a launch
+    counts as streamed exactly when the streamed kernel runs, and as
+    resident exactly when the resident one does."""
     _require_card()
     B, T, W, H, mask = case
     g = torch.Generator(device="cuda").manual_seed(6)
     qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dtype)
-    before = fused_attention.streamed_launches
+    before = fused_attention.streamed_launches, fused_attention.resident_launches
     first = fused_attention(qkv, mask, H)
     second = fused_attention(qkv, mask, H)
     torch.cuda.synchronize()
-    assert fused_attention.streamed_launches == before + 2
+    streamed = T > K1_RESIDENT_MAX_SEQ[dtype]
+    assert fused_attention.streamed_launches == before[0] + (2 if streamed else 0)
+    assert fused_attention.resident_launches == before[1] + (0 if streamed else 2)
     assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
 
 

@@ -1,6 +1,8 @@
-"""The schedules of the streamed attention kernels (T > 320: K1's forward and
-K2's bf16 backward pair), emulated in plain torch, against the JAX package's
-fused attention on the CPU.
+"""The schedules of the attention kernels above 128 tokens (K1's forward: in
+fp32 streamed from 129 tokens, in bf16 with K and V resident up to 320 and
+streamed past it, both forms on one schedule; K2's bf16 streamed pair past
+320), emulated in plain torch, against the JAX package's fused attention on
+the CPU.
 
 The kernels themselves run only on a card (tests/test_torch_port_gpu.py
 holds them against the port's plain versions there).  What these tests pin
@@ -36,8 +38,8 @@ torch.set_num_threads(2)
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 B, H, D = 2, 2, 64
-# the keys of one update of a row's statistics: K1's chunks (64 in bf16, 32
-# in fp32) and K2's query side's 32-key steps
+# the keys of one update of a row's statistics: K1's chunks (64 in bf16,
+# resident or streamed; 32 in fp32) and K2's query side's 32-key steps
 K1_CHUNK = {torch.bfloat16: 64, torch.float32: 32}
 K2_STEP = 32
 LOG2E = 1.4426950408889634
@@ -96,12 +98,12 @@ def _causal_mask(T):
 
 
 def _k1_streamed(qkv, mask, chunk, mm):
-    """K1's streamed schedule: scores scaled by D^-0.5 * log2(e); sweep 1
-    in steps of `chunk` keys keeps each row's online max m and sum l of
-    2^(s - m), rescaling l when m grows; sweep 2 recomputes the scores and
-    forms P = 2^(s - m) * (1 / l) in fp32, rounds it to the input type and
-    multiplies it by V.  `mm` forms every product (Q.K^T in both sweeps,
-    P.V)."""
+    """K1's schedule above 128 tokens (resident or streamed): scores scaled
+    by D^-0.5 * log2(e); sweep 1 in steps of `chunk` keys keeps each row's
+    online max m and sum l of 2^(s - m), rescaling l when m grows; sweep 2
+    recomputes the scores and forms P = 2^(s - m) * (1 / l) in fp32, rounds
+    it to the input type and multiplies it by V.  `mm` forms every product
+    (Q.K^T in both sweeps, P.V)."""
     dt = qkv.dtype
     T = qkv.shape[1]
     q, k, v = (_heads(t) for t in qkv.split(H * D, dim=-1))
@@ -129,15 +131,19 @@ def _jax_forward(qkv, mask, jdt):
     return np.asarray(out.astype(jnp.float32))
 
 
-# T = 337: ViT-L/14 with an 80-token VPT prompt; 577: ViT-L/14@336
+# T = 129: one key past a single 128-key chunk; 200: a ragged last chunk
+# (64 and 32 keys, 16-row tiles); 273: ViT-L/14 with a 16-token VPT prompt;
+# 320: the last length bf16 keeps resident (five whole 64-key chunks);
+# 337: ViT-L/14 with an 80-token VPT prompt; 577: ViT-L/14@336
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
-@pytest.mark.parametrize("T", [337, 577])
+@pytest.mark.parametrize("T", [129, 200, 273, 320, 337, 577])
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_k1_streamed_schedule_matches_jax(mask, T, dtype):
-    """K1's streamed schedule (fp32 on 3xTF32 products, bf16 on products of
-    bf16 values, which fp32 holds exactly) against the JAX package's fused
-    attention (its Pallas forward, interpreted off-TPU) and the port's plain
-    version."""
+    """K1's schedule above 128 tokens (fp32 on 3xTF32 products in 32-key
+    chunks, bf16 on products of bf16 values, which fp32 holds exactly, in
+    64-key chunks, resident up to 320 and streamed past it) against the JAX
+    package's fused attention (its Pallas forward, interpreted off-TPU) and
+    the port's plain version."""
     jdt, tdt, tol = _DTYPES[dtype]
     qkv, _ = _inputs(T, 300 + T)
     qkv_t = torch.from_numpy(qkv).to(tdt)
