@@ -76,19 +76,24 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      MNT_FAIL_AFTER_ITER, resumed); then at ViT-L/14 (24 + 12 layers, W
      1024 / 768), bf16: main_clip, main_ul visual_fpl and main_ssl
      multimodal_fpl, 5 epochs each, and main_ul visual_fpl with an 80-token
-     prompt (T = 337, K1 and K2 streamed), 3 epochs; each run must log one
-     `fused train:` line per training run, with its graphs captured
+     prompt (T = 337, K1 and K2 streamed), 3 epochs; and main_ul visual_fpl
+     at ViT-L/14 in float32, the default type (T = 273: K2's fp32 pair, K1
+     streamed in fp32), 3 epochs; each run must log one `fused train:` line
+     per training run, with its graphs captured
   8. breakdown: set-up, host decode and device encode of the bf16 pass,
      each timed alone, and the device encode of the same 256-image batch
      by ViT-L/14 (K1's ms in it); one bf16 training step of textual_fpl
-     (10 and 102 classes), of visual_fpl and of grip_multimodal (UPT), and
-     of ViT-L/14's visual_fpl and multimodal_fpl, in the per-step loop on
+     (10 and 102 classes), of visual_fpl and of grip_multimodal (UPT), of
+     ViT-L/14's visual_fpl and multimodal_fpl, and one fp32 step of
+     ViT-L/14's visual_fpl (its whole-run trainer over 3 epochs), in the
+     per-step loop on
      the host clock (with peak device memory) and under torch.profiler (device busy time,
      kernels by name, K2's time and share of the busy time), then in the
      whole-run trainer (10 epochs of 10 steps: wall ms per step with the
      epoch ends, device busy time and idle share, capture seconds,
-     graph-pool bytes; the profiler's K1 and K2 kernels must number what
-     the counters add, or up to 2% fewer) beside it; one GRIP refresh of
+     graph-pool bytes, K2's ms and share; the profiler's K1 and K2 kernels
+     must number what the counters add, a K2 call that takes a pair two,
+     or up to 2% fewer, in both types) beside it; one GRIP refresh of
      grip_visual over the 640-image pool, split into its parts; and
      textual_fpl, visual_fpl and grip_visual (bf16) again in the per-step
      loop, their run walls beside the whole-run trainer's
@@ -104,12 +109,14 @@ Phases (one or more lines each; any failure raises and exits non-zero):
 The experiment's twophase fwd (K4's only path: no model runs K4, nor
 does the JAX package run its Pallas kernel), phases 4-6 (the zero-shot
 path), the SSL CoOp runs, the UL/TRZSL VPT runs,
-the IFPL/GRIP/UPT runs with the resume check, the ViT-L/14 runs and the
-ViT-L/14 80-token VPT run of phase 7 (five training paths), and phase 9
+the IFPL/GRIP/UPT runs with the resume check, the ViT-L/14 runs, the
+ViT-L/14 80-token VPT run and the fp32 ViT-L/14 VPT run of phase 7 (six
+training paths), and phase 9
 each run with every launch count set to 0 just before and read just after;
-a kernel the path runs must show a launch (the streamed forms of K1 and K2
-and K1's resident bf16 form count apart; the ViT-L/14 path must launch the
-resident form, the 80-token path the streamed ones).  A graph replay
+a kernel the path runs must show a launch (the streamed forms of K1 and K2,
+K1's resident bf16 form and K2's fp32 pair count apart; the ViT-L/14 path
+must launch the resident form, the 80-token path the streamed ones, the
+fp32 ViT-L/14 path K2's fp32 pair).  A graph replay
 passes no Python counter: each capture records what it launched, and every
 replay loop adds captured x replays.  Then one JSON line listing each
 kernel with its launches (the sum over the paths, and by path), and last
@@ -157,9 +164,10 @@ STEP_LOSS_RTOL = 1e-5  # ... and the loss (relative)
 FUSED_FORM_TOL = 1e-6
 
 N_CLASSES, N_PER_CLASS, RES = 10, 64, 224
-# K2 streams K and V through shared memory past RESIDENT_MAX_SEQ tokens, and
-# so does K1 in bf16; K1 in fp32 streams past K1_RESIDENT_MAX_SEQ["float32"]
-# (the wrappers count those launches in `streamed_launches`).  The kernel
+# K1 and K2 in bf16 stream K and V through shared memory past
+# RESIDENT_MAX_SEQ tokens; in fp32 both stream past 128 (K1_RESIDENT_MAX_SEQ;
+# K2's fp32 pair), as the libraries decide (the wrappers count those launches
+# in `streamed_launches`, K2's fp32 ones in `tf32_launches`).  The kernel
 # phase holds the streamed forms at ViT-L/14's width (16 heads of 64): 321,
 # ViT-L/14 with an 80-token prompt (337, the main path's), 384,
 # ViT-L/14@336's 577 and 1024, with B chosen so that each case's plain
@@ -562,9 +570,12 @@ def phase_kernels_bwd(torch):
             heads = [t.detach().contiguous().requires_grad_(True)
                      for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4)]
             g_heads = grad.view(B, T, H, D).transpose(1, 2).contiguous()
+            # a pair of launches (fp32 above 128 tokens: the 3xTF32 pair; bf16
+            # above 320: the streamed pair), as the library decides
+            pair = lib.mnt_attention_bwd_kernels(T, _DTYPE_CODES[dt]) == 2
             ms = device_ms(torch, lambda: attention_bwd(qkv, grad, mask, H))
             plain = device_ms(torch, lambda: attention_bwd_reference(qkv, grad, mask, H))
-            pair = device_ms(torch, lambda: torch.autograd.grad(
+            pair_ms = device_ms(torch, lambda: torch.autograd.grad(
                 fused_attention(leaf, mask, H), leaf, grad))
             sdpa = device_ms(torch, lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(*heads, is_causal=causal), heads, g_heads))
@@ -575,11 +586,12 @@ def phase_kernels_bwd(torch):
             case = dict(shape=[B, T, W, H], mask=mask, dtype=dname,
                         warps=lib.mnt_attention_bwd_warps(T, D, _DTYPE_CODES[dt]),
                         max_abs_err=err, tol=tol, rtol=tol, bit_identical=same, ms=ms,
-                        plain_ms=plain, pair_ms=pair, library_ms=sdpa,
+                        plain_ms=plain, pair_ms=pair_ms, library_ms=sdpa,
                         library="autograd.grad of scaled_dot_product_attention "
                         "(forward + backward)", sdpa_ratio=ms / sdpa, bound_ms=b_ms,
-                        bound_by=b_by, bound_share=b_ms / ms, streamed=T > RESIDENT_MAX_SEQ,
-                        shard=shard)
+                        bound_by=b_by, bound_share=b_ms / ms,
+                        streamed=pair and dname == "bfloat16",
+                        tf32=pair and dname == "float32", shard=shard)
             cases.append(case)
             log("  attention_bwd " + json.dumps(case))
             if not ok:
@@ -1691,9 +1703,11 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
     time, idle share against the unprofiled wall) - beside `per_step`, the
     per-step loop's numbers from phase_step_profile on the same strategy.
     The profiled run's K1 and K2 kernels, as the profiler sees them, must
-    number what the wrappers' counters add for it (captured x replays; in
-    bf16 every counted launch is one kernel, but a K2 call above 320 tokens
-    two), within the profiler's drops."""
+    number what the wrappers' counters add for it (captured x replays; every
+    counted launch is one kernel, but a K2 call that takes a pair - fp32
+    above 128 tokens, bf16 above 320, as the library decides - two), within
+    the profiler's drops.  Prints K2's ms a step and its share of the busy
+    time."""
     import copy
 
     import numpy as np
@@ -1720,12 +1734,14 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
         first_s = run()
         info = dict(strategy._fused_info)
         wall_s = run()
-        c0 = [fused_attention.launches, attention_bwd.launches, attention_bwd.streamed_launches]
+        c0 = [fused_attention.launches, attention_bwd.launches, attention_bwd.streamed_launches,
+              attention_bwd.tf32_launches]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prof_s = run()
         counted = [fused_attention.launches - c0[0], attention_bwd.launches - c0[1]]
-        # a streamed K2 call (T > 320) is two kernels, the query and key sides
-        kernels_counted = [counted[0], counted[1] + attention_bwd.streamed_launches - c0[2]]
+        # a K2 call that takes a pair is two kernels, the query and key sides
+        pairs = (attention_bwd.streamed_launches - c0[2]) + (attention_bwd.tf32_launches - c0[3])
+        kernels_counted = [counted[0], counted[1] + pairs]
     finally:
         strategy._fused_keep = False
         strategy._fused_free()
@@ -1736,6 +1752,7 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
     wall_ms = wall_s * 1e3 / steps
     seen = [sum(c for k, c in counts.items() if name in k)
             for name in ("attention_fwd", "attention_bwd")]
+    k2 = sum(ms for name, ms in kernels.items() if "attention_bwd" in name)
     replays = [epochs * (info["steps_per_epoch"] * s + e)
                for s, e in zip(info["launches_per_step"], info["launches_per_epoch_end"])]
     out = {
@@ -1748,6 +1765,8 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
         "device_ops_per_step": ops if kernels else None,
         "device_busy_ms_per_step": busy if kernels else None,
         "device_idle_share": 1 - busy / wall_ms if kernels else None,
+        "attention_bwd_ms_per_step": k2 if kernels else None,
+        "attention_bwd_share_of_busy": k2 / busy if kernels else None,
         "k1_k2_profiled": seen, "k1_k2_counted": counted,
         "k1_k2_kernels_counted": kernels_counted, "k1_k2_captured_x_replays": replays,
         "per_step_loop": {k: per_step[k] for k in (
@@ -1761,7 +1780,7 @@ def phase_fused_profile(torch, strategy, files, per_step, epochs: int = 10):
     # the profiler can drop a few of the graphs' kernel records (1,308 of
     # 1,320 K1 launches have been seen): it may see fewer, down to 98%,
     # never more
-    if kernels and cfg.COMPUTE_DTYPE == "bfloat16" and not all(
+    if kernels and not all(
             0.98 * c <= n <= c for n, c in zip(seen, kernels_counted)):
         fail(f"whole-run trainer profile: the profiler saw {seen} K1/K2 kernels where the "
              f"counters added {kernels_counted}")
@@ -2038,14 +2057,16 @@ def main() -> int:
     log(f"[4] main path: dataset of {len(classes)} classes x {N_PER_CLASS} train + "
         f"{N_PER_CLASS} test {RES}px PNGs written in {time.perf_counter() - t0:.2f} s")
 
-    # (wrapper, counter) of each kernel; the streamed forms of K1 and K2
-    # and K1's resident bf16 form (129 to 320 tokens) count apart as well
+    # (wrapper, counter) of each kernel; the streamed forms of K1 and K2,
+    # K1's resident bf16 form (129 to 320 tokens) and K2's fp32 pair (above
+    # 128 tokens) count apart as well
     wrappers = {"attention_fwd": (fused_attention, "launches"),
                 "attention_bwd": (attention_bwd, "launches"),
                 "clip_head": (fused_probs, "launches"),
                 "attention_fwd_resident": (fused_attention, "resident_launches"),
                 "attention_fwd_streamed": (fused_attention, "streamed_launches"),
                 "attention_bwd_streamed": (attention_bwd, "streamed_launches"),
+                "attention_bwd_tf32": (attention_bwd, "tf32_launches"),
                 "twophase_attention": (twophase_attention, "launches")}
     resident = ("attention_fwd", "attention_bwd", "clip_head")
     # K4 runs on no path of the models (nor does its Pallas kernel on the
@@ -2125,7 +2146,19 @@ def main() -> int:
             prefix=VPT_LONG_PREFIX)
 
     counted("ViT-L/14, 80-token VPT prompt",
-            tuple(n for n in model_kernels if n != "attention_fwd_resident"), vit_l14_long_prompt)
+            tuple(n for n in model_kernels
+                  if n not in ("attention_fwd_resident", "attention_bwd_tf32")),
+            vit_l14_long_prompt)
+    log("[7] ViT-L/14 VPT in float32, the default type (T = 273)")
+    # main_ul visual_fpl fp32, 3 epochs: every step takes K2's fp32 pair, and
+    # K1 streams in fp32 from 129 tokens (the zero-shot pass's T = 257 too)
+    def vit_l14_fp32():
+        key = "ul_visual_fpl_float32@ViT-L/14"
+        walls[key], trained[key] = phase_train(
+            torch, data_dir, work, "ul", "visual_fpl", "float32", 3, encoder="ViT-L/14")
+
+    counted("ViT-L/14 fp32 VPT",
+            resident + ("attention_fwd_streamed", "attention_bwd_tf32"), vit_l14_fp32)
     with open(f"{data_dir}/MNIST/train.txt") as f:
         train_files = [f"{data_dir}/MNIST/train/{l.split()[0]}" for l in f if l.strip()]
     log("[9] distributed (NCCL, world size 1)")
@@ -2148,14 +2181,17 @@ def main() -> int:
     # (the mixer, the text tower over 10 x 77 tokens and the vision tower
     # over 16 x 54); the same VPT and UPT steps at ViT-L/14 (16 x 273 and
     # 16 x 261 vision tokens through 24 layers), and VPT with the 80-token
-    # prompt (16 x 337, K1 and K2 streamed)
-    for strategy in (fpl, TextualStrategy(
+    # prompt (16 x 337, K1 and K2 streamed); then the fp32 ViT-L/14 VPT step
+    # (16 x 273, K2's fp32 pair), its whole-run trainer over 3 epochs
+    for strategy, epochs in ((fpl, 10), (TextualStrategy(
             fpl.config, {c: i for i, c in enumerate(flowers)}, flowers, flowers, flowers,
-            runtime=fpl.runtime), trained["ul_visual_fpl"], trained["ssl_grip_multimodal"],
-            trained["ul_visual_fpl@ViT-L/14"], trained["ssl_multimodal_fpl@ViT-L/14"],
-            trained["ul_visual_fpl_bfloat16@ViT-L/14-L80"]):
+            runtime=fpl.runtime), 10), (trained["ul_visual_fpl"], 10),
+            (trained["ssl_grip_multimodal"], 10), (trained["ul_visual_fpl@ViT-L/14"], 10),
+            (trained["ssl_multimodal_fpl@ViT-L/14"], 10),
+            (trained["ul_visual_fpl_bfloat16@ViT-L/14-L80"], 10),
+            (trained["ul_visual_fpl_float32@ViT-L/14"], 3)):
         phase_fused_profile(torch, strategy, train_files,
-                            phase_step_profile(torch, strategy, train_files))
+                            phase_step_profile(torch, strategy, train_files), epochs)
     phase_refresh_profile(torch, trained["ul_grip_visual"], data_dir)
     log("[8] run walls: the per-step loop (FUSED_TRAIN off) beside the whole-run trainer")
     for paradigm, model, dtype, epochs, *iterative in (
@@ -2181,7 +2217,7 @@ def main() -> int:
         }
 
     short_fwd = [c for c in attn_cases if not c["streamed"] and not c["resident"]]
-    short_bwd = [c for c in bwd_cases if not c["streamed"]]
+    short_bwd = [c for c in bwd_cases if not c["streamed"] and not c["tf32"]]
     kernels = [
         entry("attention_fwd", f"{PKG}/csrc/attention_fwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:65", short_fwd,
@@ -2206,6 +2242,12 @@ def main() -> int:
               "menghini_neurips23_tpu/ops/attention.py:96",
               [c for c in bwd_cases if c["streamed"]],
               lambda c: c["shape"] == [16, 337, 1024, 16] and c["dtype"] == "bfloat16"),
+        # K2's fp32 pair (3xTF32, above 128 tokens), headlined at ViT-L/14
+        # with a 16-token VPT prompt (T = 273), the default type's
+        entry("attention_bwd_tf32", f"{PKG}/csrc/attention_bwd.cu",
+              "menghini_neurips23_tpu/ops/attention.py:96",
+              [c for c in bwd_cases if c["tf32"]],
+              lambda c: c["shape"] == [16, 273, 1024, 16] and c["dtype"] == "float32"),
         entry("clip_head", f"{PKG}/csrc/clip_head.cu",
               "menghini_neurips23_tpu/ops/clip_head.py:40", head_cases,
               lambda c: c["shape"] == [640, 512, 10] and c["dtype"] == "float32"),

@@ -25,8 +25,11 @@
 // operations per byte in bf16, far below the ~295 per byte where the tensor
 // cores would become the limit.  The design keeps every product off the
 // shared-memory-bound FFMA path in bf16 and stages with 16-byte copies.  At
-// ViT-L/14's T = 273 bf16 is still below that line (~195 per byte); fp32,
-// against the FMA units' ~20, is bound by operations.
+// ViT-L/14's T = 273 bf16 is still below that line (~195 per byte).  fp32
+// above 128 tokens is bound by operations: an fp32-accurate product on the
+// tensor cores is three TF32 products (3xTF32), so its least time is 3 x
+// FLOPs at the TF32 rate (494 TFLOP/s), against which the fp32 pair below
+// runs every product.
 //
 // Design, one block per (batch row, head), T <= 128, a warp per 16-row tile:
 // - staging: q and k rows, then v and g rows in a second group that lands
@@ -56,12 +59,13 @@
 // Above 128 tokens (ViT-L/14: VPT's 273, UPT's 261, 257, and any longer T): P_lp
 // and dS of a whole (row, head) no longer fit a block (2 * 288 * 296 * 2 B =
 // 341 KB at T = 273), so no T x T tile is kept; the softmax statistics are
-// taken in one sweep and the rest is recomputed from them:
-// - sweep 1 over 64-key chunks (fp32: 32) keeps each query row's online max
-//   m, sum l = sum exp(s - m) and rho = sum exp(s - m) * dP, rescaling l and
-//   rho alike when m grows, and ends with r = rho / l (= rowsum(dP * P));
-//   sweep 2 forms P = exp(s - m) / l and dP again, rounds dS and
-//   accumulates dq = dS . k;
+// taken in one sweep and the rest is recomputed from them, in base 2
+// (D^-0.5 * log2(e) folded into the scale, every exponential one ex2):
+// - sweep 1 (64-key steps resident, 32-key steps in the pairs) keeps each
+//   query row's online max m, sum l = sum 2^(s - m) and rho = sum
+//   2^(s - m) * dP, rescaling l and rho alike when m grows, and ends with
+//   lse = m + log2(l) and r = rho / l (= rowsum(dP * P)); sweep 2 forms
+//   P = 2^(s - lse) and dP again, rounds dS and accumulates dq = dS . k;
 // - the key side, a warp per 16 keys, forms the transposed tile S^T =
 //   k . q^T and dP^T = v . g^T, P from the query row's statistics, dv +=
 //   P_lp^T . g, dS from its r, dk += dS^T . q, over the query rows in a fixed order
@@ -89,13 +93,28 @@
 //   the rounding of P and dS), not the tensor cores: P = 2^(s * c - lse)
 //   costs one FFMA and one MUFU operation, dS one FFMA and one multiply;
 // - fp32, two launches of 4-warp blocks over 64-row tiles (a resident head
-//   would take 348 KB): the query side streams 32-key chunks of k and v
-//   through a 3-stage cp.async ring (chunk c + 2 lands while c computes)
-//   and writes dq and each row's (m, 1/l, r) to a (B, H, 3, round64(T))
-//   workspace; the key side streams 32-query chunks of q, g and their
-//   statistics through the same ring.  Full-fp32 FFMA register tiles, with
-//   dS (query side) and P, then dS (key side) of the warp's 16 rows passing
-//   through a per-warp buffer; about 95 KB a block, two blocks an SM;
+//   would take 348 KB), every product on the tensor cores as 3xTF32
+//   (mma.sync m16n8k8, attention_common.cuh: x = hi + lo split on the bit
+//   pattern, lo.hi + hi.lo + hi.hi of two k-steps summed in a zeroed tile
+//   and added to the fp32 accumulator, since the tensor cores' adders
+//   truncate).  The query
+//   side streams 32-key chunks of k and v through a 2-stage cp.async ring,
+//   both sweeps as one stream of steps, and writes dq and each row's lse
+//   and r * D^-0.5 to a (B, H, 2, round64(T)) workspace (the bf16 pair's);
+//   the key side streams 32-query chunks of q and g with their statistics.
+//   A landed chunk is split once by the block into hi and lo planes (each
+//   thread its own pieces), so the four warps read both halves ready; a
+//   warp's A fragments of the block's resident operands are split at each
+//   use, held in registers as raw fp32 on the query side (q and g, 64
+//   registers a lane at D = 64) and read again from shared memory on the
+//   key side (k and v), whose dk and dv hold 64 more; S, dP and their
+//   transposes stay in the
+//   accumulators, and P, dS and theirs go from there straight into the A
+//   fragments of the next product (tile n's keys 2q, 2q + 1 as the
+//   fragment's k = q, q + 4, the B rows read in that order), so no T x T
+//   tile touches shared memory.  103 KB of shared memory a block at D = 64
+//   (the 64 resident rows of two operands, 34 KB, and two stages of 34 KB),
+//   two blocks an SM;
 // - bf16 above 320 tokens (ViT-L/14 with a prompt above 63 tokens, 577 at
 //   ViT-L/14@336), where the resident head would pass 227 KB: two launches,
 //   the resident kernel's phase A and phase B, each a block per (batch row,
@@ -127,8 +146,9 @@ constexpr int kResidentMaxSeq = 320;
 constexpr int kResidentWarps = 10;
 constexpr int kChunk = 64;
 // The streamed pairs (fp32 above 128 tokens, bf16 above kResidentMaxSeq):
-// rows per block, a warp per 16 of them, and stages in the ring; fp32
-// streams chunks of kSub rows, bf16 of kChunk
+// rows per block, a warp per 16 of them, and stages in the bf16 pair's
+// ring (the fp32 pair's: kTf32Stages); fp32 streams chunks of kSub rows,
+// bf16 of kChunk
 constexpr int kTile = 64;
 constexpr int kTileThreads = 128;
 constexpr int kSub = 32;
@@ -817,112 +837,268 @@ attention_bwd_resident_bf16(const bf16* __restrict__ qkv, const bf16* __restrict
   }
 }
 
-// The fp32 streamed pair (above 128 tokens): the block's 64 rows of two
-// operands, a ring of kStages chunks of two 32-row operands and three fp32
-// statistics rows (the key side's; the query side leaves them unused), and
-// a 16 x (kSub + 4) fp32 buffer per warp.  Rows are padded to D + 4 floats
-// (16-byte multiples, free of bank conflicts for the float4 reads).
-__host__ __device__ constexpr size_t ring_bytes(int D) {
-  return 2 * kSub * (size_t)(D + 4) * sizeof(float) + 3 * kSub * sizeof(float);
-}
-
-size_t tiled_smem(int D) {
-  return 2 * kTile * (size_t)(D + 4) * sizeof(float) + kStages * ring_bytes(D) +
-         4 * 16 * (kSub + 4) * sizeof(float);
-}
-
 // the workspace's rows per (batch row, head): T rounded up to the 64-row tile
 __host__ __device__ constexpr int stats_rows(int seq) { return (seq + kTile - 1) / kTile * kTile; }
 
-// acc[i][jj] = sum_d a[4ry + i][d] * b[8jj + kx][d]: the warp's 16 rows of
-// `a` against the 8 * NS rows of `b`, both row-major with D + 4 floats a
-// row.
-template <int D, int NS>
-__device__ __forceinline__ void dots_tiled(float (&acc)[4][NS], const float* a, const float* b,
-                                           int ry, int kx) {
-  constexpr int LD = D + 4;
+// ------------------------------------------------ fp32, T > kWholeMaxSeq
+
+// The fp32 pair, every product as 3xTF32 on mma.sync m16n8k8.  A stage of
+// its ring holds kSub rows of two streamed operands, each in two planes:
+// the rows land (cp.async) in the first plane and are then split in place,
+// x = hi + lo (split_tf32_uncut), hi staying where x was and lo going to the
+// second plane, so that the block's four warps read both halves ready and
+// no warp splits a streamed value; each thread splits the 16-byte pieces
+// it staged itself, so nothing but its own cp.async wait comes between
+// landing and splitting.  On the key side the chunk's lse and r * D^-0.5
+// follow the planes.  Rows are D + 4 floats (16-byte multiples, free of
+// bank conflicts for ldmatrix and for the column reads of the products
+// whose B is a chunk's rows).  Two stages (the chunk of step + 1 lands
+// while step computes), one barrier a step.
+constexpr int kTf32Stages = 2;
+// Where a warp's A fragments of the block's resident operands come from at
+// each step (the kHold argument of the two kernels): held in registers as
+// raw fp32 (loaded once, split at each use), or read again from shared
+// memory and split.  The query side holds its q and g; the key side, whose
+// dk and dv take 64 more registers, reads its k and v again.  Each side was
+// measured on the other route too, and lost there (PERF.md, Findings).
+
+// x = hi + lo for the tensor cores: hi as split_tf32 rounds it, lo = x - hi
+// left uncut, since an m16n8k8 .tf32 operand is read as its top 19 bits
+// (the tensor cores cut the rest, as split_tf32's mask does): one integer
+// operation less a value.  The PTX ISA does not promise that cut: it is
+// empirical, shown on the H100 by outputs with the masked split's bits at
+// every measured shape.  A card that read or rounded the low bits instead
+// would move the products' last bits only; the card test
+// test_attention_bwd_kernel_matches_plain (fp32, T > 128, 1e-5 + 1e-5
+// |ref|) and the smoke's phase 3 fail if the error grows past that.
+// split_tf32 (attention_common.cuh) is the masked form K1 and K3 use.
+__device__ __forceinline__ void split_tf32_uncut(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+__host__ __device__ constexpr int tf32_plane(int D) { return kSub * (D + 4); }  // floats
+
+__host__ __device__ constexpr size_t tf32_stage_bytes(int D) {
+  return (4 * (size_t)tf32_plane(D) + 2 * kSub) * sizeof(float);
+}
+
+// the block's 64 rows of two resident operands, then the ring
+size_t tf32_smem(int D) {
+  return 2 * kTile * (size_t)(D + 4) * sizeof(float) + kTf32Stages * tf32_stage_bytes(D);
+}
+
+// Split the 16-byte pieces of a plane's kSub rows that this thread staged
+// with stage_rows<float, D>(plane, D + 4, ..., kSub, tid, kTileThreads):
+// hi in place, lo one plane further on (split_tf32_uncut).
+template <int D>
+__device__ __forceinline__ void split_staged(float* plane, int tid) {
+  constexpr int LD = D + 4, kPieces = D / 4;
+  for (int idx = tid; idx < kSub * kPieces; idx += kTileThreads) {
+    float* p = plane + (idx / kPieces) * LD + (idx % kPieces) * 4;
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    uint4 hi, lo;
+    split_tf32_uncut(x.x, hi.x, lo.x);
+    split_tf32_uncut(x.y, hi.y, lo.y);
+    split_tf32_uncut(x.z, hi.z, lo.z);
+    split_tf32_uncut(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(p) = hi;
+    *reinterpret_cast<uint4*>(p + tf32_plane(D)) = lo;
+  }
+}
+
+// The raw m16n8k8 .tf32 A fragment of k-step kk (columns 8kk .. 8kk + 7)
+// of 16 fp32 rows, `rows` the first (ldmatrix reads fp32 rows: an 8 x 8
+// matrix of b16 pairs is an 8 x 4 matrix of floats); matrices (rows 0-7,
+// 8kk..), (8-15, 8kk..), (0-7, 8kk + 4..), (8-15, 8kk + 4..)
+template <int D>
+__device__ __forceinline__ void load_a_f32(uint32_t (&a)[4], const float* rows, int kk, int lane) {
+  ldmatrix_x4(a, rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * (D + 4) + 8 * kk + (lane >> 4) * 4);
+}
+
+// B fragments of two n8 tiles, B[k][n] = rows[n0 + n][8kk + k]: matrices
+// (rows n0.., 8kk..), (n0.., 8kk + 4..), (n0 + 8.., 8kk..), (n0 + 8.., 8kk + 4..)
+template <int D>
+__device__ __forceinline__ void load_b_f32(uint32_t (&b)[4], const float* rows, int n0, int kk,
+                                           int lane) {
+  ldmatrix_x4(b, rows + (n0 + (lane & 7) + (lane >> 4) * 8) * (D + 4) + 8 * kk +
+                     ((lane >> 3) & 1) * 4);
+}
+
+// A warp's 16 rows of a resident operand as the A side of a product over D:
+// the raw fragments held (kHold) or read again at each use; either way each
+// k-step's fragment is split at its use.
+template <int D, bool kHold>
+struct RowFrags {
+  uint32_t f[kHold ? D / 8 : 1][4];
+  const float* rows;
+
+  __device__ __forceinline__ void load(const float* r, int lane) {
+    rows = r;
+    if constexpr (kHold) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int kk = 0; kk < D / 8; ++kk) load_a_f32<D>(f[kk], r, kk, lane);
+    }
+  }
+
+  __device__ __forceinline__ void split(uint32_t (&hi)[4], uint32_t (&lo)[4], int kk,
+                                        int lane) const {
+    uint32_t a[4];
+    if constexpr (kHold) {
 #pragma unroll
-    for (int jj = 0; jj < NS; ++jj) acc[i][jj] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float x[4][4];
+      for (int e = 0; e < 4; ++e) a[e] = f[kk][e];
+    } else {
+      load_a_f32<D>(a, rows, kk, lane);
+    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) load_vec<4>(x[i], a + (4 * ry + i) * LD + d);
+    for (int e = 0; e < 4; ++e) split_tf32_uncut(a[e], hi[e], lo[e]);
+  }
+};
+
+// c1 = A1 . B1^T and c2 = A2 . B2^T over D, 3xTF32: the warp's 16 rows of
+// two resident operands against the kSub rows of two streamed ones (hi and
+// lo planes at b1, b2).  The three products (lo.hi, hi.lo, hi.hi) of two
+// k-steps are summed in a zeroed tile and then added to c in fp32, so that
+// no sum runs longer than six products inside the tensor cores' truncating
+// adders (one k-step a tile takes twice the fp32 adds, and was 7% slower
+// on the card).  The 16-row groups of the chunk outside [nbeg, nend) are
+// left at 0.  Accumulator tile n: rows g, g + 8 of the warp against chunk
+// rows 8n + 2q, 8n + 2q + 1.
+template <int D, bool kHold>
+__device__ __forceinline__ void dots2_tf32(float (&c1)[kSub / 8][4], float (&c2)[kSub / 8][4],
+                                           const RowFrags<D, kHold>& a1,
+                                           const RowFrags<D, kHold>& a2, const float* b1,
+                                           const float* b2, int nbeg, int nend, int lane) {
+  constexpr int PL = tf32_plane(D);
 #pragma unroll
-    for (int jj = 0; jj < NS; ++jj) {
-      float y[4];
-      load_vec<4>(y, b + (8 * jj + kx) * LD + d);
+  for (int n = 0; n < kSub / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 4; ++e) c1[n][e] = c2[n][e] = 0.f;
 #pragma unroll
-        for (int t = 0; t < 4; ++t) acc[i][jj] = fmaf(x[i][t], y[t], acc[i][jj]);
+  for (int k0 = 0; k0 < D / 8; k0 += 2) {
+    uint32_t ah1[2][4], al1[2][4], ah2[2][4], al2[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      a1.split(ah1[u], al1[u], k0 + u, lane);
+      a2.split(ah2[u], al2[u], k0 + u, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < kSub / 16; ++j) {
+      if (16 * j < nbeg || 16 * j >= nend) continue;
+      float t1[2][4] = {}, t2[2][4] = {};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        uint32_t bh[4], bl[4];
+        load_b_f32<D>(bh, b1, 16 * j, k0 + u, lane);
+        load_b_f32<D>(bl, b1 + PL, 16 * j, k0 + u, lane);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          mma_tf32(t1[t], al1[u], bh[2 * t], bh[2 * t + 1]);
+          mma_tf32(t1[t], ah1[u], bl[2 * t], bl[2 * t + 1]);
+          mma_tf32(t1[t], ah1[u], bh[2 * t], bh[2 * t + 1]);
+        }
+        load_b_f32<D>(bh, b2, 16 * j, k0 + u, lane);
+        load_b_f32<D>(bl, b2 + PL, 16 * j, k0 + u, lane);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          mma_tf32(t2[t], al2[u], bh[2 * t], bh[2 * t + 1]);
+          mma_tf32(t2[t], ah2[u], bl[2 * t], bl[2 * t + 1]);
+          mma_tf32(t2[t], ah2[u], bh[2 * t], bh[2 * t + 1]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c1[2 * j + t][e] += t1[t][e], c2[2 * j + t][e] += t2[t][e];
     }
   }
 }
 
-// acc[i][c] += sum_{j < n} w[4ry + i][j] * b[j][col c]: the lane's 4 rows of
-// the warp's (16, LDW) fp32 buffer against the first n (a multiple of 4)
-// rows of a chunk, in the lane's Cols<D> columns.
-template <int D, int LDW>
-__device__ __forceinline__ void rows_times_tiled(float (&acc)[4][D / 8], const float* w,
-                                                 const float* b, int n, int ry, int kx) {
-  using C = Cols<D>;
-  constexpr int LD = D + 4;
-#pragma unroll 2
-  for (int j = 0; j < n; j += 4) {
-    float p[4][4];
+// c[n] += A . B, 3xTF32, over the chunk's rows 8kk .. 8kk + 7 for the
+// k-steps kk in [kk0, kk1), taken two at a time (the pair's six products
+// summed in a zeroed tile, then added in fp32; a pair's k-step outside the
+// range multiplies A's zeros there): A straight from an accumulator tile
+// of the warp's 16 rows against the chunk (dS, P or their transposes; tile
+// kk's columns 2q, 2q + 1 taken as the fragment's k = q, q + 4, which is
+// what the accumulator layout holds), B the chunk's rows in that order
+// (8kk + 2q, 8kk + 2q + 1), columns 8n + g, from the hi and lo planes at b.
+template <int D>
+__device__ __forceinline__ void acc_times_rows(float (&c)[D / 8][4], const float (&a)[kSub / 8][4],
+                                               const float* b, int kk0, int kk1, int lane) {
+  constexpr int LD = D + 4, PL = tf32_plane(D);
+  const float* r = b + 2 * (lane & 3) * LD + lane / 4;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) load_vec<4>(p[i], w + (4 * ry + i) * LDW + j);
+  for (int k0 = 0; k0 < kSub / 8; k0 += 2) {
+    if (k0 + 1 < kk0 || k0 >= kk1) continue;
+    uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
+    for (int u = 0; u < 2; ++u) {
+      const int kk = k0 + u;
+      const uint32_t x[4] = {__float_as_uint(a[kk][0]), __float_as_uint(a[kk][2]),
+                             __float_as_uint(a[kk][1]), __float_as_uint(a[kk][3])};
 #pragma unroll
-      for (int u = 0; u < C::kRuns; ++u) {
-        float v[C::kVec];
-        load_vec<C::kVec>(v, b + (j + t) * LD + C::col(u, kx));
+      for (int e = 0; e < 4; ++e) split_tf32_uncut(x[e], ah[u][e], al[u][e]);
+    }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < D / 8; ++n) {
+      float t[4] = {};
 #pragma unroll
-          for (int e = 0; e < C::kVec; ++e)
-            acc[i][u * C::kVec + e] = fmaf(p[i][t], v[e], acc[i][u * C::kVec + e]);
+      for (int u = 0; u < 2; ++u) {
+        const float* rk = r + 8 * (k0 + u) * LD + 8 * n;
+        const uint32_t bh0 = __float_as_uint(rk[0]), bh1 = __float_as_uint(rk[LD]);
+        const uint32_t bl0 = __float_as_uint(rk[PL]), bl1 = __float_as_uint(rk[PL + LD]);
+        mma_tf32(t, al[u], bh0, bh1);
+        mma_tf32(t, ah[u], bl0, bl1);
+        mma_tf32(t, ah[u], bh0, bh1);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += t[e];
+    }
   }
 }
 
-// Query side.  Block (batch row x head, 64-row query tile), a warp per 16
-// rows, lane (ry, kx) holding rows r0 + 4ry + i against keys c0 + 8jj + kx;
-// the key chunks stream through the ring, sweep 1 (the statistics) and
-// sweep 2 (dS, dq) one after the other, so that chunk step + 2 is staged
-// while step computes.
-template <int D>
+// Query side.  Block (batch row x head, 64-query tile), a warp per 16 rows.
+// The key chunks stream through the ring as one stream of 2 * nch steps
+// (causal: up to the block's last row's diagonal), each chunk's k and v:
+// sweep 1 (steps < nch) forms S = q . k^T and dP = g . v^T and keeps each
+// row's online max m of the raw dots, l = sum 2^(s c - m c) and rho = sum
+// 2^(s c - m c) dP (c = D^-0.5 log2(e)), l and rho rescaled alike when m
+// grows; sweep 2 forms S and dP again, P = 2^(s c - lse) and dS = P (dP
+// D^-0.5 - r D^-0.5) in fp32 in the accumulators, and dq += dS . k with dS
+// taken from there.  Every row of the tile leaves lse = m c + log2(l) (+inf
+// past T: P = 0) and r D^-0.5 in the workspace.
+template <int D, bool kHold>
 __global__ void __launch_bounds__(kTileThreads, 2)
-attention_bwd_q_tiled(const float* __restrict__ qkv, const float* __restrict__ grad,
-                      float* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
-                      int heads, float scale, int causal) {
+attention_bwd_q_tf32(const float* __restrict__ qkv, const float* __restrict__ grad,
+                     float* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
+                     int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  using C = Cols<D>;
-  constexpr int LD = D + 4, NS = kSub / 8, LDW = kSub + 4;
-  constexpr size_t RING = ring_bytes(D);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
+  constexpr int LD = D + 4, PL = tf32_plane(D), NT = kSub / 8;
+  constexpr size_t SB = tf32_stage_bytes(D);
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   float* qs = reinterpret_cast<float*>(smem_raw);  // the block's query rows
   float* gs = qs + kTile * LD;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + kTile * LD);  // keys, values
-  float* ws = reinterpret_cast<float*>(ring + kStages * RING) + warp * 16 * LDW;  // its dS
+  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + kTile * LD);  // k, v
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads, rb = kTile * blockIdx.y;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
-  const int r0 = rb + 16 * warp, row0 = r0 + 4 * ry;  // rows row0 .. row0 + 3
+  const int r0 = rb + 16 * warp, row0 = r0 + lane / 4;  // rows row0 and row0 + 8
   const bool active = r0 < seq;
-  const int kend = causal ? min(seq, r0 + 16) : seq;
-  const int nch = ((causal ? min(seq, rb + kTile) : seq) + kSub - 1) / kSub, steps = 2 * nch;
+  const int kend = causal ? min(seq, r0 + 16) : seq;  // the keys this warp's rows see
+  const int nch = ((causal ? min(seq, rb + kTile) : seq) + kSub - 1) / kSub;
+  const int steps = 2 * nch;
+  auto slot = [&](int step) {
+    return reinterpret_cast<float*>(ring + (step % kTf32Stages) * SB);
+  };
   auto stage = [&](int step) {
-    const int c0 = (step % nch) * kSub;
-    float* dst = reinterpret_cast<float*>(ring + (step % kStages) * RING);
+    if (step >= steps) return;
+    const int c0 = (step < nch ? step : step - nch) * kSub;
+    float* dst = slot(step);
     stage_rows<float, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kSub, tid,
                          kTileThreads);
-    stage_rows<float, D>(dst + kSub * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
+    stage_rows<float, D>(dst + 2 * PL, LD, base + 2 * width + c0 * stride, stride, seq - c0,
                          kSub, tid, kTileThreads);
   };
   stage_rows<float, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
@@ -930,132 +1106,151 @@ attention_bwd_q_tiled(const float* __restrict__ qkv, const float* __restrict__ g
                        kTile, tid, kTileThreads);
   stage(0);
   cp_async_commit();
-  stage(1);
-  cp_async_commit();
 
-  float m[4], l[4], rho[4], inv_l[4], r[4], dq[4][C::kPer] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = rho[i] = inv_l[i] = r[i] = 0.f;
+  RowFrags<D, kHold> qa, ga;
+  // (from sweep 2 on, m and rho hold each row's lse and r * D^-0.5)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rho[2] = {0.f, 0.f};
+  float dq[D / 8][4] = {};
   for (int step = 0; step < steps; ++step) {
-    cp_async_wait<1>();  // this step's chunk has landed
-    __syncthreads();     // ... for every thread; and step - 1's stage is free
-    if (step + 2 < steps) stage(step + 2);
+    cp_async_wait<0>();  // this thread's pieces of the chunk (and at step 0 of q and g)
+    split_staged<D>(slot(step), tid);
+    split_staged<D>(slot(step) + 2 * PL, tid);
+    __syncthreads();  // the chunk's planes are whole; every warp is done with step - 1
+    stage(step + 1);
     cp_async_commit();
     if (!active) continue;
-    if (step == nch) {  // sweep 1 is done: reduce over the row's 8 lanes
+    if (step == 0) {
+      qa.load(qs + 16 * warp * LD, lane);
+      ga.load(gs + 16 * warp * LD, lane);
+    }
+    if (step == nch) {  // sweep 1 is done: lse (+inf past T: P = 0) and r * D^-0.5
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float lsum = group_sum<8>(l[i]);
-        inv_l[i] = row0 + i < seq ? 1.f / lsum : 0.f;  // padded rows: P = 0
-        r[i] = group_sum<8>(rho[i]) / lsum;
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const float lsum = group_sum<4>(l[e2]);
+        rho[e2] = group_sum<4>(rho[e2]) / lsum * scale;
+        m[e2] = row0 + 8 * e2 < seq ? fmaf(m[e2], scale2, log2f(lsum)) : INFINITY;
       }
     }
-    const int c0 = (step % nch) * kSub;
+    const int c0 = (step < nch ? step : step - nch) * kSub;
     if (c0 >= kend) continue;
-    const float* ks = reinterpret_cast<const float*>(ring + (step % kStages) * RING);
-    const float* vs = ks + kSub * LD;
-    float s[4][NS], dp[4][NS];
-    dots_tiled<D, NS>(s, qs + 16 * warp * LD, ks, ry, kx);
+    const float* ks = slot(step);
+    float s[NT][4], dp[NT][4];
+    dots2_tf32<D, kHold>(s, dp, qa, ga, ks, ks + 2 * PL, 0, kend - c0, lane);
+    if (step < nch) {
+      // keys past T or above the diagonal (and groups past kend) are -inf
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kSub / 16; ++j) {
+        const int n0 = c0 + 16 * j;
+        if (n0 + 16 > seq || (causal && n0 + 15 > r0) || n0 >= kend) {
 #pragma unroll
-      for (int jj = 0; jj < NS; ++jj) {
-        const int col = c0 + 8 * jj + kx;
-        const bool valid = col < seq && (!causal || col <= row0 + i);
-        s[i][jj] = valid ? s[i][jj] * scale : -INFINITY;
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = n0 + 8 * t + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
+              const bool valid = n0 < kend && col < seq && (!causal || col <= row);
+              s[2 * j + t][e] = valid ? s[2 * j + t][e] : -INFINITY;
+            }
+        }
       }
-    dots_tiled<D, NS>(dp, gs + 16 * warp * LD, vs, ry, kx);
-    if (step < nch) {  // sweep 1: online m, l, rho (key 0 keeps m finite)
+      // online m (quad-uniform), l and rho (lane-partial); key 0 is in
+      // every row's first chunk, so m is finite from there on
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int e2 = 0; e2 < 2; ++e2) {
         float cm = -INFINITY;
 #pragma unroll
-        for (int jj = 0; jj < NS; ++jj) cm = fmaxf(cm, s[i][jj]);
-        const float mn = fmaxf(m[i], group_max<8>(cm)), alpha = expf(m[i] - mn);
+        for (int n = 0; n < NT; ++n) cm = fmaxf(cm, fmaxf(s[n][2 * e2], s[n][2 * e2 + 1]));
+        const float mn = fmaxf(m[e2], group_max<4>(cm)), mn2 = mn * scale2;
+        const float alpha = ex2(m[e2] * scale2 - mn2);
         float ls = 0.f, rs = 0.f;
 #pragma unroll
-        for (int jj = 0; jj < NS; ++jj) {
-          const float p = expf(s[i][jj] - mn);
-          ls += p;
-          rs = fmaf(p, dp[i][jj], rs);
-        }
-        l[i] = fmaf(l[i], alpha, ls);
-        rho[i] = fmaf(rho[i], alpha, rs);
-        m[i] = mn;
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 2 * e2; e < 2 * e2 + 2; ++e) {
+            const float p = ex2(fmaf(s[n][e], scale2, -mn2));
+            ls += p;
+            rs = fmaf(p, dp[n][e], rs);
+          }
+        l[e2] = fmaf(l[e2], alpha, ls);
+        rho[e2] = fmaf(rho[e2], alpha, rs);
+        m[e2] = mn;
       }
       continue;
     }
-    // sweep 2: dS of the warp's rows through its buffer, then dq += dS . k
+    // sweep 2: dS in place of S (0 past T and above the diagonal), then
+    // dq += dS . k over the key steps below kend
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NT; ++n) {
+      const int n0 = c0 + 8 * n;
+      const bool edge = n0 + 8 > seq || (causal && n0 + 7 > r0);
 #pragma unroll
-      for (int jj = 0; jj < NS; ++jj) {
-        const float p = expf(s[i][jj] - m[i]) * inv_l[i];
-        ws[(4 * ry + i) * LDW + 8 * jj + kx] = p * (dp[i][jj] - r[i]) * scale;
+      for (int e = 0; e < 4; ++e) {
+        const int col = n0 + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
+        const bool valid = !edge || (col < seq && (!causal || col <= row));
+        const float p = valid ? ex2(fmaf(s[n][e], scale2, -m[e >> 1])) : 0.f;
+        s[n][e] = p * fmaf(dp[n][e], scale, -rho[e >> 1]);
       }
-    __syncwarp();
-    rows_times_tiled<D, LDW>(dq, ws, ks, (min(kSub, kend - c0) + 3) / 4 * 4, ry, kx);
-    __syncwarp();
+    }
+    acc_times_rows<D>(dq, s, ks, 0, (kend - c0 + 7) / 8, lane);
   }
-  // dq, and (m, 1/l, r) of every row of the tile (zeros past the warps
-  // that hold a row), which the key side reads
   float* out = dqkv + (size_t)b * seq * stride + h * D;
   const int tw = stats_rows(seq);
-  float* st = stats + (size_t)blockIdx.x * 3 * tw;
+  float* st = stats + (size_t)blockIdx.x * 2 * tw;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + i;
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = row0 + 8 * e2;
     if (active && row < seq) {
 #pragma unroll
-      for (int u = 0; u < C::kRuns; ++u)
-        store_vec<C::kVec>(out + row * stride + C::col(u, kx), dq[i] + u * C::kVec);
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(out + row * stride + 8 * n + 2 * (lane & 3)) =
+            make_float2(dq[n][2 * e2], dq[n][2 * e2 + 1]);
     }
-    if (kx == 0) {
-      st[row] = active ? m[i] : 0.f;
-      st[tw + row] = inv_l[i];
-      st[2 * tw + row] = r[i];
-    }
+    if ((lane & 3) == 0) st[row] = active ? m[e2] : INFINITY, st[tw + row] = rho[e2];
   }
 }
 
-// Key side: lane (ry, kx) holds keys j0 + 4ry + t against queries
-// i0c + 8jj + kx; the query chunks and their statistics stream through the
-// ring (chunk c + 2 staged while c computes); P, then dS (from P, kept in
-// registers), of the warp's keys pass through its buffer.
-template <int D>
+// Key side.  Block (batch row x head, 64-key tile), a warp per 16 keys.
+// The query chunks stream through the ring with their lse and r D^-0.5
+// (causal: from the block's own diagonal chunk): S^T = k . q^T and dP^T =
+// v . g^T, then P^T = 2^(s c - lse) and dS^T = P^T (dP^T D^-0.5 - r
+// D^-0.5) in the accumulators, which are the A fragments of dv += P^T . g
+// and dk += dS^T . q.  Queries past T have lse = +inf, so P = dS = 0; keys
+// past T own dk and dv rows that are never written.
+template <int D, bool kHold>
 __global__ void __launch_bounds__(kTileThreads, 2)
-attention_bwd_kv_tiled(const float* __restrict__ qkv, const float* __restrict__ grad,
-                       float* __restrict__ dqkv, const float* __restrict__ stats, int seq,
-                       int width, int heads, float scale, int causal) {
+attention_bwd_kv_tf32(const float* __restrict__ qkv, const float* __restrict__ grad,
+                      float* __restrict__ dqkv, const float* __restrict__ stats, int seq,
+                      int width, int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  using C = Cols<D>;
-  constexpr int LD = D + 4, NS = kSub / 8, LDW = kSub + 4;
-  constexpr size_t RING = ring_bytes(D);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
+  constexpr int LD = D + 4, PL = tf32_plane(D), NT = kSub / 8;
+  constexpr size_t SB = tf32_stage_bytes(D);
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   float* ks = reinterpret_cast<float*>(smem_raw);  // the block's keys
   float* vs = ks + kTile * LD;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTile * LD);  // queries, g, stats
-  float* ws = reinterpret_cast<float*>(ring + kStages * RING) + warp * 16 * LDW;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTile * LD);  // q, g, statistics
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads, jb = kTile * blockIdx.y;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
   const float* gbase = grad + (size_t)b * seq * width + h * D;
   const int tw = stats_rows(seq);
-  const float* st = stats + (size_t)blockIdx.x * 3 * tw;
+  const float* st = stats + (size_t)blockIdx.x * 2 * tw;
   // causal: query chunks before the block's first key see none of its keys
   const int first = causal ? jb / kSub : 0, nch = (seq + kSub - 1) / kSub;
+  auto slot = [&](int c) {
+    return reinterpret_cast<float*>(ring + ((c - first) % kTf32Stages) * SB);
+  };
   auto stage = [&](int c) {
+    if (c >= nch) return;
     const int i0c = c * kSub;
-    unsigned char* slot = ring + ((c - first) % kStages) * RING;
-    float* dst = reinterpret_cast<float*>(slot);
+    float* dst = slot(c);
     stage_rows<float, D>(dst, LD, base + i0c * stride, stride, seq - i0c, kSub, tid,
                          kTileThreads);
-    stage_rows<float, D>(dst + kSub * LD, LD, gbase + (size_t)i0c * width, width, seq - i0c,
-                         kSub, tid, kTileThreads);
+    stage_rows<float, D>(dst + 2 * PL, LD, gbase + (size_t)i0c * width, width, seq - i0c, kSub,
+                         tid, kTileThreads);
     // the statistics rows run to stats_rows(seq) >= i0c + kSub
-    float* sdst = reinterpret_cast<float*>(dst + 2 * kSub * LD);
-    for (int idx = tid; idx < 3 * kSub / 4; idx += kTileThreads) {
+    float* sdst = dst + 4 * PL;
+    for (int idx = tid; idx < 2 * kSub / 4; idx += kTileThreads) {
       const int a = idx / (kSub / 4), o = 4 * (idx % (kSub / 4));
       cp_async16(sdst + a * kSub + o, st + a * tw + i0c + o, true);
     }
@@ -1066,61 +1261,63 @@ attention_bwd_kv_tiled(const float* __restrict__ qkv, const float* __restrict__ 
                        kTileThreads);
   stage(first);
   cp_async_commit();
-  if (first + 1 < nch) stage(first + 1);
-  cp_async_commit();
 
-  const int j0 = jb + 16 * warp, key0 = j0 + 4 * ry;  // keys key0 .. key0 + 3
+  const int j0 = jb + 16 * warp, key0 = j0 + lane / 4;  // keys key0 and key0 + 8
   const bool active = j0 < seq;
-  float dk[4][C::kPer] = {}, dv[4][C::kPer] = {};
+  RowFrags<D, kHold> ka, va;
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
   for (int c = first; c < nch; ++c) {
-    cp_async_wait<1>();
-    __syncthreads();
-    if (c + 2 < nch) stage(c + 2);
+    cp_async_wait<0>();  // this thread's pieces of the chunk (and at first of k and v)
+    split_staged<D>(slot(c), tid);
+    split_staged<D>(slot(c) + 2 * PL, tid);
+    __syncthreads();  // the chunk's planes are whole; every warp is done with c - 1
+    stage(c + 1);
     cp_async_commit();
+    if (!active) continue;
+    if (c == first) {
+      ka.load(ks + 16 * warp * LD, lane);
+      va.load(vs + 16 * warp * LD, lane);
+    }
     const int i0c = c * kSub;
-    // (causal: every query of the chunk is before the warp's keys)
-    if (!active || (causal && i0c + kSub <= j0)) continue;
-    const float* qs = reinterpret_cast<const float*>(ring + ((c - first) % kStages) * RING);
-    const float* gs = qs + kSub * LD;
-    const float* sts = reinterpret_cast<const float*>(gs + kSub * LD);  // m, 1/l, r
-    const int n4 = (min(kSub, seq - i0c) + 3) / 4 * 4;
-    float s[4][NS], p[4][NS];
-    dots_tiled<D, NS>(s, ks + 16 * warp * LD, qs, ry, kx);  // S^T: (key, query)
+    if (causal && i0c + kSub <= j0) continue;  // every query of the chunk is before the keys
+    // the chunk's queries the warp's keys see: from its diagonal (causal) to T
+    const int nbeg = causal ? max(0, j0 - i0c) : 0, nend = min(kSub, seq - i0c);
+    const float* qs = slot(c);
+    const float* gs = qs + 2 * PL;
+    const float* st_lse = qs + 4 * PL;
+    const float* st_rs = st_lse + kSub;
+    float p[NT][4], ds[NT][4];
+    dots2_tf32<D, kHold>(p, ds, ka, va, qs, gs, nbeg, nend, lane);  // S^T, dP^T: (key, query)
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
+    for (int n = 0; n < NT; ++n) {
+      const int q1 = 8 * n + 2 * (lane & 3);  // queries i0c + q1, i0c + q1 + 1
+      const float2 lq = *reinterpret_cast<const float2*>(st_lse + q1);
+      const float2 rq = *reinterpret_cast<const float2*>(st_rs + q1);
 #pragma unroll
-      for (int jj = 0; jj < NS; ++jj) {
-        const int qi = 8 * jj + kx, key = key0 + t;
-        const bool valid = key < seq && i0c + qi < seq && (!causal || key <= i0c + qi);
-        p[t][jj] = valid ? expf(s[t][jj] * scale - sts[qi]) * sts[kSub + qi] : 0.f;
-        ws[(4 * ry + t) * LDW + qi] = p[t][jj];
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * (e >> 1), q = i0c + q1 + (e & 1);
+        const bool valid = !causal || key <= q;
+        const float lv = e & 1 ? lq.y : lq.x, rv = e & 1 ? rq.y : rq.x;
+        const float pv = valid ? ex2(fmaf(p[n][e], scale2, -lv)) : 0.f;
+        ds[n][e] = pv * fmaf(ds[n][e], scale, -rv);
+        p[n][e] = pv;
       }
-    __syncwarp();
-    rows_times_tiled<D, LDW>(dv, ws, gs, n4, ry, kx);
-    __syncwarp();
-    dots_tiled<D, NS>(s, vs + 16 * warp * LD, gs, ry, kx);  // dP^T
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int jj = 0; jj < NS; ++jj) {
-        const int qi = 8 * jj + kx;
-        ws[(4 * ry + t) * LDW + qi] = p[t][jj] * (s[t][jj] - sts[2 * kSub + qi]) * scale;
-      }
-    __syncwarp();
-    rows_times_tiled<D, LDW>(dk, ws, qs, n4, ry, kx);
-    __syncwarp();
+    }
+    const int kk0 = nbeg / 8, kk1 = (nend + 7) / 8;
+    acc_times_rows<D>(dv, p, gs, kk0, kk1, lane);
+    acc_times_rows<D>(dk, ds, qs, kk0, kk1, lane);
   }
   if (!active) return;
   float* out = dqkv + (size_t)b * seq * stride + h * D;
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int row = key0 + t;
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = key0 + 8 * e2;
     if (row >= seq) continue;
 #pragma unroll
-    for (int u = 0; u < C::kRuns; ++u) {
-      float* dst = out + row * stride + C::col(u, kx);
-      store_vec<C::kVec>(dst + width, dk[t] + u * C::kVec);
-      store_vec<C::kVec>(dst + 2 * width, dv[t] + u * C::kVec);
+    for (int n = 0; n < D / 8; ++n) {
+      float* dst = out + row * stride + 8 * n + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(dst + width) = make_float2(dk[n][2 * e2], dk[n][2 * e2 + 1]);
+      *reinterpret_cast<float2*>(dst + 2 * width) = make_float2(dv[n][2 * e2], dv[n][2 * e2 + 1]);
     }
   }
 }
@@ -1498,15 +1695,15 @@ cudaError_t launch_pair(Kq q_side, Kkv kv_side, size_t smem, const void* qkv, co
 }
 
 // T > 128: bf16 in one launch up to kResidentMaxSeq (the resident kernel),
-// its streamed pair above; fp32 always the fp32 streamed pair.
+// its streamed pair above; fp32 always the fp32 (3xTF32) pair.
 template <int D>
 cudaError_t launch_tiled(const void* qkv, const void* grad, void* dqkv, float* stats, int B,
                          int seq, int width, int heads, float scale, int causal, int dtype,
                          cudaStream_t stream) {
   if (dtype == 0) {
-    return launch_pair<float>(attention_bwd_q_tiled<D>, attention_bwd_kv_tiled<D>, tiled_smem(D),
-                              qkv, grad, dqkv, stats, B, seq, width, heads, scale, causal,
-                              stream);
+    return launch_pair<float>(attention_bwd_q_tf32<D, true>,
+                              attention_bwd_kv_tf32<D, false>, tf32_smem(D), qkv, grad,
+                              dqkv, stats, B, seq, width, heads, scale, causal, stream);
   }
   if (seq > kResidentMaxSeq) {
     return launch_pair<bf16>(attention_bwd_q_streamed_bf16<D>, attention_bwd_kv_streamed_bf16<D>,
@@ -1565,10 +1762,10 @@ extern "C" {
 // it no longer depends on seq.
 size_t mnt_attention_bwd_smem(int seq, int head_dim) {
   if (seq > kResidentMaxSeq) {
-    return std::max(bf16_streamed_smem(head_dim), tiled_smem(head_dim));
+    return std::max(bf16_streamed_smem(head_dim), tf32_smem(head_dim));
   }
   if (seq > kWholeMaxSeq) {
-    return std::max(resident_bf16_smem(seq, head_dim), tiled_smem(head_dim));
+    return std::max(resident_bf16_smem(seq, head_dim), tf32_smem(head_dim));
   }
   return std::max(bf16_smem(seq, head_dim), f32_smem(seq, head_dim));
 }
@@ -1576,6 +1773,13 @@ size_t mnt_attention_bwd_smem(int seq, int head_dim) {
 // The longest seq bf16 holds resident; above it both types take the
 // streamed pair (the wrapper counts those launches apart).
 int mnt_attention_bwd_resident_max_seq() { return kResidentMaxSeq; }
+
+// Kernels one call launches for (seq, dtype): 2 where it takes a pair (the
+// query side, then the key side: fp32 above kWholeMaxSeq, bf16 above
+// kResidentMaxSeq), else 1.
+int mnt_attention_bwd_kernels(int seq, int dtype) {
+  return seq > (dtype == 0 ? kWholeMaxSeq : kResidentMaxSeq) ? 2 : 1;
+}
 
 // Warps per block of the kernel (or kernel pair) that takes (seq, head_dim, dtype).
 int mnt_attention_bwd_warps(int seq, int head_dim, int dtype) {
@@ -1586,14 +1790,12 @@ int mnt_attention_bwd_warps(int seq, int head_dim, int dtype) {
   return tp / 16 * (dtype == 0 ? f32_split(key_capacity(tp), head_dim) : 1);
 }
 
-// Bytes of fp32 workspace a call needs: the streamed pair's row statistics
-// for every (row, head, query), queries rounded up to 64: (m, 1/l, r) for
-// fp32 above 128 tokens, (lse, r * D^-0.5) for bf16 above kResidentMaxSeq;
-// 0 otherwise.
+// Bytes of fp32 workspace a call needs: a pair's row statistics, each
+// query row's base-2 lse and r * D^-0.5, for every (row, head, query),
+// queries rounded up to 64, where the call takes a pair; 0 otherwise.
 size_t mnt_attention_bwd_workspace(int B, int seq, int heads, int dtype) {
   const size_t rows = (size_t)B * heads * stats_rows(seq);
-  if (dtype == 0) return seq > kWholeMaxSeq ? 3 * sizeof(float) * rows : 0;
-  return seq > kResidentMaxSeq ? 2 * sizeof(float) * rows : 0;
+  return mnt_attention_bwd_kernels(seq, dtype) == 2 ? 2 * sizeof(float) * rows : 0;
 }
 
 // qkv: (B, seq, 3*width) contiguous; grad: (B, seq, width) contiguous;

@@ -70,6 +70,7 @@ _BWD_SIGNATURES = {
     ),
     "mnt_attention_bwd_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
     "mnt_attention_bwd_resident_max_seq": ([], ctypes.c_int),
+    "mnt_attention_bwd_kernels": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
     "mnt_attention_bwd_warps": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_int),
     "mnt_attention_bwd_workspace": (
         [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_size_t
@@ -199,12 +200,15 @@ def attention_bwd(
     """(B, T, 3W) qkv + (B, T, W) output gradient -> (B, T, 3W) dqkv.
 
     CPU tensors take `attention_bwd_reference`; CUDA tensors launch the
-    kernel (counted in `attention_bwd.launches`, one per call, and above 320
-    tokens in `attention_bwd.streamed_launches` too) or raise.  A
-    call is one grid launch, except fp32 above 128 tokens and bf16 above
-    320: two (the query side, then the key side), on an fp32 workspace of
-    the row statistics allocated here, B*H*round64(T)*12 bytes in fp32 and
-    B*H*round64(T)*8 in bf16."""
+    kernel or raise.  A call is one grid launch, except where the library
+    says it takes a pair (`mnt_attention_bwd_kernels`: fp32 above 128
+    tokens, bf16 above 320): two, the query side and then the key side, on
+    an fp32 workspace of the row statistics allocated here (each query
+    row's base-2 lse and r * D^-0.5), B*H*round64(T)*8 bytes.  Every call
+    counts in `attention_bwd.launches`; a pair's also in
+    `attention_bwd.tf32_launches` (fp32: the 3xTF32 pair) or
+    `attention_bwd.streamed_launches` (bf16), so that a call's kernels are
+    the three counts' sum."""
     _check_mask(mask)
     if qkv.device != g.device:
         raise ValueError(f"attention_bwd: qkv on {qkv.device}, g on {g.device}")
@@ -237,13 +241,17 @@ def attention_bwd(
         )
     _cuda.check(lib, code, "attention_bwd")
     attention_bwd.launches += 1
-    if T > lib.mnt_attention_bwd_resident_max_seq():
-        attention_bwd.streamed_launches += 1
+    if lib.mnt_attention_bwd_kernels(T, _DTYPE_CODES[qkv.dtype]) == 2:
+        if qkv.dtype == torch.float32:
+            attention_bwd.tf32_launches += 1
+        else:
+            attention_bwd.streamed_launches += 1
     return dqkv
 
 
-# launches, and those above 320 tokens (the streamed forms) apart
-attention_bwd.launches = attention_bwd.streamed_launches = 0
+# calls, and of those the ones that take a pair of kernels: bf16's streamed
+# pair (above 320 tokens) and the fp32 pair (above 128), apart
+attention_bwd.launches = attention_bwd.streamed_launches = attention_bwd.tf32_launches = 0
 
 
 class FusedAttention(torch.autograd.Function):

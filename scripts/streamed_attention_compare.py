@@ -20,11 +20,23 @@ and, to show that they did not move, at a few lengths up to 128 and past
 and the device encode of a 256-image bf16 batch by ViT-L/14's vision tower
 (T = 257), each with K1's ms; each K1 case carries a digest of the
 output's bits, so that two trees' runs show whether they compute the same
-bits.  Prints the card's `nvidia-smi` line, then one JSON line, which names
-every K1 (or K2) entry point's registers and spill stores as ptxas reports
-them.
+bits.
 
-    python3 scripts/streamed_attention_compare.py [ROOT] [--label NAME] [--reps N] [--resident]
+With --k2-fp32, K2 alone in fp32 above 128 tokens: at the smoke's phase-3
+lengths (129, 261, 273, 288, 320 at ViT-L/14's width, LONG_SHAPES and the
+two ViT-L/14 vision shards) beside its plain version and SDPA's forward +
+backward, and at guard shapes that should not move (fp32 up to 128 tokens,
+bf16 at 273 and 337), each with a digest of the output's bits; then the
+fp32 VPT step at ViT-L/14 with a 16-token prompt (T = 273) in the per-step
+loop (busy ms, K1's and K2's ms a step) and in the whole-run trainer over
+3 epochs of 10 steps of the smoke's synthetic images (ms a step, epoch
+ends included; busy ms and K2's ms a step).
+
+Prints the card's `nvidia-smi` line, then one JSON line, which names every
+K1 (or K2) entry point's registers and spill stores as ptxas reports them.
+
+    python3 scripts/streamed_attention_compare.py [ROOT] [--label NAME] [--reps N]
+        [--resident | --k2-fp32]
 
 To compare with a parent commit: unpack it into a directory that .gitignore
 lists (`git archive <parent> | tar -x -C build/parent`) and run parent,
@@ -40,6 +52,7 @@ import hashlib
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -54,6 +67,10 @@ RESIDENT_PREFIX = 16  # T = 273
 GUARD_SHAPES = [(256, 50, 768, 12, None), (102, 77, 512, 8, "causal"),
                 (256, 66, 768, 12, None), (64, 128, 1024, 16, None),
                 (16, 337, 1024, 16, None), (8, 1024, 1024, 16, None)]
+# K2 where it should not move: fp32 up to 128 tokens (the text tower over
+# 102 classes, ViT-B/32 vision), bf16 resident (273) and streamed (337)
+K2_GUARD_SHAPES = [("float32", (102, 77, 512, 8, "causal")), ("float32", (256, 50, 768, 12, None)),
+                   ("bfloat16", (16, 273, 1024, 16, None)), ("bfloat16", (16, 337, 1024, 16, None))]
 
 
 def smoke_helpers():
@@ -155,11 +172,54 @@ def resident_cases(torch, smoke, reps: int):
     return cases
 
 
-def vit_l14_runtime(torch, prefix: int):
+def k2_fp32_cases(torch, smoke, reps: int):
+    """K2 fp32 above 128 tokens, then K2_GUARD_SHAPES, each with a digest."""
+    import torch.nn.functional as F
+
+    from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, attention_bwd_reference
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    long = [(16, t, 1024, 16, None) for t in (129, 261, 273, 288, 320)] + smoke.LONG_SHAPES + [
+        sh[:5] for sh in smoke.SHARD_SHAPES if sh[1] > 128]
+    cases = []
+    for dname, shape, guard in ([("float32", sh, False) for sh in long]
+                                + [(d, sh, True) for d, sh in K2_GUARD_SHAPES]):
+        B, T, W, H, mask = shape
+        D = W // H
+        dt = getattr(torch, dname)
+        qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
+        grad = torch.randn(B, T, W, generator=g, device="cuda").to(dt)
+        heads = [t.detach().contiguous().requires_grad_(True)
+                 for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4)]
+        g_heads = grad.view(B, T, H, D).transpose(1, 2).contiguous()
+        causal = mask == "causal"
+        pairs = T * (T + 1) // 2 if causal else T * T
+        out = attention_bwd(qkv, grad, mask, H)
+        ref = attention_bwd_reference(qkv, grad, mask, H)
+        diff = (out.float() - ref.float()).abs()
+        digest = hashlib.sha1(out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+        bwd = smoke.device_ms(torch, lambda: attention_bwd(qkv, grad, mask, H), reps)
+        plain = smoke.device_ms(torch, lambda: attention_bwd_reference(qkv, grad, mask, H), reps)
+        sdpa = smoke.device_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*heads, is_causal=causal), heads, g_heads), reps)
+        bb, bb_by = smoke.bound(B * T * 7 * W * qkv.element_size(), 10 * B * H * D * pairs,
+                                dname)
+        case = {"shape": [B, T, W, H], "mask": mask, "dtype": dname, "guard": guard,
+                "k2_ms": bwd, "k2_plain_ms": plain, "k2_sdpa_ms": sdpa, "k2_bound_ms": bb,
+                "k2_bound_by": bb_by, "k2_share": bb / bwd, "k2_digest": digest,
+                "max_abs_err": diff.max().item(),
+                "rel_excess": ((diff - smoke.ATTN_TOL[dname] * ref.float().abs()).max().item())}
+        print("  " + json.dumps(case), flush=True)
+        cases.append(case)
+        del qkv, grad, heads, g_heads, out, ref, diff
+    return cases
+
+
+def vit_l14_runtime(torch, prefix: int, dtype: str = "bfloat16"):
     from menghini_neurips23_tpu_torch.config import Config
     from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 
-    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", COMPUTE_DTYPE="bfloat16",
+    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", COMPUTE_DTYPE=dtype,
                  BATCH_SIZE=16, OPTIM_SEED=1, PREFIX_SIZE=prefix)
     return cfg, ClipRuntime(cfg, device="cuda")
 
@@ -185,21 +245,81 @@ def vit_l14_encode(torch, smoke, rt, n: int = 5):
             "k1_ms": sum(v for k, v in kernels.items() if "attention_fwd" in k)}
 
 
-def vpt_step(torch, smoke, prefix: int = PREFIX, runtime=None):
-    """The bf16 VPT step at ViT-L/14 with a `prefix`-token prompt, per-step loop."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
+def vpt_strategy(torch, runtime, prefix: int):
+    """A VPT strategy over 10 classes on `runtime` with a seeded prompt."""
     from menghini_neurips23_tpu_torch.models.prompts import init_prefix
     from menghini_neurips23_tpu_torch.training import VisualStrategy
 
-    cfg, rt = runtime or vit_l14_runtime(torch, prefix)
-    a = rt.arch
+    cfg, rt = runtime
     classes = [str(i) for i in range(10)]
     strat = VisualStrategy(cfg, {c: i for i, c in enumerate(classes)}, classes, classes,
                            classes, runtime=rt)
     strat.load_parameters([init_prefix(torch.Generator().manual_seed(7), prefix,
-                                       a.vision_width).numpy()])
+                                       rt.arch.vision_width).numpy()])
+    return strat
+
+
+def vpt_whole_run(torch, smoke, runtime, prefix: int, epochs: int = 3):
+    """The whole-run trainer of a VPT strategy on `runtime` over 160 of the
+    smoke's synthetic images (10 batches of 16) for `epochs` epochs,
+    validating on 32 more: three runs on the same graphs, the first
+    capturing, the second on the host clock (ms a step = its wall / its
+    steps, epoch ends included), the third under torch.profiler (busy ms and
+    K2's ms a step)."""
+    import copy
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    root = os.path.join(HERE, "build", "compare_data")
+    if not os.path.exists(os.path.join(root, "train.txt")):
+        shutil.rmtree(root, ignore_errors=True)
+        smoke.make_dataset(root)
+    with open(os.path.join(root, "train.txt")) as f:
+        files = [os.path.join(root, "train", l.split()[0]) for l in f if l.strip()]
+    strat = vpt_strategy(torch, runtime, prefix)
+    cfg = strat.config
+    cfg.EPOCHS = epochs
+    labels = np.random.default_rng(0).choice(10, 192)
+    train, val = smoke.Rows(files[:160], labels[:160]), smoke.Rows(files[160:192], labels[160:192])
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        strat.train(copy.deepcopy(train), copy.deepcopy(val))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    strat._fused_keep = True  # the graphs of the first run serve the next two
+    try:
+        first = run()
+        info = dict(strat._fused_info)
+        wall = run()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+    finally:
+        strat._fused_keep = False
+        strat._fused_free()
+    steps = epochs * info["steps_per_epoch"]
+    kernels, ops, _ = smoke.profiled_kernels(prof, steps)
+    busy = sum(kernels.values())
+    k2 = sum(ms for name, ms in kernels.items() if "attention_bwd" in name)
+    return {"epochs": epochs, "steps": steps, "graphs": info["graphs"], "first_run_s": first,
+            "wall_ms_per_step": wall * 1e3 / steps, "device_busy_ms_per_step": busy,
+            "device_ops_per_step": ops, "k2_ms_per_step": k2,
+            "k2_share_of_busy": k2 / busy if busy else None}
+
+
+def vpt_step(torch, smoke, prefix: int = PREFIX, runtime=None):
+    """The VPT step at ViT-L/14 with a `prefix`-token prompt (bf16 unless
+    `runtime` says otherwise), per-step loop."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    runtime = runtime or vit_l14_runtime(torch, prefix)
+    cfg, rt = runtime
+    a = rt.arch
+    strat = vpt_strategy(torch, runtime, prefix)
     strat._w0, strat._w1 = 8.0, 1.0
     rng = np.random.default_rng(1)
     feats = torch.from_numpy(rng.normal(0, 1, (16, 1 + a.num_patches, a.vision_width))
@@ -227,6 +347,7 @@ def vpt_step(torch, smoke, prefix: int = PREFIX, runtime=None):
     k1 = sum(ms for name, ms in kernels.items() if "attention_fwd" in name)
     k2 = sum(ms for name, ms in kernels.items() if "attention_bwd" in name)
     return {"encoder": a.name, "T": 1 + a.num_patches + prefix, "batch": 16,
+            "dtype": cfg.COMPUTE_DTYPE,
             "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
             "device_ops_per_step": ops, "k1_ms_per_step": k1, "k2_ms_per_step": k2,
             "top_kernels_ms_per_step": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])}
@@ -239,14 +360,16 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--resident", action="store_true",
                     help="K1 from 129 to 320 tokens, the T = 273 VPT step, the ViT-L/14 encode")
+    ap.add_argument("--k2-fp32", action="store_true",
+                    help="K2 fp32 above 128 tokens, guard shapes, the fp32 T = 273 VPT step")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
     import torch
 
     if not torch.cuda.is_available():
         print("streamed_attention_compare.py: needs a CUDA card", file=sys.stderr)
         return 1
+    sys.path.insert(0, root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
@@ -257,7 +380,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _cuda.build(["attention_fwd", "attention_bwd"])
     out = {"label": args.label or root, "root": root, "build_s": time.perf_counter() - t0}
-    if args.resident:
+    if args.k2_fp32:
+        out["ptxas"] = ptxas(_cuda, ["attention_bwd"], ["tf32", "tiled", "streamed"])
+        out["kernels"] = k2_fp32_cases(torch, smoke, args.reps)
+        runtime = vit_l14_runtime(torch, RESIDENT_PREFIX, "float32")
+        out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)
+        out["vpt_whole_run"] = vpt_whole_run(torch, smoke, runtime, RESIDENT_PREFIX)
+    elif args.resident:
         out["ptxas"] = ptxas(_cuda, ["attention_fwd"], ["attention_fwd"])
         out["kernels"] = resident_cases(torch, smoke, args.reps)
         runtime = vit_l14_runtime(torch, RESIDENT_PREFIX)

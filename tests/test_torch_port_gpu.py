@@ -158,7 +158,9 @@ def test_attention_streamed_kernel_is_deterministic(case, dtype):
 # tokens; then 288 and 319 at D = 64, around the bf16 kernel's 16-row pad;
 # one (row, head), so that one block has the card to itself; T = 320 at
 # ViT-L/14's width and a causal 305, whose last 32-row chunk of the fp32
-# kernels' ring is short
+# kernels' ring is short; the phase-3 lengths of the smoke at ViT-L/14's
+# width, 129 and 288, and its VPT batch on a tensor-parallel rank's 8 and 4
+# heads
 BWD_CASES = [
     (4, 12, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -186,6 +188,10 @@ BWD_CASES = [
     (16, 337, 1024, 16, None),
     (4, 577, 1024, 16, None),
     (2, 1024, 128, 2, "causal"),
+    (16, 129, 1024, 16, None),
+    (16, 288, 1024, 16, None),
+    (16, 273, 512, 8, None),
+    (16, 273, 256, 4, None),
 ] + EDGE_CASES + LONG_EDGE_CASES + STREAMED_EDGE_CASES
 
 
@@ -252,16 +258,16 @@ def test_attention_bwd_reports_its_warps_and_workspace():
     """Above 128 tokens bf16 runs in one launch with no workspace up to 320
     tokens, its warps sized so that each takes the same number of 16-row
     tiles (T = 273: 18 tiles, 9 warps of 2); fp32, and bf16 above 320, in
-    two launches of 4 warps, on 12 bytes (fp32: m, 1/l, r) or 8 bytes
-    (bf16: lse, r * D^-0.5) per (row, head, query), queries rounded up to
-    64, with shared memory that no longer grows with T."""
+    a pair of launches of 4 warps, on 8 bytes (lse, r * D^-0.5) per (row,
+    head, query), queries rounded up to 64, with shared memory that no
+    longer grows with T."""
     _require_card()
     from menghini_neurips23_tpu_torch.ops import _cuda
     from menghini_neurips23_tpu_torch.ops.attention import _BWD_SIGNATURES
 
     lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
     assert lib.mnt_attention_bwd_workspace(16, 273, 16, 1) == 0
-    assert lib.mnt_attention_bwd_workspace(16, 273, 16, 0) == 12 * 16 * 16 * 320
+    assert lib.mnt_attention_bwd_workspace(16, 273, 16, 0) == 8 * 16 * 16 * 320
     assert lib.mnt_attention_bwd_workspace(16, 128, 16, 0) == 0
     assert lib.mnt_attention_bwd_warps(273, 64, 0) == 4
     for T in (129, 193, 257, 261, 273, 288, 320):
@@ -273,10 +279,37 @@ def test_attention_bwd_reports_its_warps_and_workspace():
     assert lib.mnt_attention_bwd_smem(320, 64) <= 227 * 1024
     assert lib.mnt_attention_bwd_workspace(16, 320, 16, 1) == 0
     assert lib.mnt_attention_bwd_workspace(16, 321, 16, 1) == 8 * 16 * 16 * 384
-    assert lib.mnt_attention_bwd_workspace(16, 321, 16, 0) == 12 * 16 * 16 * 384
+    assert lib.mnt_attention_bwd_workspace(16, 321, 16, 0) == 8 * 16 * 16 * 384
     assert lib.mnt_attention_bwd_warps(321, 64, 1) == 4
     assert lib.mnt_attention_bwd_smem(321, 64) == lib.mnt_attention_bwd_smem(4096, 64)
     assert lib.mnt_attention_bwd_smem(4096, 64) <= 227 * 1024
+    for T, code, kernels in ((128, 0, 1), (129, 0, 2), (273, 0, 2), (4096, 0, 2), (128, 1, 1),
+                             (273, 1, 1), (320, 1, 1), (321, 1, 2)):
+        assert lib.mnt_attention_bwd_kernels(T, code) == kernels, (T, code)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(102, 77, 512, 8, "causal"), (256, 50, 768, 12, None),
+                                  (2, 129, 128, 2, "causal"), (16, 273, 1024, 16, None),
+                                  (16, 337, 1024, 16, None)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_attention_bwd_counts_its_pairs(case, dtype):
+    """A K2 call that takes a pair (fp32 above 128 tokens, bf16 above 320)
+    counts in `tf32_launches` (fp32) or `streamed_launches` (bf16) beside
+    `launches`; one that takes one kernel counts in `launches` alone."""
+    _require_card()
+    B, T, W, H, mask = case
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dtype)
+    grad = torch.randn(B, T, W, generator=g, device="cuda").to(dtype)
+    before = attention_bwd.launches, attention_bwd.streamed_launches, attention_bwd.tf32_launches
+    attention_bwd(qkv, grad, mask, H)
+    torch.cuda.synchronize()
+    pair = T > (128 if dtype == torch.float32 else 320)
+    assert (attention_bwd.launches, attention_bwd.streamed_launches,
+            attention_bwd.tf32_launches) == (
+        before[0] + 1, before[1] + (pair and dtype == torch.bfloat16),
+        before[2] + (pair and dtype == torch.float32))
 
 
 # (B, E, C): tiny-test, the slice's ViT-B/32 head, a ragged batch, ViT-L/14;

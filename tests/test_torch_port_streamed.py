@@ -1,25 +1,25 @@
 """The schedules of the attention kernels above 128 tokens (K1's forward: in
 fp32 streamed from 129 tokens, in bf16 with K and V resident up to 320 and
-streamed past it, both forms on one schedule; K2's bf16 streamed pair past
-320), emulated in plain torch, against the JAX package's fused attention on
-the CPU.
+streamed past it, both forms on one schedule; K2's pair of launches, in
+fp32 from 129 tokens and in bf16 past 320), emulated in plain torch,
+against the JAX package's fused attention and its custom VJP on the CPU.
 
 The kernels themselves run only on a card (tests/test_torch_port_gpu.py
 holds them against the port's plain versions there).  What these tests pin
 is their arithmetic: the order of the sums, the base-2 softmax, the row
 statistics the two sweeps (and the two launches of the backward) hand on,
-the rounding points, and, for the fp32 forward, 3xTF32 products on the
-tensor cores.  The JAX side runs its Pallas kernels as its own tests do
-off-TPU (interpreted); the same numpy inputs, made from a seed, go to both.
+the rounding points, and, in fp32, 3xTF32 products on the tensor cores.
+The JAX side runs its Pallas kernels as its own tests do off-TPU
+(interpreted); the same numpy inputs, made from a seed, go to both.
 
 Tolerances: fp32 1e-5 and bf16 2e-2, as in tests/test_torch_port_ops.py
 (both sides round the probabilities, dS and the outputs to bf16 at the same
-points; sums run in another order).  The fp32 forward's products are
-emulated as the kernel forms them: each operand x split on its bit pattern
-into hi (x rounded to TF32's 10 fraction bits, to nearest, ties away from
-zero, as cvt.rna.tf32.f32 rounds) and lo (x - hi cut to TF32), and
-lo.hi + hi.lo + hi.hi summed in fp32.  One TF32 product alone misses 1e-5
-on the same inputs, which is why the kernel takes three.
+points; sums run in another order).  The fp32 products are emulated as the
+kernels form them: each operand x split on its bit pattern into hi (x
+rounded to TF32's 10 fraction bits, to nearest, ties away from zero, as
+cvt.rna.tf32.f32 rounds) and lo (x - hi cut to TF32), and lo.hi + hi.lo +
+hi.hi summed in fp32.  One TF32 product alone misses 1e-5 on the same
+inputs, which is why the kernels take three.
 """
 
 import math
@@ -174,25 +174,30 @@ def test_k1_streamed_fp32_needs_three_tf32_products(mask):
     assert err["three"] < 1e-6, err
 
 
-def _k2_streamed_bf16(qkv, g, mask):
-    """K2's bf16 streamed pair.  Query side: sweep 1 in 32-key steps keeps
-    each row's online max m of the raw dots, l = sum 2^(s c - m c) and rho =
-    sum 2^(s c - m c) * dP (c = D^-0.5 log2(e)), rescaling l and rho alike
-    when m grows; each row's lse = m c + log2(l) and r D^-0.5 = rho / l *
-    D^-0.5 go to a (B, H, 2, round64(T)) workspace (+inf and 0 past T);
-    sweep 2 forms P = 2^(s c - lse), dS = P (dP D^-0.5 - r D^-0.5) rounded
-    to bf16 and dq = dS k.  Key side, from the workspace: the same P and dS,
-    dv = P_bf16^T g and dk = dS^T q."""
+def _k2_pair(qkv, g, mask, mm):
+    """K2's pair of launches (fp32 above 128 tokens, bf16 above 320).  Query
+    side: sweep 1 in 32-key steps keeps each row's online max m of the raw
+    dots, l = sum 2^(s c - m c) and rho = sum 2^(s c - m c) * dP (c =
+    D^-0.5 log2(e)), rescaling l and rho alike when m grows; each row's
+    lse = m c + log2(l) and r D^-0.5 = rho / l * D^-0.5 go to a (B, H, 2,
+    round64(T)) workspace (+inf and 0 past T); sweep 2 forms the dots and
+    dP again, P = 2^(s c - lse), dS = P (dP D^-0.5 - r D^-0.5) rounded to
+    the input type and dq = dS k.  Key side: S^T = k q^T and dP^T = v g^T
+    formed anew, the same P and dS from the workspace, dv = P_lp^T g and
+    dk = dS^T q.  `mm` forms every product: 3xTF32 in fp32; in bf16 the
+    plain product of bf16 values, which fp32 holds exactly."""
     dt = qkv.dtype
     T = qkv.shape[1]
     q, k, v = (_heads(t) for t in qkv.split(H * D, dim=-1))
     gh = _heads(g)
     scale = torch.tensor(D**-0.5, dtype=torch.float32)
     scale2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
-    dots = torch.matmul(q, k.transpose(-1, -2))
-    if mask == "causal":
-        dots = dots.masked_fill(_causal_mask(T), float("-inf"))
-    dp = torch.matmul(gh, v.transpose(-1, -2))
+
+    def masked(dots):  # (query, key)
+        return dots.masked_fill(_causal_mask(T), float("-inf")) if mask == "causal" else dots
+
+    dots = masked(mm(q, k.transpose(-1, -2)))
+    dp = mm(gh, v.transpose(-1, -2))
 
     # query side: the statistics
     m = torch.full((B, H, T, 1), float("-inf"))
@@ -211,19 +216,28 @@ def _k2_streamed_bf16(qkv, g, mask):
     ws[:, :, 0] = float("inf")
     ws[:, :, 0, :T] = (m * scale2 + torch.log2(l))[..., 0]
     ws[:, :, 1, :T] = (rho / l * scale)[..., 0]
+    lse, rs = ws[:, :, 0, :T, None], ws[:, :, 1, :T, None]
 
-    def p_ds(lse, rs):
+    def p_ds(dots, dp):
         p = torch.exp2(dots * scale2 - lse)
         return p, (p * (dp * scale - rs)).to(dt).float()
 
     # query side, sweep 2
-    _, ds = p_ds(ws[:, :, 0, :T, None], ws[:, :, 1, :T, None])
-    dq = torch.matmul(ds, k)
-    # key side: the statistics as the workspace holds them, by query
-    p, ds = p_ds(ws[:, :, 0, :T, None], ws[:, :, 1, :T, None])
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
-    dk = torch.matmul(ds.transpose(-1, -2), q)
+    _, ds = p_ds(dots, dp)
+    dq = mm(ds, k)
+    # key side: the transposed products anew, the statistics as the
+    # workspace holds them, by query
+    p, ds = p_ds(masked(mm(k, q.transpose(-1, -2)).transpose(-1, -2)),
+                 mm(v, gh.transpose(-1, -2)).transpose(-1, -2))
+    dv = mm(p.to(dt).float().transpose(-1, -2), gh)
+    dk = mm(ds.transpose(-1, -2), q)
     return torch.cat([_merge(t).to(dt) for t in (dq, dk, dv)], dim=-1)
+
+
+def _jax_vjp(qkv, g, mask, jdt):
+    _, vjp = jax.vjp(lambda x: jax_fused_attention(x, mask, H), jnp.asarray(qkv).astype(jdt))
+    (want,) = vjp(jnp.asarray(g).astype(jdt))
+    return np.asarray(want.astype(jnp.float32))
 
 
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
@@ -235,16 +249,50 @@ def test_k2_streamed_bf16_schedule_matches_jax_vjp(mask):
     T = 337
     jdt, tdt, tol = _DTYPES["bfloat16"]
     qkv, g = _inputs(T, 400 + T, grad=True)
-    _, vjp = jax.vjp(lambda x: jax_fused_attention(x, mask, H), jnp.asarray(qkv).astype(jdt))
-    (want,) = vjp(jnp.asarray(g).astype(jdt))
     qkv_t, g_t = torch.from_numpy(qkv).to(tdt), torch.from_numpy(g).to(tdt)
-    got = _k2_streamed_bf16(qkv_t, g_t, mask)
+    got = _k2_pair(qkv_t, g_t, mask, _mm_plain)
     assert got.dtype == tdt and got.shape == (B, T, 3 * H * D)
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
-                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.float().numpy(), _jax_vjp(qkv, g, mask, jdt), rtol=tol,
+                               atol=tol)
     np.testing.assert_allclose(got.float().numpy(),
                                attention_bwd_reference(qkv_t, g_t, mask, H).float().numpy(),
                                rtol=tol, atol=tol)
+
+
+# T = 129: one key past the short kernels; 273: ViT-L/14 with a 16-token
+# VPT prompt (its fp32 default); 337: with an 80-token prompt
+@pytest.mark.parametrize("T", [129, 273, 337])
+@pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
+def test_k2_tf32_pair_schedule_matches_jax_vjp(mask, T):
+    """K2's fp32 pair above 128 tokens, every product as 3xTF32, the base-2
+    statistics handed from the query side to the key side as the workspace
+    holds them, against the JAX package's custom VJP (its Pallas backward,
+    interpreted off-TPU) and the port's plain version, at 1e-5 + 1e-5
+    |ref|."""
+    jdt, tdt, tol = _DTYPES["float32"]
+    qkv, g = _inputs(T, 500 + T, grad=True)
+    qkv_t, g_t = torch.from_numpy(qkv), torch.from_numpy(g)
+    got = _k2_pair(qkv_t, g_t, mask, _mm_3xtf32)
+    assert got.dtype == tdt and got.shape == (B, T, 3 * H * D)
+    np.testing.assert_allclose(got.numpy(), _jax_vjp(qkv, g, mask, jdt), rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.numpy(), attention_bwd_reference(qkv_t, g_t, mask, H).numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
+def test_k2_tf32_pair_needs_three_tf32_products(mask):
+    """At T = 273 in fp32, K2's pair on one TF32 product a product misses
+    1e-5 + 1e-5 |ref| against the JAX package's custom VJP, and on 3xTF32
+    it meets it: the kernels take three."""
+    T = 273
+    qkv, g = _inputs(T, 500 + T, grad=True)
+    qkv_t, g_t = torch.from_numpy(qkv), torch.from_numpy(g)
+    want = _jax_vjp(qkv, g, mask, jnp.float32)
+    excess = {name: float((np.abs(_k2_pair(qkv_t, g_t, mask, mm).numpy() - want)
+                           - 1e-5 * np.abs(want)).max())
+              for name, mm in (("one", _mm_1xtf32), ("three", _mm_3xtf32))}
+    assert excess["one"] > 1e-5, excess
+    assert excess["three"] <= 1e-5, excess
 
 
 def test_streamed_compare_script_needs_a_card(capsys):
