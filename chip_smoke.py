@@ -43,8 +43,10 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      process where the model group's all-reduce would sum them, forward
      and input gradient against the unsharded block, fp32 and bf16
      (BLOCK_TOL); K4 at TWOPHASE_SHAPES and the longest T one block
-     takes, fp32 and bf16, against its plain version and against K1 on
-     the same qkv (ATTN_TOL), two launches the same bits, timed beside K1,
+     takes, fp32 and bf16, at its own G (with its blocks an SM) and at
+     TWOPHASE_OTHER_GROUP heads a block on the experiment's shape, against
+     its plain version and against K1 on the same qkv (ATTN_TOL), two
+     launches the same bits (and any G the default's), timed beside K1,
      its plain version and SDPA's forward, and one token more refused
      with ValueError; then the experiment's port, twophase fwd at its
      default (256, 66, 768, 12) bf16, as K4's counted path (its RESULT
@@ -206,6 +208,8 @@ BLOCK_TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
 # the longest T one block takes (by type, from the kernel's own query)
 TWOPHASE_SHAPES = [(256, 66, 768, 12), (256, 50, 768, 12), (256, 54, 768, 12),
                    (16, 66, 768, 12), (8, 17, 256, 4)]
+# a G other than the kernel's own (G = 1 at the experiment's shape), run there
+TWOPHASE_OTHER_GROUP = 2
 EXPERIMENT_REPS = 20  # scripts/exp_attn_kernels.py twophase fwd on its counted path
 # GRIP over UL's 640-image pool and 10 classes: N(k) = int(k * 64 / 10)
 GRIP_SCHEDULE = [6, 12, 19, 25, 32, 38, 44, 51, 57, 64]
@@ -413,13 +417,18 @@ def phase_kernels(torch):
 
 def phase_kernels_twophase(torch):
     """K4 against its plain version and against K1 on the same qkv, fp32
-    and bf16, with two launches giving the same bits; its time beside K1's,
-    the plain version's and SDPA's forward; one token past the longest T
-    must raise ValueError."""
+    and bf16, at its own G and at TWOPHASE_OTHER_GROUP on the experiment's
+    shape, with two launches giving the same bits (and the other G the own
+    G's bits); its time beside K1's, the plain version's and SDPA's forward;
+    one token past the longest T must raise ValueError."""
     import torch.nn.functional as F
 
     from menghini_neurips23_tpu_torch.ops import _cuda
-    from menghini_neurips23_tpu_torch.ops.attention import _DTYPE_CODES, fused_attention
+    from menghini_neurips23_tpu_torch.ops.attention import (
+        _DTYPE_CODES,
+        _MAX_SMEM_BYTES,
+        fused_attention,
+    )
     from menghini_neurips23_tpu_torch.ops.twophase_attention import (
         _SIGNATURES,
         twophase_attention,
@@ -432,28 +441,40 @@ def phase_kernels_twophase(torch):
     cases = []
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         code = _DTYPE_CODES[dt]
-        longest = max(t for t in range(1, 513) if lib.mnt_twophase_attention_groups(t, 64, 12, code))
-        for B, T, W, H in TWOPHASE_SHAPES + [(8, longest, 768, 12)]:
+        longest = max(t for t in range(1, 513)
+                      if lib.mnt_twophase_attention_smem(t, 64, 1, code) <= _MAX_SMEM_BYTES
+                      and lib.mnt_twophase_attention_blocks_per_sm(t, 64, 12, code, 1) > 0)
+        runs = [(shape, None) for shape in TWOPHASE_SHAPES + [(8, longest, 768, 12)]]
+        runs.insert(1, (TWOPHASE_SHAPES[0], TWOPHASE_OTHER_GROUP))
+        own = {}
+        for (B, T, W, H), group in runs:
             D = W // H
-            qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
-            out = twophase_attention(qkv, H)
-            again = twophase_attention(qkv, H)
+            if group is None:
+                qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
+            G = group or lib.mnt_twophase_attention_groups(B, T, D, H, code)
+            out = twophase_attention(qkv, H, group)
+            again = twophase_attention(qkv, H, group)
             k1 = fused_attention(qkv, None, H)
             torch.cuda.synchronize()
             same = torch.equal(out.view(torch.uint8), again.view(torch.uint8))
+            if group is None:
+                own[(B, T, W, H)] = out
+            else:  # another G computes every head the same way: the own G's bits
+                same = same and torch.equal(out.view(torch.uint8),
+                                            own[(B, T, W, H)].view(torch.uint8))
             err = (out.float() - twophase_attention_reference(qkv, H).float()).abs().max().item()
             err_k1 = (out.float() - k1.float()).abs().max().item()
             q, k, v = (t.contiguous() for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4))
-            ms = device_ms(torch, lambda: twophase_attention(qkv, H))
-            eager = eager_ms(torch, lambda: twophase_attention(qkv, H))
+            ms = device_ms(torch, lambda: twophase_attention(qkv, H, group))
+            eager = eager_ms(torch, lambda: twophase_attention(qkv, H, group))
             plain = device_ms(torch, lambda: twophase_attention_reference(qkv, H))
             k1_ms = device_ms(torch, lambda: fused_attention(qkv, None, H))
             sdpa = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
             # K1's unmasked bound: qkv read, the output written; 4 H D T^2 a row
             b_ms, b_by = bound(B * T * 4 * W * qkv.element_size(), 4 * B * H * D * T * T, dname)
-            case = dict(shape=[B, T, W, H], dtype=dname,
-                        groups=lib.mnt_twophase_attention_groups(T, D, H, code),
-                        smem_bytes=lib.mnt_twophase_attention_smem(T, D, H, code),
+            case = dict(shape=[B, T, W, H], dtype=dname, own_group=group is None, groups=G,
+                        blocks_per_sm=lib.mnt_twophase_attention_blocks_per_sm(T, D, H, code, G),
+                        smem_bytes=lib.mnt_twophase_attention_smem(T, D, G, code),
                         max_abs_err=err, max_abs_err_vs_k1=err_k1, tol=ATTN_TOL[dname],
                         bit_identical=same, ms=ms, eager_ms=eager, plain_ms=plain, k1_ms=k1_ms,
                         over_k1=ms / k1_ms, library_ms=sdpa,
@@ -464,7 +485,9 @@ def phase_kernels_twophase(torch):
             if err > ATTN_TOL[dname] or err_k1 > ATTN_TOL[dname]:
                 fail(f"twophase_attention disagrees with its plain version or K1: {case}")
             if not same:
-                fail(f"twophase_attention: two launches on the same inputs differ: {case}")
+                fail(f"twophase_attention: two launches (or two groups) differ: {case}")
+            if case["blocks_per_sm"] < 1:
+                fail(f"twophase_attention: the occupancy query found no resident block: {case}")
         over = torch.zeros(2, longest + 1, 3 * 768, dtype=dt, device="cuda")
         try:
             twophase_attention(over, 12)
@@ -2254,7 +2277,8 @@ def main() -> int:
         # the attention experiment's kernel, headlined at its own shape
         entry("twophase_attention", f"{PKG}/csrc/twophase_attention.cu",
               "benchmarks/exp_attn_kernels.py:58", twophase_cases,
-              lambda c: c["shape"] == [256, 66, 768, 12] and c["dtype"] == "bfloat16"),
+              lambda c: c["shape"] == [256, 66, 768, 12] and c["dtype"] == "bfloat16"
+              and c["own_group"]),
     ]
     for k in kernels[:2]:  # K1 and K2 inside the m = 2 sharded block
         k["sharded_block"] = block_cases

@@ -32,11 +32,25 @@ loop (busy ms, K1's and K2's ms a step) and in the whole-run trainer over
 3 epochs of 10 steps of the smoke's synthetic images (ms a step, epoch
 ends included; busy ms and K2's ms a step).
 
+With --twophase, K4 (`twophase_attention`, the attention experiment's
+phase-grouped forward) at the smoke's TWOPHASE_SHAPES and at the longest T
+one block takes at D = 64 (the first design's 176 bf16 and 144 fp32, and
+the tree's own longest), in both types: device ms at the kernel's own G,
+its G, blocks an SM and shared bytes; where the tree's wrapper takes a
+`group`, the same at every G that divides H and fits, with whether its
+output has the default's bits (on a tree without it, the default G alone);
+beside them K1, SDPA's forward, the plain version, the bound and the bound
+share, the errors against the plain version and K1, and a digest of the
+output's bits.  Then the tree's `scripts/exp_attn_kernels.py` `twophase
+fwd`, `ship fwd` and `sdpa fwd` at its default shape, one process each
+(us/rep).
+
 Prints the card's `nvidia-smi` line, then one JSON line, which names every
-K1 (or K2) entry point's registers and spill stores as ptxas reports them.
+K1 (or K2, or K4) entry point's registers and spill stores as ptxas reports
+them.
 
     python3 scripts/streamed_attention_compare.py [ROOT] [--label NAME] [--reps N]
-        [--resident | --k2-fp32]
+        [--resident | --k2-fp32 | --twophase]
 
 To compare with a parent commit: unpack it into a directory that .gitignore
 lists (`git archive <parent> | tar -x -C build/parent`) and run parent,
@@ -93,7 +107,7 @@ def ptxas(_cuda, libs, forms):
             name = re.match(r"'([^']+)'", block).group(1)
             if not any(f in name for f in forms):
                 continue
-            kernel = re.search(r"\d(attention_\w+?)I", name).group(1)
+            kernel = re.search(r"\d((?:attention|twophase)\w*?)I", name).group(1)
             kind = "bf16, " if "bfloat16Li" in name else "f32, " if "IfLi" in name else ""
             ints = ", ".join(re.findall(r"Li(\d+)E", name))
             regs = re.search(r"Used (\d+) registers", block)
@@ -155,8 +169,7 @@ def resident_cases(torch, smoke, reps: int):
             heads = [t.contiguous() for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4)]
             causal = mask == "causal"
             pairs = T * (T + 1) // 2 if causal else T * T
-            digest = hashlib.sha1(fused_attention(qkv, mask, H).view(torch.uint8).cpu()
-                                  .numpy().tobytes()).hexdigest()[:16]
+            bits = digest(torch, fused_attention(qkv, mask, H))
             fwd = smoke.device_ms(torch, lambda: fused_attention(qkv, mask, H), reps)
             sdpa = smoke.device_ms(torch, lambda: F.scaled_dot_product_attention(
                 *heads, is_causal=causal), reps)
@@ -164,7 +177,7 @@ def resident_cases(torch, smoke, reps: int):
                                     dname)
             case = {"shape": [B, T, W, H], "mask": mask, "dtype": dname, "k1_ms": fwd,
                     "k1_sdpa_ms": sdpa, "k1_bound_ms": fb, "k1_bound_by": fb_by,
-                    "k1_share": fb / fwd, "k1_digest": digest,
+                    "k1_share": fb / fwd, "k1_digest": bits,
                     "guard": (B, T, W, H, mask) in GUARD_SHAPES}
             print("  " + json.dumps(case), flush=True)
             cases.append(case)
@@ -197,7 +210,7 @@ def k2_fp32_cases(torch, smoke, reps: int):
         out = attention_bwd(qkv, grad, mask, H)
         ref = attention_bwd_reference(qkv, grad, mask, H)
         diff = (out.float() - ref.float()).abs()
-        digest = hashlib.sha1(out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+        bits = digest(torch, out)
         bwd = smoke.device_ms(torch, lambda: attention_bwd(qkv, grad, mask, H), reps)
         plain = smoke.device_ms(torch, lambda: attention_bwd_reference(qkv, grad, mask, H), reps)
         sdpa = smoke.device_ms(torch, lambda: torch.autograd.grad(
@@ -206,13 +219,119 @@ def k2_fp32_cases(torch, smoke, reps: int):
                                 dname)
         case = {"shape": [B, T, W, H], "mask": mask, "dtype": dname, "guard": guard,
                 "k2_ms": bwd, "k2_plain_ms": plain, "k2_sdpa_ms": sdpa, "k2_bound_ms": bb,
-                "k2_bound_by": bb_by, "k2_share": bb / bwd, "k2_digest": digest,
+                "k2_bound_by": bb_by, "k2_share": bb / bwd, "k2_digest": bits,
                 "max_abs_err": diff.max().item(),
                 "rel_excess": ((diff - smoke.ATTN_TOL[dname] * ref.float().abs()).max().item())}
         print("  " + json.dumps(case), flush=True)
         cases.append(case)
         del qkv, grad, heads, g_heads, out, ref, diff
     return cases
+
+
+def digest(torch, t) -> str:
+    return hashlib.sha1(t.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def twophase_cases(torch, smoke, reps: int):
+    """K4 at TWOPHASE_SHAPES and the longest T, each with its G sweep."""
+    import inspect
+
+    import torch.nn.functional as F
+
+    from menghini_neurips23_tpu_torch.ops import _cuda
+    from menghini_neurips23_tpu_torch.ops.attention import (
+        _DTYPE_CODES,
+        _MAX_SMEM_BYTES,
+        fused_attention,
+    )
+
+    # the module (the package's `ops` exports its function under the same name)
+    k4mod = importlib.import_module("menghini_neurips23_tpu_torch.ops.twophase_attention")
+    k4, plain = k4mod.twophase_attention, k4mod.twophase_attention_reference
+    sweeps = "group" in inspect.signature(k4).parameters  # the tree's wrapper takes a G
+    lib = _cuda.library("twophase_attention", k4mod._SIGNATURES)
+
+    def fits(T, D, G, dt):
+        return k4mod.twophase_smem_bytes(T, D, G, dt) <= _MAX_SMEM_BYTES
+
+    def longest(dt):
+        if sweeps:
+            return max(t for t in range(1, 513) if fits(t, 64, 1, dt))
+        return max(t for t in range(1, 513)
+                   if lib.mnt_twophase_attention_groups(t, 64, 12, _DTYPE_CODES[dt]))
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        code, tol = _DTYPE_CODES[dt], smoke.ATTN_TOL[dname]
+        # the first design's longest T and this one's (a tree that takes fewer refuses)
+        lengths = sorted(({144, 176} if dt == torch.float32 else {176, 192}) | {longest(dt)})
+        for B, T, W, H in smoke.TWOPHASE_SHAPES + [(8, t, 768, 12) for t in lengths]:
+            D = W // H
+            qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
+            case = {"shape": [B, T, W, H], "dtype": dname}
+            try:
+                out = k4(qkv, H)
+            except ValueError as e:
+                case["refused"] = str(e)
+                print("  " + json.dumps(case), flush=True)
+                cases.append(case)
+                continue
+            again = k4(qkv, H)
+            ref = plain(qkv, H).float()
+            k1 = fused_attention(qkv, None, H).float()
+            q, k, v = (t.contiguous() for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4))
+            b_ms, b_by = smoke.bound(B * T * 4 * W * qkv.element_size(), 4 * B * H * D * T * T,
+                                     dname)
+            ms = smoke.device_ms(torch, lambda: k4(qkv, H), reps)
+            case.update(
+                ms=ms, digest=digest(torch, out),
+                bit_identical=torch.equal(out.view(torch.uint8), again.view(torch.uint8)),
+                max_abs_err=(out.float() - ref).abs().max().item(),
+                max_abs_err_vs_k1=(out.float() - k1).abs().max().item(), tol=tol,
+                k1_ms=smoke.device_ms(torch, lambda: fused_attention(qkv, None, H), reps),
+                sdpa_ms=smoke.device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v),
+                                        reps),
+                plain_ms=smoke.device_ms(torch, lambda: plain(qkv, H), reps),
+                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
+            if sweeps:
+                G = lib.mnt_twophase_attention_groups(B, T, D, H, code)
+                case.update(group=G, blocks_per_sm=lib.mnt_twophase_attention_blocks_per_sm(
+                    T, D, H, code, G), smem_bytes=lib.mnt_twophase_attention_smem(T, D, G, code))
+                case["groups"] = []
+                for G in (G for G in range(1, H + 1) if H % G == 0 and fits(T, D, G, dt)):
+                    og = k4(qkv, H, group=G)
+                    case["groups"].append({
+                        "group": G, "ms": smoke.device_ms(torch, lambda: k4(qkv, H, group=G),
+                                                          reps),
+                        "blocks_per_sm": lib.mnt_twophase_attention_blocks_per_sm(
+                            T, D, H, code, G),
+                        "smem_bytes": lib.mnt_twophase_attention_smem(T, D, G, code),
+                        "same_bits": torch.equal(og.view(torch.uint8), out.view(torch.uint8))})
+            else:
+                case.update(group=lib.mnt_twophase_attention_groups(T, D, H, code),
+                            smem_bytes=lib.mnt_twophase_attention_smem(T, D, H, code),
+                            groups="the wrapper takes no group: the default G alone")
+            print("  " + json.dumps(case), flush=True)
+            cases.append(case)
+            del qkv, out, again, ref, k1, q, k, v
+    return cases
+
+
+def experiment(root: str):
+    """The tree's scripts/exp_attn_kernels.py, fwd at its default shape: us/rep
+    of twophase, ship and sdpa, one process each."""
+    import re
+
+    res = {}
+    for variant in ("twophase", "ship", "sdpa"):
+        done = subprocess.run([sys.executable, os.path.join(root, "scripts", "exp_attn_kernels.py"),
+                               variant, "fwd", "100"], capture_output=True, text=True,
+                              timeout=600, cwd=root)
+        hit = re.search(r"RESULT \S+: ([0-9.]+) us/rep", done.stdout)
+        res[f"{variant} fwd"] = float(hit.group(1)) if hit else (
+            f"exit {done.returncode}: {done.stderr.strip()[-300:]}")
+    return res
 
 
 def vit_l14_runtime(torch, prefix: int, dtype: str = "bfloat16"):
@@ -362,6 +481,9 @@ def main(argv=None) -> int:
                     help="K1 from 129 to 320 tokens, the T = 273 VPT step, the ViT-L/14 encode")
     ap.add_argument("--k2-fp32", action="store_true",
                     help="K2 fp32 above 128 tokens, guard shapes, the fp32 T = 273 VPT step")
+    ap.add_argument("--twophase", action="store_true",
+                    help="K4 at the smoke's shapes and its longest T, with its G sweep, "
+                         "and the attention experiment's fwd")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     import torch
@@ -378,9 +500,14 @@ def main(argv=None) -> int:
     from menghini_neurips23_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
-    _cuda.build(["attention_fwd", "attention_bwd"])
+    _cuda.build(["attention_fwd", "twophase_attention"] if args.twophase
+                else ["attention_fwd", "attention_bwd"])
     out = {"label": args.label or root, "root": root, "build_s": time.perf_counter() - t0}
-    if args.k2_fp32:
+    if args.twophase:
+        out["ptxas"] = ptxas(_cuda, ["twophase_attention"], ["twophase"])
+        out["kernels"] = twophase_cases(torch, smoke, args.reps)
+        out["experiment"] = experiment(root)
+    elif args.k2_fp32:
         out["ptxas"] = ptxas(_cuda, ["attention_bwd"], ["tf32", "tiled", "streamed"])
         out["kernels"] = k2_fp32_cases(torch, smoke, args.reps)
         runtime = vit_l14_runtime(torch, RESIDENT_PREFIX, "float32")

@@ -38,6 +38,7 @@ from menghini_neurips23_tpu_torch.ops.clip_head import fused_probs, fused_probs_
 from menghini_neurips23_tpu_torch.ops.twophase_attention import (
     twophase_attention,
     twophase_attention_reference,
+    twophase_smem_bytes,
 )
 
 pytestmark = pytest.mark.gpu
@@ -384,20 +385,23 @@ def test_clip_head_raises_above_its_limits():
 # (VPT's ViT-B/32 validation batch), ViT-B/32 vision, UPT's 4-token prompt,
 # VPT's training batch, a ragged (8, 17) at D = 64, D = 16 and 32 (one and
 # several head groups), short and ragged lengths; then the longest T one
-# block takes at D = 64 (G = 1), by type: 176 in bf16, 144 in fp32
+# block takes at D = 64 (G = 1), by type: 192 in bf16, 176 in fp32
 TWOPHASE_CASES = [
     (256, 66, 768, 12), (256, 50, 768, 12), (256, 54, 768, 12), (16, 66, 768, 12),
     (8, 17, 256, 4), (4, 33, 64, 4), (3, 66, 128, 4), (2, 1, 128, 2), (2, 16, 128, 2),
     (2, 100, 64, 4), (3, 129, 192, 3),
 ]
-TWOPHASE_MAX_T = {torch.float32: 144, torch.bfloat16: 176}
+TWOPHASE_MAX_T = {torch.float32: 176, torch.bfloat16: 192}
+# every G that fits a block at (66, D = 64), by type: the G sweep's
+# (scripts/streamed_attention_compare.py --twophase) at the experiment's shape
+TWOPHASE_GROUPS = {torch.float32: (1, 2, 3), torch.bfloat16: (1, 2, 3, 4)}
 
 
-def _check_twophase(B, T, W, H, dtype, seed=7):
+def _check_twophase(B, T, W, H, dtype, seed=7, group=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dtype)
     before = twophase_attention.launches
-    out = twophase_attention(qkv, H)
+    out = twophase_attention(qkv, H, group)
     torch.cuda.synchronize()
     assert twophase_attention.launches == before + 1
     assert out.shape == (B, T, W) and out.dtype == dtype
@@ -406,6 +410,7 @@ def _check_twophase(B, T, W, H, dtype, seed=7):
                                rtol=tol, atol=tol)
     torch.testing.assert_close(out.float(), fused_attention(qkv, None, H).float(), rtol=tol,
                                atol=tol)
+    return qkv, out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -436,26 +441,54 @@ def test_twophase_kernel_is_deterministic(case, dtype):
     assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("group", [1, 2, 3, 4])
+def test_twophase_kernel_at_every_group(group, dtype):
+    """Every G that fits at the experiment's (256, 66, 768, 12) is within
+    ATTN_TOL of the plain version and K1, and gives the own G's bits: each
+    head is computed the same way whatever block holds it."""
+    _require_card()
+    if group not in TWOPHASE_GROUPS[dtype]:
+        with pytest.raises(ValueError, match="shared memory"):
+            twophase_attention(torch.zeros(1, 66, 3 * 768, device="cuda", dtype=dtype), 12,
+                               group)
+        return
+    qkv, out = _check_twophase(256, 66, 768, 12, dtype, group=group)
+    assert torch.equal(out.view(torch.uint8), twophase_attention(qkv, 12).view(torch.uint8))
+
+
 def test_twophase_groups_and_shared_memory_limit():
-    """G is the largest divisor of the heads whose block fits: at the
-    experiment's (66, D = 64, 12 heads) 3 in bf16 and 2 in fp32; one token
-    past the longest T raises ValueError, in either type."""
+    """G, left to the kernel, is the divisor of the heads that keeps the most
+    warps resident in the first wave: at the experiment's (256, 66, 768, 12)
+    one head a block in both types, four bf16 blocks an SM (51,200 bytes)
+    and three fp32 ones (71,680); the library's shared-memory formula is the
+    wrapper's; one token past the longest T raises ValueError, in either
+    type, and so does a G that does not divide the heads or does not fit."""
     _require_card()
     from menghini_neurips23_tpu_torch.ops import _cuda
     from menghini_neurips23_tpu_torch.ops.twophase_attention import _SIGNATURES
 
     lib = _cuda.library("twophase_attention", _SIGNATURES)
-    assert lib.mnt_twophase_attention_groups(66, 64, 12, 1) == 3
-    assert lib.mnt_twophase_attention_groups(66, 64, 12, 0) == 2
-    assert lib.mnt_twophase_attention_smem(66, 64, 12, 1) == 3 * (3 * 80 * 72 * 2 + 80 * 88 * 4)
-    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+    for dtype, code, blocks in ((torch.float32, 0, 3), (torch.bfloat16, 1, 4)):
+        assert lib.mnt_twophase_attention_groups(256, 66, 64, 12, code) == 1
+        assert lib.mnt_twophase_attention_blocks_per_sm(66, 64, 12, code, 1) == blocks
+        assert lib.mnt_twophase_attention_blocks_per_sm(66, 64, 12, code, 5) == 0
+        assert lib.mnt_twophase_attention_blocks_per_sm(66, 64, 12, code, 6) == 0
+        for T in (1, 17, 66, 100, 129, 176, 192, 193):
+            for D in (16, 32, 64):
+                for G in (1, 2, 3):
+                    assert lib.mnt_twophase_attention_smem(T, D, G, code) == twophase_smem_bytes(
+                        T, D, G, dtype), (T, D, G, dtype)
         longest = TWOPHASE_MAX_T[dtype]
-        assert lib.mnt_twophase_attention_groups(longest, 64, 12, code) == 1
-        assert lib.mnt_twophase_attention_groups(longest + 1, 64, 12, code) == 0
-        assert lib.mnt_twophase_attention_smem(longest, 64, 12, code) <= 227 * 1024
-        assert lib.mnt_twophase_attention_smem(longest + 1, 64, 12, code) > 227 * 1024
+        assert lib.mnt_twophase_attention_groups(8, longest, 64, 12, code) == 1
+        assert lib.mnt_twophase_attention_groups(8, longest + 1, 64, 12, code) == 0
+        assert lib.mnt_twophase_attention_blocks_per_sm(longest, 64, 12, code, 1) >= 1
+        assert lib.mnt_twophase_attention_smem(longest, 64, 1, code) <= 227 * 1024
+        assert lib.mnt_twophase_attention_smem(longest + 1, 64, 1, code) > 227 * 1024
         with pytest.raises(ValueError, match="shared memory"):
             twophase_attention(torch.zeros(1, longest + 1, 3 * 768, device="cuda", dtype=dtype), 12)
+        with pytest.raises(ValueError, match="does not divide"):
+            twophase_attention(torch.zeros(1, 66, 3 * 768, device="cuda", dtype=dtype), 12, 5)
     with pytest.raises(ValueError, match="head width"):
         twophase_attention(torch.zeros(1, 8, 3 * 96, device="cuda"), 1)
     with pytest.raises(ValueError, match="contiguous"):

@@ -32,6 +32,8 @@ import torch
 
 from menghini_neurips23_tpu.ops.attention import fused_attention as jax_fused_attention
 from menghini_neurips23_tpu_torch.ops.attention import attention_bwd_reference, attention_reference
+from tests.torch_port_fixtures import mm_1xtf32 as _mm_1xtf32
+from tests.torch_port_fixtures import mm_3xtf32 as _mm_3xtf32
 
 torch.set_num_threads(2)
 
@@ -59,34 +61,6 @@ def _heads(x):
 
 def _merge(x):
     return x.transpose(1, 2).reshape(B, x.shape[2], H * D)
-
-
-def _tf32_hi(x):
-    """x rounded to TF32 (10 fraction bits), to nearest, ties away from zero,
-    on the fp32 bit pattern."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32_cut(x):
-    """x cut to TF32: the bits a tensor core reads of an fp32 operand."""
-    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def _split(x):
-    hi = _tf32_hi(x)
-    return hi, _tf32_cut(x - hi)
-
-
-def _mm_3xtf32(a, b):
-    """a @ b as the kernel forms it: lo.hi + hi.lo + hi.hi, in fp32."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
-
-
-def _mm_1xtf32(a, b):
-    """a @ b from one TF32 product: both operands rounded to TF32."""
-    return torch.matmul(_tf32_hi(a), _tf32_hi(b))
 
 
 def _mm_plain(a, b):

@@ -11,6 +11,13 @@ the tiny-test widths, two vision layers and one text layer, registered in
 both packages' ARCHS while the fixture lives.  VPT's 16-token prefix makes
 its vision sequence 1 + 256 + 16 = 273 tokens and UPT's 4-token prompt 261:
 the lengths the attention backward tiles on the card.
+
+`mm_3xtf32` and `mm_1xtf32` emulate the attention kernels' fp32 products on
+the tensor cores (tests/test_torch_port_streamed.py, test_torch_port_twophase.py):
+each operand x split on its bit pattern into hi (x rounded to TF32's 10
+fraction bits, to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds)
+and lo (x - hi cut to TF32), and lo.hi + hi.lo + hi.hi summed in fp32; or
+one product of both operands rounded to TF32.
 """
 
 import dataclasses
@@ -22,6 +29,34 @@ import torch
 from menghini_neurips23_tpu_torch.data import _native
 
 L14_GRID = "tiny-l14-grid"
+
+
+def _tf32_hi(x):
+    """x rounded to TF32 (10 fraction bits), to nearest, ties away from zero,
+    on the fp32 bit pattern."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """x cut to TF32: the bits a tensor core reads of an fp32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32_hi(x)
+    return hi, _tf32_cut(x - hi)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as the kernels form it: lo.hi + hi.lo + hi.hi, in fp32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+def mm_1xtf32(a, b):
+    """a @ b from one TF32 product: both operands rounded to TF32."""
+    return torch.matmul(_tf32_hi(a), _tf32_hi(b))
 
 
 @pytest.fixture(scope="module", autouse=True)
