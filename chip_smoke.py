@@ -21,7 +21,8 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      loader builds; fails when torch sees no card
   2. build: compiles every kernel (one nvcc per source, all at once) and
      prints ptxas's register report; fails if any entry point spills
-     registers
+     registers, or if an entry point of K1's or K2's fp32 form up to 128
+     tokens holds no TF32 HMMA in its SASS (cuobjdump)
   3. kernels: each kernel against its plain version on the card, fp32 and
      bf16, at the main path's shapes (K1 and K2 also at ViT-L/14's and up
      to 320 tokens, where neither keeps a T x T tile, K1 also at the frozen
@@ -86,8 +87,9 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      each timed alone, and the device encode of the same 256-image batch
      by ViT-L/14 (K1's ms in it); one bf16 training step of textual_fpl
      (10 and 102 classes), of visual_fpl and of grip_multimodal (UPT), of
-     ViT-L/14's visual_fpl and multimodal_fpl, and one fp32 step of
-     ViT-L/14's visual_fpl (its whole-run trainer over 3 epochs), in the
+     ViT-L/14's visual_fpl and multimodal_fpl, one fp32 step of
+     ViT-L/14's visual_fpl (its whole-run trainer over 3 epochs), and fp32
+     steps of ViT-B/32's textual_prompt and multimodal_fpl, in the
      per-step loop on
      the host clock (with peak device memory) and under torch.profiler (device busy time,
      kernels by name, K2's time and share of the busy time), then in the
@@ -116,7 +118,9 @@ ViT-L/14 80-token VPT run and the fp32 ViT-L/14 VPT run of phase 7 (six
 training paths), and phase 9
 each run with every launch count set to 0 just before and read just after;
 a kernel the path runs must show a launch (the streamed forms of K1 and K2,
-K1's resident bf16 form and K2's fp32 pair count apart; the ViT-L/14 path
+K1's resident bf16 form, K2's fp32 pair and K1's and K2's fp32 forms up to
+128 tokens count apart; the zero-shot path and the three ViT-B/32 training
+paths must launch the fp32 forms up to 128 tokens; the ViT-L/14 path
 must launch the resident form, the 80-token path the streamed ones, the
 fp32 ViT-L/14 path K2's fp32 pair).  A graph replay
 passes no Python counter: each capture records what it launched, and every
@@ -179,6 +183,23 @@ K1_RESIDENT_MAX_SEQ = {"float32": 128, "bfloat16": RESIDENT_MAX_SEQ}
 # up to here K1 keeps a warp's scores in registers; from here to 320 bf16
 # takes its resident kernel (counted in `resident_launches`)
 K1_SHORT_MAX_SEQ = 128
+# K1 up to 128 tokens, where a warp's scores stay in its registers: ViT-B/32
+# vision (the main path's batch), the text tower over C = 10 or 102 classes
+# at the truncated lengths 16 and 24 and the full 77 (UPT's text tower is
+# the (10, 77) case), and Flowers102's (102, 48); ViT-B/32 vision with a
+# 16-token VPT prefix and with UPT's 4-token prompt (a training batch of
+# 16, a validation and refresh batch of 256)
+SHORT_FWD_SHAPES = [(256, 50, 768, 12, None)] + [
+    (b, t, 512, 8, "causal") for b in (10, 102) for t in (16, 24, 77)
+] + [(102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
+     (16, 54, 768, 12, None), (256, 54, 768, 12, None)]
+# K2 up to 128 tokens: the CoOp text tower (C = 10 or 102, truncated 24 or
+# full 77; Flowers102's (102, 48)), the VPT vision tower (the training batch
+# of 16 and a batch of 256), UPT's vision tower (its training batch) and the
+# plain ViT-B/32 one
+SHORT_BWD_SHAPES = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
+    (102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
+    (16, 54, 768, 12, None), (256, 50, 768, 12, None)]
 LONG_SHAPES = [(48, 321, 1024, 16, None), (16, 337, 1024, 16, None),
                (32, 384, 1024, 16, None), (16, 577, 1024, 16, None),
                (8, 1024, 1024, 16, None)]
@@ -278,6 +299,28 @@ def phase_build():
         spilled = {f: int(n) for f, n in spills.items() if int(n) > 0}
         if not spills or spilled:
             fail(f"{name}: the ptxas report shows spill stores {spilled or 'nowhere (no report)'}")
+    # K1's and K2's fp32 forms up to 128 tokens run every product on the
+    # tensor cores as 3xTF32: each entry point's SASS must hold HMMA (TF32
+    # mma.sync) instructions; its FFMA count (the softmax's and dS's fused
+    # multiply-adds, not a product's main loop) is printed beside them
+    cuobjdump = next((c for c in (os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump"),
+                                  shutil.which("cuobjdump")) if c and os.path.exists(c)), None)
+    if cuobjdump is None:
+        log("  SASS of the fp32 forms up to 128 tokens: not checked (no cuobjdump beside nvcc)")
+        return
+    for name, fn in (("attention_fwd", "attention_fwd_f32"), ("attention_bwd", "attention_bwd_f32")):
+        sass = subprocess.run([cuobjdump, "-sass", _cuda.library_path(name)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts = {}
+        for block in sass.split("Function : ")[1:]:
+            sym = block.split(None, 1)[0]
+            if fn in sym:
+                ints = ", ".join(re.findall(r"Li(\d+)E", sym))
+                counts[f"{fn}<{ints}>"] = [len(re.findall(r"\bHMMA\.\S*TF32", block)),
+                                         len(re.findall(r"\bFFMA\b", block))]
+        log(f"  {fn} SASS [HMMA TF32, FFMA] by entry point: {json.dumps(counts)}")
+        if not counts or min(h for h, _ in counts.values()) == 0:
+            fail(f"{fn}: an entry point's SASS holds no TF32 HMMA: {counts}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -341,16 +384,9 @@ def phase_kernels(torch):
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     g = torch.Generator(device="cuda").manual_seed(0)
     attn_cases, head_cases = [], []
-    # vision (ViT-B/32, the main path's batch), the text tower: C = 10 or
-    # 102 classes at the truncated lengths 16 and 24 and the full 77 (UPT's
-    # text tower is the (10, 77) case), and Flowers102's (102, 48); ViT-B/32
-    # vision with a 16-token VPT prefix and with UPT's 4-token prompt (a
-    # training batch of 16, a validation and refresh batch of 256); ViT-L/14
-    # vision without and with a VPT prefix
-    shapes = [(256, 50, 768, 12, None)] + [
-        (b, t, 512, 8, "causal") for b in (10, 102) for t in (16, 24, 77)
-    ] + [(102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
-         (16, 54, 768, 12, None), (256, 54, 768, 12, None)] + RESIDENT_SHAPES + LONG_SHAPES
+    # SHORT_FWD_SHAPES (ViT-B/32 vision, the text tower, VPT and UPT), then
+    # ViT-L/14 vision without and with a VPT prefix, and the streamed lengths
+    shapes = SHORT_FWD_SHAPES + RESIDENT_SHAPES + LONG_SHAPES
     shapes = [s + (None,) for s in shapes] + SHARD_SHAPES
     for dname, dt in dtypes.items():
         for B, T, W, H, mask, shard in shapes:
@@ -559,17 +595,12 @@ def phase_kernels_bwd(torch):
     lib = _cuda.library("attention_bwd", _BWD_SIGNATURES)
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
-    # the CoOp text tower (C = 10 or 102 classes, truncated 24 or full 77;
-    # UPT's text tower is the (10, 77) case; Flowers102's (102, 48)), the VPT
-    # vision tower (16 prompt tokens; the training batch of 16 and a batch of
-    # 256), UPT's vision tower (4 prompt tokens, the training batch) and the
-    # plain ViT-B/32 one; then the lengths above 128 tokens: ViT-L/14's VPT
-    # (T = 273) and UPT (T = 261) training batches, a ragged T = 129, and
-    # 288 and 320 (the last length bf16 holds resident), where T pads to no
-    # extra 16-row tile; then LONG_SHAPES, which both kernels stream
-    shapes = [(b, t, 512, 8, "causal") for b in (10, 102) for t in (24, 77)] + [
-        (102, 48, 512, 8, "causal"), (16, 66, 768, 12, None), (256, 66, 768, 12, None),
-        (16, 54, 768, 12, None), (256, 50, 768, 12, None),
+    # SHORT_BWD_SHAPES (the CoOp text tower, VPT's and UPT's ViT-B/32 vision
+    # towers); then the lengths above 128 tokens: ViT-L/14's VPT (T = 273)
+    # and UPT (T = 261) training batches, a ragged T = 129, and 288 and 320
+    # (the last length bf16 holds resident), where T pads to no extra 16-row
+    # tile; then LONG_SHAPES, which both kernels stream
+    shapes = SHORT_BWD_SHAPES + [
         (16, 273, 1024, 16, None), (16, 261, 1024, 16, None), (16, 129, 1024, 16, None),
         (16, 288, 1024, 16, None), (16, 320, 1024, 16, None),
     ] + LONG_SHAPES
@@ -607,7 +638,7 @@ def phase_kernels_bwd(torch):
             # reads qkv (3W) and g (W), writes dqkv (3W); five T x T x D products
             b_ms, b_by = bound(B * T * 7 * W * size, 10 * B * H * D * pairs, dname)
             case = dict(shape=[B, T, W, H], mask=mask, dtype=dname,
-                        warps=lib.mnt_attention_bwd_warps(T, D, _DTYPE_CODES[dt]),
+                        warps=lib.mnt_attention_bwd_warps(T, D, _DTYPE_CODES[dt], B * H),
                         max_abs_err=err, tol=tol, rtol=tol, bit_identical=same, ms=ms,
                         plain_ms=plain, pair_ms=pair_ms, library_ms=sdpa,
                         library="autograd.grad of scaled_dot_product_attention "
@@ -2090,8 +2121,13 @@ def main() -> int:
                 "attention_fwd_streamed": (fused_attention, "streamed_launches"),
                 "attention_bwd_streamed": (attention_bwd, "streamed_launches"),
                 "attention_bwd_tf32": (attention_bwd, "tf32_launches"),
+                "attention_fwd_f32": (fused_attention, "f32_short_launches"),
+                "attention_bwd_f32": (attention_bwd, "f32_short_launches"),
                 "twophase_attention": (twophase_attention, "launches")}
     resident = ("attention_fwd", "attention_bwd", "clip_head")
+    # the ViT-B/32 paths that run fp32 (the default type) up to 128 tokens
+    # launch K1's and K2's fp32 3xTF32 kernels
+    fp32_short = ("attention_fwd_f32", "attention_bwd_f32")
     # K4 runs on no path of the models (nor does its Pallas kernel on the
     # JAX package's): its own path is the attention experiment
     model_kernels = tuple(n for n in wrappers if n != "twophase_attention")
@@ -2135,15 +2171,15 @@ def main() -> int:
     log("[3] the attention experiment (scripts/exp_attn_kernels.py twophase fwd)")
     counted("attention experiment (twophase fwd)", ("twophase_attention",),
             lambda: phase_experiment(torch))
-    counted("zero-shot", ("attention_fwd", "clip_head"), zero_shot_path)
+    counted("zero-shot", ("attention_fwd", "clip_head", "attention_fwd_f32"), zero_shot_path)
     log("[7] training (SSL CoOp)")
-    counted("training (SSL CoOp)", resident, training_runs(
+    counted("training (SSL CoOp)", resident + fp32_short, training_runs(
         [("ssl", "textual_prompt", "float32", 20), ("ssl", "textual_fpl", "bfloat16", 150)]))
     log("[7] training (UL/TRZSL, VPT)")
-    counted("training (UL/TRZSL, VPT)", resident, training_runs(
+    counted("training (UL/TRZSL, VPT)", resident + fp32_short, training_runs(
         [("ul", "visual_fpl", "bfloat16", 150), ("trzsl", "visual_fpl", "float32", 20)]))
     log("[7] training (IFPL/GRIP, UPT)")
-    counted("training (IFPL/GRIP, UPT)", resident, training_runs(
+    counted("training (IFPL/GRIP, UPT)", resident + fp32_short, training_runs(
         [("ul", "grip_visual", "bfloat16", 5, 10, GRIP_SCHEDULE),
          ("ssl", "grip_multimodal", "bfloat16", 5, 25),
          ("trzsl", "iterative_textual_fpl", "float32", 5, 50),
@@ -2170,7 +2206,7 @@ def main() -> int:
 
     counted("ViT-L/14, 80-token VPT prompt",
             tuple(n for n in model_kernels
-                  if n not in ("attention_fwd_resident", "attention_bwd_tf32")),
+                  if n not in ("attention_fwd_resident", "attention_bwd_tf32") + fp32_short),
             vit_l14_long_prompt)
     log("[7] ViT-L/14 VPT in float32, the default type (T = 273)")
     # main_ul visual_fpl fp32, 3 epochs: every step takes K2's fp32 pair, and
@@ -2205,14 +2241,18 @@ def main() -> int:
     # over 16 x 54); the same VPT and UPT steps at ViT-L/14 (16 x 273 and
     # 16 x 261 vision tokens through 24 layers), and VPT with the 80-token
     # prompt (16 x 337, K1 and K2 streamed); then the fp32 ViT-L/14 VPT step
-    # (16 x 273, K2's fp32 pair), its whole-run trainer over 3 epochs
+    # (16 x 273, K2's fp32 pair), its whole-run trainer over 3 epochs; then
+    # fp32, the default type, at ViT-B/32: the CoOp step of textual_prompt
+    # and the UPT step of multimodal_fpl (K1 and K2 up to 128 tokens: the
+    # text tower over 10 x 77, the vision tower over 16 x 54)
     for strategy, epochs in ((fpl, 10), (TextualStrategy(
             fpl.config, {c: i for i, c in enumerate(flowers)}, flowers, flowers, flowers,
             runtime=fpl.runtime), 10), (trained["ul_visual_fpl"], 10),
             (trained["ssl_grip_multimodal"], 10), (trained["ul_visual_fpl@ViT-L/14"], 10),
             (trained["ssl_multimodal_fpl@ViT-L/14"], 10),
             (trained["ul_visual_fpl_bfloat16@ViT-L/14-L80"], 10),
-            (trained["ul_visual_fpl_float32@ViT-L/14"], 3)):
+            (trained["ul_visual_fpl_float32@ViT-L/14"], 3),
+            (trained["ssl_textual_prompt"], 10), (trained["ssl_multimodal_fpl"], 10)):
         phase_fused_profile(torch, strategy, train_files,
                             phase_step_profile(torch, strategy, train_files), epochs)
     phase_refresh_profile(torch, trained["ul_grip_visual"], data_dir)
@@ -2271,6 +2311,16 @@ def main() -> int:
               "menghini_neurips23_tpu/ops/attention.py:96",
               [c for c in bwd_cases if c["tf32"]],
               lambda c: c["shape"] == [16, 273, 1024, 16] and c["dtype"] == "float32"),
+        # K1's and K2's fp32 forms up to 128 tokens (3xTF32), headlined at
+        # ViT-B/32 vision (256, 50) and the full text tower over 102 classes
+        entry("attention_fwd_f32", f"{PKG}/csrc/attention_fwd.cu",
+              "menghini_neurips23_tpu/ops/attention.py:65",
+              [c for c in short_fwd if c["dtype"] == "float32"],
+              lambda c: c["shape"] == [256, 50, 768, 12] and c["dtype"] == "float32"),
+        entry("attention_bwd_f32", f"{PKG}/csrc/attention_bwd.cu",
+              "menghini_neurips23_tpu/ops/attention.py:96",
+              [c for c in short_bwd if c["dtype"] == "float32"],
+              lambda c: c["shape"] == [102, 77, 512, 8] and c["dtype"] == "float32"),
         entry("clip_head", f"{PKG}/csrc/clip_head.cu",
               "menghini_neurips23_tpu/ops/clip_head.py:40", head_cases,
               lambda c: c["shape"] == [640, 512, 10] and c["dtype"] == "float32"),

@@ -25,36 +25,49 @@
 // operations per byte in bf16, far below the ~295 per byte where the tensor
 // cores would become the limit.  The design keeps every product off the
 // shared-memory-bound FFMA path in bf16 and stages with 16-byte copies.  At
-// ViT-L/14's T = 273 bf16 is still below that line (~195 per byte).  fp32
-// above 128 tokens is bound by operations: an fp32-accurate product on the
-// tensor cores is three TF32 products (3xTF32), so its least time is 3 x
-// FLOPs at the TF32 rate (494 TFLOP/s), against which the fp32 pair below
-// runs every product.
+// ViT-L/14's T = 273 bf16 is still below that line (~195 per byte).  An
+// fp32-accurate product on the tensor cores is three TF32 products
+// (3xTF32), so fp32's least time for the operations is 3 x FLOPs at the
+// TF32 rate (494 TFLOP/s), under FLOPs at the FMA rate (67 TFLOP/s): up to
+// 128 tokens fp32 is still bound by memory (ViT-B/32 vision at B = 256:
+// 0.082 ms of bytes against 0.030 of 3xTF32 operations), above it by
+// operations.  Every fp32 kernel below runs every product as 3xTF32.
 //
 // Design, one block per (batch row, head), T <= 128, a warp per 16-row tile:
 // - staging: q and k rows, then v and g rows in a second group that lands
 //   while S runs, with 16-byte cp.async copies (rows past T zero-filled),
 //   read from the fused layout in place, rows padded against bank conflicts;
-// - the key capacity KC (16 to 128, the smallest holding T) is a template
-//   parameter, as in K1;
-// - pass 1, each warp owns 16 query rows: it recomputes S and P, then dP,
-//   r = rowsum(dP * P) and dS, and forms dq = dS . k; it leaves P_lp and dS
-//   in shared memory;
-// - pass 2, after a barrier, each warp owns 16 key rows and forms
-//   dv = P_lp^T . g and dk = dS^T . q over the query rows, in a fixed order;
-// - bf16: every product on the tensor cores (mma.sync m16n8k16, bf16
-//   operands, fp32 accumulators, ldmatrix / ldmatrix.trans from shared
-//   memory); S and P stay in registers (16 x 128 fp32 per warp at most), dP
-//   is formed twice (once for r, once for dS) rather than held, dS is
-//   rounded straight into the A fragments of dS . k; P_lp and dS, bf16,
-//   take 2 * T^2 * 2 bytes (74 KB of shared memory in all at T = 66);
-// - fp32: full-fp32 FFMA (no TF32), register-tiled like K1's fp32 path;
-//   dP passes through the dS buffer of the tile's own rows; P stays in
-//   registers until every warp has read k and v, then takes their place, so
-//   that T = 128 fits in 227 KB; up to 32 keys each tile has two warps,
-//   which split the columns of dq and of pass 2;
-// - causal rows skip whole key tiles above the diagonal, and pass 2 skips
-//   the query tiles above it; masked and padded entries give P = dS = 0.
+// - the key capacity KC is a template parameter, as in K1: bf16 the
+//   smallest of 16, 32, 64, 96 and 128 that holds T, fp32 round16(T);
+// - bf16, pass 1, each warp owns 16 query rows: it recomputes S and P,
+//   then dP, r = rowsum(dP * P) and dS, and forms dq = dS . k; it leaves
+//   P_lp and dS in shared memory; pass 2, after a barrier, each warp owns
+//   16 key rows and forms dv = P_lp^T . g and dk = dS^T . q over the query
+//   rows, in a fixed order.  Every product on the tensor cores (mma.sync
+//   m16n8k16, bf16 operands, fp32 accumulators, ldmatrix / ldmatrix.trans
+//   from shared memory); S and P stay in registers (16 x 128 fp32 per warp
+//   at most), dP is formed twice (once for r, once for dS) rather than
+//   held, dS is rounded straight into the A fragments of dS . k; P_lp and
+//   dS, bf16, take 2 * T^2 * 2 bytes (74 KB of shared memory in all at
+//   T = 66);
+// - fp32, every product as 3xTF32 on mma.sync m16n8k8 (split_tf32,
+//   mma_3xtf32), two phases and no T x T tile in shared memory: phase A, a
+//   warp per 16 query rows, holds S, then P, and dP in its accumulators
+//   (the exact row max and sum, since every key fits; base 2, each row's
+//   lse and r * D^-0.5 left in shared memory) and forms dq = dS . k with
+//   dS taken from the accumulators; phase B, after one barrier, a warp per
+//   16 keys forms S^T and dP^T in the accumulators, P^T and dS^T from the
+//   statistics, and dv = P^T . g, dk = dS^T . q with the same accumulators
+//   as A fragments (keys 2q, 2q + 1 of a tile as the fragment's k = q,
+//   q + 4, the B rows read in that order): seven products of T x T x D
+//   where the least is five.  Shared memory holds q, k, v and g (4 x
+//   round16(T) x (D + 4) floats: 70 KB at T = 50, 87 KB at T = 77, three
+//   and two blocks an SM).  Register tiles on the FMA units, with dP, dS and P as T x T
+//   fp32 tiles in shared memory (114 KB at T = 77, one block an SM), would
+//   be bound by the FMA rate and by residency;
+// - causal rows skip whole key tiles above the diagonal, and the key side
+//   skips the query tiles above it; masked and padded entries give
+//   P = dS = 0.
 //
 // Above 128 tokens (ViT-L/14: VPT's 273, UPT's 261, 257, and any longer T): P_lp
 // and dS of a whole (row, head) no longer fit a block (2 * 288 * 296 * 2 B =
@@ -159,9 +172,10 @@ size_t bf16_smem(int seq, int D) {
   return (4 * tp * (D + 8) + 2 * tp * (tp + 8)) * sizeof(bf16);
 }
 
+// fp32: q, k, v and g of round16(T) rows, then each row's lse and r * D^-0.5
 size_t f32_smem(int seq, int D) {
-  const size_t tp = round16(seq), tile = tp * (D + 4), pd = tp * (tp + 4);
-  return (2 * tile + pd + std::max(2 * tile, pd)) * sizeof(float);
+  const size_t tp = round16(seq);
+  return (4 * tp * (D + 4) + 2 * tp) * sizeof(float);
 }
 
 // ------------------------------------------------------------------ bf16
@@ -343,191 +357,306 @@ attention_bwd_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
 
 // ------------------------------------------------------------------ fp32
 
-// Warps per 16-row tile of the fp32 kernel: short sequences give each tile
-// two warps, which split the columns of dq and of pass 2 (the block is
-// otherwise only ceil(T/16) warps deep and its latency shows).
-__host__ __device__ constexpr int f32_split(int KC, int D) {
-  return KC <= 32 && D >= 32 ? 2 : 1;
+// The fp32 kernel up to kWholeMaxSeq splits every operand by
+// split_tf32_trunc (attention_common.cuh), two operations a value: the
+// splits are most of its instructions.  ldmatrix reads fp32 rows (an 8 x 8
+// matrix of b16 pairs is an 8 x 4 matrix of floats): the A fragment of
+// k-step kk of 16 rows as matrices (rows 0-7, 8kk..), (8-15, 8kk..), (0-7,
+// 8kk + 4..), (8-15, 8kk + 4..), the B fragments of 16 rows as (rows 0-7,
+// 8kk..), (0-7, 8kk + 4..), (8-15, 8kk..), (8-15, 8kk + 4..).
+template <int D>
+__device__ __forceinline__ void ldsplit_a(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* a,
+                                          int kk, int lane) {
+  uint32_t x[4];
+  ldmatrix_x4(x, a + ((lane & 7) + ((lane >> 3) & 1) * 8) * (D + 4) + 8 * kk + (lane >> 4) * 4);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32_trunc(x[e], hi[e], lo[e]);
 }
 
+template <int D>
+__device__ __forceinline__ void ldsplit_b(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* b,
+                                          int kk, int lane) {
+  uint32_t y[4];
+  ldmatrix_x4(y, b + ((lane & 7) + (lane >> 4) * 8) * (D + 4) + 8 * kk + ((lane >> 3) & 1) * 4);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32_trunc(y[e], hi[e], lo[e]);
+}
+
+// t[0..1] += A . B over one k-step, 3xTF32, for the two n8 tiles of a B
+// fragment pair (lo.hi, hi.lo, hi.hi in a tile the caller zeroed)
+__device__ __forceinline__ void mma3_pair(float (&t)[2][4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const uint32_t (&bh)[4],
+                                          const uint32_t (&bl)[4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    mma_tf32(t[n], al, bh[2 * n], bh[2 * n + 1]);
+    mma_tf32(t[n], ah, bl[2 * n], bl[2 * n + 1]);
+    mma_tf32(t[n], ah, bh[2 * n], bh[2 * n + 1]);
+  }
+}
+
+// c = A . B^T over D, 3xTF32: the warp's 16 fp32 rows at a against the rows
+// of b (D + 4 floats a row) in KC / 16 groups of 16, group j as the n8
+// tiles 2j, 2j + 1; the groups at or past nend are left at 0.  Each
+// k-step's A fragment is split once for every group; the six products of
+// two k-steps are summed in a zeroed tile and then added to c in fp32 (the
+// tensor cores' adders truncate).
 template <int D, int KC>
-__global__ void __launch_bounds__(2 * KC * f32_split(KC, D),
-                                  KC <= 64 ? 256 / (KC * f32_split(KC, D)) : 1)
+__device__ __forceinline__ void dots_rows_tf32(float (&c)[KC / 8][4], const float* a,
+                                               const float* b, int nend, int lane) {
+#pragma unroll
+  for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < D / 8; k0 += 2) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) ldsplit_a<D>(ah[u], al[u], a, k0 + u, lane);
+#pragma unroll
+    for (int j = 0; j < KC / 16; ++j) {
+      if (16 * j >= nend) continue;
+      float t[2][4] = {};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        uint32_t bh[4], bl[4];
+        ldsplit_b<D>(bh, bl, b + 16 * j * (D + 4), k0 + u, lane);
+        mma3_pair(t, ah[u], al[u], bh, bl);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[2 * j + n][e] += t[n][e];
+    }
+  }
+}
+
+// c1 = A1 . B1^T and c2 = A2 . B2^T over D, 3xTF32: the warp's 16 fp32
+// rows at a1 and a2 against the 16 at b1 and b2, each as two n8 tiles; the
+// two pairs' four tiles are independent chains, summed as dots_rows_tf32
+// sums.  kUnroll pairs of k-steps are unrolled (fewer keep fewer
+// fragments live).
+template <int D, int kUnroll = D / 16>
+__device__ __forceinline__ void dots2_rows_tf32(float (&c1)[2][4], float (&c2)[2][4],
+                                                const float* a1, const float* a2,
+                                                const float* b1, const float* b2, int lane) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c1[t][e] = c2[t][e] = 0.f;
+#pragma unroll (kUnroll)
+  for (int k0 = 0; k0 < D / 8; k0 += 2) {
+    float t1[2][4] = {}, t2[2][4] = {};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      uint32_t ah[4], al[4], bh[4], bl[4];
+      ldsplit_a<D>(ah, al, a1, k0 + u, lane);
+      ldsplit_b<D>(bh, bl, b1, k0 + u, lane);
+      mma3_pair(t1, ah, al, bh, bl);
+      ldsplit_a<D>(ah, al, a2, k0 + u, lane);
+      ldsplit_b<D>(bh, bl, b2, k0 + u, lane);
+      mma3_pair(t2, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c1[t][e] += t1[t][e], c2[t][e] += t2[t][e];
+  }
+}
+
+// Warps of the fp32 kernel a 16-row tile, CS: one, or up to 32 tokens two
+// where the grid gives an SM one block at most (f32_split), which split the
+// columns of dq, dk and dv (each forms the tile's S and dP, and S^T and
+// dP^T, in full): the shortest sequences over few (row, head)s are bound
+// by one block's latency, and more warps shorten it; over many, the
+// repeated products would cost more than they hide.
+int f32_split(int KC, int rows_x_heads) {
+  int dev, sms;
+  if (KC > 32 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 1;
+  }
+  return rows_x_heads < sms ? 2 : 1;
+}
+
+// fp32 blocks an SM that __launch_bounds__ keeps the registers within (one
+// warp a tile; two warps a tile run at most one block an SM): up to 64
+// keys three (170 registers a thread at 4 warps; shared memory, 4 x
+// KC x 68 floats a block at D = 64, holds three at 64 keys), at 80 and 96
+// two (ptxas caps 5 and 6 warps alike at 168), from 112 one
+__host__ __device__ constexpr int f32_blocks(int KC) { return KC <= 64 ? 3 : KC <= 96 ? 2 : 1; }
+
+// fp32, T <= kWholeMaxSeq.  Block (batch row, head), CS warps per 16-row
+// tile (f32_split), every product as 3xTF32 on mma.sync m16n8k8; KC is
+// round16(T) itself, so that the registers and the block are sized to the
+// sequence.  Shared memory holds q, k, v and g of the head (KC rows each,
+// D + 4 floats a row, zero past T) and each query row's base-2 lse and r *
+// D^-0.5; q and k land first, v and g in a second group while S runs.
+// Phase A, a warp per 16 query rows: S = q . k^T against every key the
+// rows see, raw, in the accumulators (dots_rows_tf32), then dP = g . v^T
+// beside it (each product's A fragments split once for every key); the
+// exact row max m and
+// sum l, lse = m c + log2(l) (c = D^-0.5 log2(e); +inf past T), P = 2^(s c
+// - lse) in place of S, r = rowsum(dP * P) from the fp32 P, dS = P (dP
+// D^-0.5 - r D^-0.5) in place of P, and dq += dS . k with dS taken from the
+// accumulators, 16 keys at a time.  Phase B, after one barrier, a warp per
+// 16 keys, 16 queries a step (causal: from its own diagonal): S^T = k . q^T
+// and dP^T = v . g^T, then P^T and dS^T by the same expressions from the
+// statistics phase A left, and dv += P^T . g, dk += dS^T . q with P^T and
+// dS^T taken from the accumulators.  Queries past T have lse = +inf, so
+// P = dS = 0; keys past T own dk and dv rows that are never written.  One
+// owner per output and a fixed order: no atomics.
+template <int D, int KC, int CS>
+__global__ void __launch_bounds__(2 * KC * CS, CS == 1 ? f32_blocks(KC) : 1)
 attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ grad,
                   float* __restrict__ dqkv, int seq, int width, int heads, float scale,
                   int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int CS = f32_split(KC, D);
-  using C = Cols<D / CS>;
-  constexpr int LD = D + 4, NS = KC / 8, NG = NS <= 8 ? NS : NS / 2;
-  const int tp = round16(seq), ldp = tp + 4;
+  constexpr int LD = D + 4;
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
   float* qs = reinterpret_cast<float*>(smem_raw);
-  float* gs = qs + tp * LD;
-  float* ds = gs + tp * LD;   // dP, then dS, (query, key)
-  float* ks = ds + tp * ldp;  // k and v during pass 1 ...
-  float* vs = ks + tp * LD;
-  float* ps = ks;             // ... P in their place for pass 2
+  float* ks = qs + KC * LD;
+  float* vs = ks + KC * LD;
+  float* gs = vs + KC * LD;
+  float* st_lse = gs + KC * LD;
+  float* st_rs = st_lse + KC;
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  stage_rows<float, D>(qs, LD, base, stride, seq, tp, tid, nthreads);
-  stage_rows<float, D>(ks, LD, base + width, stride, seq, tp, tid, nthreads);
+  const int tid = threadIdx.x;
+  constexpr int NC = D / 8 / CS, kThreads = 2 * KC * CS;
+  stage_rows<float, D>(qs, LD, base, stride, seq, KC, tid, kThreads);
+  stage_rows<float, D>(ks, LD, base + width, stride, seq, KC, tid, kThreads);
   cp_async_commit();
-  stage_rows<float, D>(vs, LD, base + 2 * width, stride, seq, tp, tid, nthreads);
-  stage_rows<float, D>(gs, LD, grad + (size_t)b * seq * width + h * D, width, seq, tp, tid,
-                       nthreads);
+  stage_rows<float, D>(vs, LD, base + 2 * width, stride, seq, KC, tid, kThreads);
+  stage_rows<float, D>(gs, LD, grad + (size_t)b * seq * width + h * D, width, seq, KC, tid,
+                       kThreads);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
 
-  const int warp = tid / 32, lane = tid % 32, ry = lane / 8, kx = lane % 8;
-  const int part = warp % CS, c0 = part * (D / CS);  // the warp's share of the columns
-  const int r0 = 16 * (warp / CS), row0 = r0 + 4 * ry;  // rows (pass 1) / keys (pass 2) row0 ..
-  // keys the tile's rows see, to the last 8-key slot holding a real key
-  const int kend = min(causal ? r0 + 16 : tp, (seq + 7) / 8 * 8);
+  const int warp = tid / 32, lane = tid % 32, part = warp % CS;
+  const int t0 = 16 * (warp / CS);  // the tile's query rows (phase A), then keys (phase B)
+  const int c0 = part * (D / CS);   // the warp's share of the columns of dq, dk, dv
   float* out = dqkv + (size_t)b * seq * stride + h * D + c0;
 
-  // pass 1 (the tile's first warp): P in registers, dP through the tile's
-  // rows of ds, then dS; then dq, its columns split over the tile's warps
-  float p[4][NS];
-  if (part == 0) {
-    scores_f32<D, KC>(p, qs + r0 * LD, ks, 0, kend, seq, r0, causal, scale, ry, kx);
+  // phase A: rows row0 and row0 + 8 of the warp's 16
+  {
+    const int row0 = t0 + lane / 4;
+    const int kend = causal ? t0 + 16 : KC;  // the keys the rows see
+    float p[KC / 8][4], dp[KC / 8][4];
+    dots_rows_tf32<D, KC>(p, qs + t0 * LD, ks, kend, lane);
+    // keys past T or above the diagonal are -inf, in the tiles that cross them
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int n = 0; n < KC / 8; ++n) {
+      const int n0 = 8 * n;
+      if (n0 >= kend) break;
+      if (n0 + 8 <= seq && !(causal && n0 + 7 > t0)) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n0 + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
+        if (col >= seq || (causal && col > row)) p[n][e] = -INFINITY;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // v and g
+    dots_rows_tf32<D, KC>(dp, gs + t0 * LD, vs, kend, lane);
+    float lse[2], rs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the max of the raw dots (the scale is positive); key 0 keeps it finite
       float m = -INFINITY;
 #pragma unroll
-      for (int jj = 0; jj < NS; ++jj) m = fmaxf(m, p[i][jj]);
-      m = group_max<8>(m);
+      for (int n = 0; n < KC / 8; ++n) {
+        if (8 * n >= kend) break;
+        m = fmaxf(m, fmaxf(p[n][2 * r], p[n][2 * r + 1]));
+      }
+      const float m2 = group_max<4>(m) * scale2;
       float l = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < NS; ++jj) {
-        p[i][jj] = expf(p[i][jj] - m);
-        l += p[i][jj];
+      for (int n = 0; n < KC / 8; ++n) {
+        if (8 * n >= kend) break;
+        l += ex2(fmaf(p[n][2 * r], scale2, -m2)) + ex2(fmaf(p[n][2 * r + 1], scale2, -m2));
       }
-      l = group_sum<8>(l);
-      const float inv_l = row0 + i < seq ? 1.f / l : 0.f;  // padded rows: P = 0
+      l = group_sum<4>(l);  // (every lane shuffles, then the padded rows drop out)
+      lse[r] = row0 + 8 * r < seq ? m2 + log2f(l) : INFINITY;  // padded: P = 0
+      // P in place of S, and r = rowsum(dP * P)
+      float rr = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < NS; ++jj) p[i][jj] *= inv_l;
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (part == 0) {
-    float r[4] = {};
+      for (int n = 0; n < KC / 8; ++n) {
+        if (8 * n >= kend) break;
 #pragma unroll
-    for (int g0 = 0; g0 < NS; g0 += NG) {  // dP = g . v^T, NG key slots at a time
-      float dp[4][NG] = {};
-#pragma unroll (NS <= 8 ? 4 : 1)
-      for (int d = 0; d < D; d += 4) {
-        float g[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) load_vec<4>(g[i], gs + (row0 + i) * LD + d);
-#pragma unroll
-        for (int jj = 0; jj < NG; ++jj) {
-          const int key = 8 * (g0 + jj);
-          if (key < kend) {
-            float v[4];
-            load_vec<4>(v, vs + (key + kx) * LD + d);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int t = 0; t < 4; ++t) dp[i][jj] = fmaf(g[i][t], v[t], dp[i][jj]);
-          }
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          p[n][e] = ex2(fmaf(p[n][e], scale2, -lse[r]));
+          rr = fmaf(dp[n][e], p[n][e], rr);
         }
       }
+      rs[r] = group_sum<4>(rr) * scale;
+    }
+    // dS in place of P, then dq += dS . k, 16 keys at a time
+    float dq[NC][4] = {};
 #pragma unroll
-      for (int jj = 0; jj < NG; ++jj) {
-        const int key = 8 * (g0 + jj);
-        if (key < kend) {
+    for (int j = 0; j < KC / 16; ++j) {
+      if (16 * j >= kend) break;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            r[i] = fmaf(dp[i][jj], p[i][g0 + jj], r[i]);
-            ds[(row0 + i) * ldp + key + kx] = dp[i][jj];
-          }
-        }
+      for (int t = 2 * j; t < 2 * j + 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[t][e] *= fmaf(dp[t][e], scale, -rs[e >> 1]);
+      acc2_times_rows_tf32<D, NC, true>(dq, p[2 * j], p[2 * j + 1], ks + 16 * j * LD + c0,
+                                        lane);
+    }
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int row = row0 + 8 * e2;
+      if (row < seq) {
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+          *reinterpret_cast<float2*>(out + row * stride + 8 * n + 2 * (lane & 3)) =
+              make_float2(dq[n][2 * e2], dq[n][2 * e2 + 1]);
       }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      r[i] = group_sum<8>(r[i]);
-#pragma unroll
-      for (int jj = 0; jj < NS; ++jj)
-        if (8 * jj < kend) {
-          float* e = ds + (row0 + i) * ldp + 8 * jj + kx;
-          *e = p[i][jj] * (*e - r[i]) * scale;
-        }
+      if (part == 0 && (lane & 3) == 0) st_lse[row] = lse[e2], st_rs[row] = rs[e2];
     }
   }
-  __syncthreads();
-  {
-    float dq[4][C::kPer] = {};
-#pragma unroll (NS <= 8 ? 2 : 1)
-    for (int j = 0; j < kend; j += 4) {
-      float s4[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) load_vec<4>(s4[i], ds + (row0 + i) * ldp + j);
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int u = 0; u < C::kRuns; ++u) {
-          float kv[C::kVec];
-          load_vec<C::kVec>(kv, ks + (j + t) * LD + c0 + C::col(u, kx));
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < C::kVec; ++e)
-              dq[i][u * C::kVec + e] = fmaf(s4[i][t], kv[e], dq[i][u * C::kVec + e]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (row0 + i < seq)
-#pragma unroll
-        for (int u = 0; u < C::kRuns; ++u)
-          store_vec<C::kVec>(out + (row0 + i) * stride + C::col(u, kx), dq[i] + u * C::kVec);
-  }
-  __syncthreads();  // every warp is done with k and v
-  if (part == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < NS; ++jj)
-        if (8 * jj < kend) ps[(row0 + i) * ldp + 8 * jj + kx] = p[i][jj];
-  }
-  __syncthreads();
+  __syncthreads();  // every row's statistics are in shared memory
 
-  // pass 2: keys row0 .. row0 + 3 of the tile's 16, over query rows i
-  float dk[4][C::kPer] = {}, dv[4][C::kPer] = {};
-#pragma unroll 4
-  for (int i = causal ? r0 : 0; i < seq; ++i) {
-    float s4[4], p4[4];
-    load_vec<4>(s4, ds + i * ldp + row0);
-    load_vec<4>(p4, ps + i * ldp + row0);
+  // phase B: keys key0 and key0 + 8 of the tile's 16
+  const int key0 = t0 + lane / 4;
+  float dk[NC][4] = {}, dv[NC][4] = {};
+  for (int i0 = causal ? t0 : 0; i0 < KC; i0 += 16) {
+    float s[2][4], ds[2][4];
+    // S^T: (key, query), and dP^T
+    dots2_rows_tf32<D, KC <= 64 ? D / 16 : 1>(s, ds, ks + t0 * LD, vs + t0 * LD, qs + i0 * LD,
+                                               gs + i0 * LD, lane);
+    const bool edge = causal && i0 == t0;  // the tile across the diagonal
 #pragma unroll
-    for (int u = 0; u < C::kRuns; ++u) {
-      float qv[C::kVec], gv[C::kVec];
-      load_vec<C::kVec>(qv, qs + i * LD + c0 + C::col(u, kx));
-      load_vec<C::kVec>(gv, gs + i * LD + c0 + C::col(u, kx));
+    for (int t = 0; t < 2; ++t) {
+      const int q0 = i0 + 8 * t + 2 * (lane & 3);  // queries q0, q0 + 1
+      const float2 lq = *reinterpret_cast<const float2*>(st_lse + q0);
+      const float2 rq = *reinterpret_cast<const float2*>(st_rs + q0);
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < C::kVec; ++e) {
-          dk[t][u * C::kVec + e] = fmaf(s4[t], qv[e], dk[t][u * C::kVec + e]);
-          dv[t][u * C::kVec + e] = fmaf(p4[t], gv[e], dv[t][u * C::kVec + e]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * (e >> 1), q = q0 + (e & 1);
+        const float lv = e & 1 ? lq.y : lq.x, rv = e & 1 ? rq.y : rq.x;
+        const float pv = !edge || key <= q ? ex2(fmaf(s[t][e], scale2, -lv)) : 0.f;
+        ds[t][e] = pv * fmaf(ds[t][e], scale, -rv);
+        s[t][e] = pv;
+      }
     }
+    acc2_times_rows_tf32<D, NC, true>(dv, s[0], s[1], gs + i0 * LD + c0, lane);
+    acc2_times_rows_tf32<D, NC, true>(dk, ds[0], ds[1], qs + i0 * LD + c0, lane);
   }
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
-    if (row0 + t < seq)
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = key0 + 8 * e2;
+    if (row >= seq) continue;
 #pragma unroll
-      for (int u = 0; u < C::kRuns; ++u) {
-        float* row = out + (row0 + t) * stride + C::col(u, kx);
-        store_vec<C::kVec>(row + width, dk[t] + u * C::kVec);
-        store_vec<C::kVec>(row + 2 * width, dv[t] + u * C::kVec);
-      }
+    for (int n = 0; n < NC; ++n) {
+      float* dst = out + row * stride + 8 * n + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(dst + width) = make_float2(dk[n][2 * e2], dk[n][2 * e2 + 1]);
+      *reinterpret_cast<float2*>(dst + 2 * width) = make_float2(dv[n][2 * e2], dv[n][2 * e2 + 1]);
+    }
+  }
 }
 
 // ------------------------------------------------------------ T > 128
@@ -1719,39 +1848,64 @@ cudaError_t launch_tiled(const void* qkv, const void* grad, void* dqkv, float* s
   return cudaGetLastError();
 }
 
+#define MNT_ARGS qkv, grad, dqkv, B, seq, width, heads, scale, causal, s
+// up to kWholeMaxSeq: a block per (row, head), a warp per 16-row tile
 template <int D, int KC>
-cudaError_t launch(const void* qkv, const void* grad, void* dqkv, int B, int seq, int width,
-                   int heads, float scale, int causal, int dtype, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* qkv, const void* grad, void* dqkv, int B, int seq, int width,
+                        int heads, float scale, int causal, cudaStream_t s) {
   cudaError_t e;
-  const int threads = round16(seq) / 16 * 32;  // a warp per 16-row tile
-  if (dtype == 0) {
-    const size_t smem = f32_smem(seq, D);
-    if ((e = set_smem(attention_bwd_f32<D, KC>, smem)) != cudaSuccess) return e;
-    attention_bwd_f32<D, KC><<<B * heads, threads * f32_split(KC, D), smem, stream>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(grad),
-        static_cast<float*>(dqkv), seq, width, heads, scale, causal);
-  } else {
-    const size_t smem = bf16_smem(seq, D);
-    if ((e = set_smem(attention_bwd_bf16<D, KC>, smem)) != cudaSuccess) return e;
-    attention_bwd_bf16<D, KC><<<B * heads, threads, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad), static_cast<bf16*>(dqkv),
-        seq, width, heads, scale, causal);
-  }
+  const size_t smem = bf16_smem(seq, D);
+  if ((e = set_smem(attention_bwd_bf16<D, KC>, smem)) != cudaSuccess) return e;
+  attention_bwd_bf16<D, KC><<<B * heads, round16(seq) / 16 * 32, smem, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad), static_cast<bf16*>(dqkv),
+      seq, width, heads, scale, causal);
   return cudaGetLastError();
+}
+
+template <int D, int KC, int CS>
+cudaError_t launch_f32_cs(const void* qkv, const void* grad, void* dqkv, int B, int seq,
+                          int width, int heads, float scale, int causal, cudaStream_t s) {
+  cudaError_t e;
+  const size_t smem = f32_smem(seq, D);
+  if ((e = set_smem_shared_carveout(attention_bwd_f32<D, KC, CS>, smem)) != cudaSuccess) return e;
+  attention_bwd_f32<D, KC, CS><<<B * heads, 2 * KC * CS, smem, s>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(grad),
+      static_cast<float*>(dqkv), seq, width, heads, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D, int KC>
+cudaError_t launch_f32(const void* qkv, const void* grad, void* dqkv, int B, int seq, int width,
+                       int heads, float scale, int causal, cudaStream_t s) {
+  if (f32_split(KC, B * heads) == 2) return launch_f32_cs<D, KC, KC <= 32 ? 2 : 1>(MNT_ARGS);
+  return launch_f32_cs<D, KC, 1>(MNT_ARGS);
 }
 
 template <int D>
 cudaError_t dispatch_kc(const void* qkv, const void* grad, void* dqkv, int B, int seq,
                         int width, int heads, float scale, int causal, int dtype,
                         cudaStream_t s) {
+  if (dtype == 0) {  // fp32: KC = round16(T)
+    switch (round16(seq)) {
+      case 16: return launch_f32<D, 16>(MNT_ARGS);
+      case 32: return launch_f32<D, 32>(MNT_ARGS);
+      case 48: return launch_f32<D, 48>(MNT_ARGS);
+      case 64: return launch_f32<D, 64>(MNT_ARGS);
+      case 80: return launch_f32<D, 80>(MNT_ARGS);
+      case 96: return launch_f32<D, 96>(MNT_ARGS);
+      case 112: return launch_f32<D, 112>(MNT_ARGS);
+      default: return launch_f32<D, 128>(MNT_ARGS);
+    }
+  }
   switch (key_capacity(round16(seq))) {
-    case 16: return launch<D, 16>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
-    case 32: return launch<D, 32>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
-    case 64: return launch<D, 64>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
-    case 96: return launch<D, 96>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
-    default: return launch<D, 128>(qkv, grad, dqkv, B, seq, width, heads, scale, causal, dtype, s);
+    case 16: return launch_bf16<D, 16>(MNT_ARGS);
+    case 32: return launch_bf16<D, 32>(MNT_ARGS);
+    case 64: return launch_bf16<D, 64>(MNT_ARGS);
+    case 96: return launch_bf16<D, 96>(MNT_ARGS);
+    default: return launch_bf16<D, 128>(MNT_ARGS);
   }
 }
+#undef MNT_ARGS
 
 }  // namespace
 
@@ -1781,13 +1935,14 @@ int mnt_attention_bwd_kernels(int seq, int dtype) {
   return seq > (dtype == 0 ? kWholeMaxSeq : kResidentMaxSeq) ? 2 : 1;
 }
 
-// Warps per block of the kernel (or kernel pair) that takes (seq, head_dim, dtype).
-int mnt_attention_bwd_warps(int seq, int head_dim, int dtype) {
+// Warps per block of the kernel (or kernel pair) that takes (seq, head_dim,
+// dtype) over B * heads = rows_x_heads (batch row, head)s on the current
+// device.
+int mnt_attention_bwd_warps(int seq, int head_dim, int dtype, int rows_x_heads) {
   if (seq > kWholeMaxSeq) {
     return dtype == 1 && seq <= kResidentMaxSeq ? resident_warps(seq) : kTileThreads / 32;
   }
-  const int tp = round16(seq);
-  return tp / 16 * (dtype == 0 ? f32_split(key_capacity(tp), head_dim) : 1);
+  return round16(seq) / 16 * (dtype == 0 ? f32_split(round16(seq), rows_x_heads) : 1);
 }
 
 // Bytes of fp32 workspace a call needs: a pair's row statistics, each

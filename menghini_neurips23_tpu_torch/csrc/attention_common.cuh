@@ -1,8 +1,8 @@
 // Building blocks shared by the attention kernels K1 (attention_fwd.cu) and
 // K2 (attention_bwd.cu): 16-byte cp.async staging, ldmatrix, the bf16
 // m16n8k16 and the TF32 m16n8k8 tensor-core products with fp32
-// accumulators (fp32 as 3xTF32), base-2 exponentials, warp reductions, the
-// fp32 register tiles, and the scaled, masked scores both kernels start from.
+// accumulators (fp32 as 3xTF32), base-2 exponentials, warp reductions, and
+// the scaled, masked scores both kernels start from.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane l, g = l / 4,
 // q = l % 4.  A (16 x 16, row-major) holds rows g and g + 8, columns 2q,
@@ -101,6 +101,19 @@ __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& l
   lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) & 0xffffe000u;
 }
 
+// x = hi + lo in two operations: hi is x cut to TF32 (toward zero) and lo =
+// x - hi exactly, of which the tensor core reads the top bits (it cuts an
+// fp32 operand to TF32, as split_tf32's mask does: empirical on the H100,
+// see split_tf32_uncut in attention_bwd.cu).  hi drops up to one TF32 unit
+// rather than half, so lo and the lo.lo that 3xTF32 leaves out are twice
+// split_tf32's: a product errs by up to ~2^-20 of |a||b| rather than
+// ~2^-21, for half the integer work (tests/test_torch_port_short_fp32.py
+// emulates both).
+__device__ __forceinline__ void split_tf32_trunc(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
 // c += a . b on the tensor cores: TF32 operands, fp32 accumulators.
 // Fragments (PTX ISA, mma.m16n8k8 .tf32): lane l, g = l / 4, q = l % 4;
 // A holds (g, q), (g + 8, q), (g, q + 4), (g + 8, q + 4); B holds (k = q,
@@ -185,64 +198,6 @@ template <int kWidth>
 __device__ __forceinline__ float group_sum(float v) {
   for (int o = 1; o < kWidth; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// fp32 register tiles: lane (ry = lane / 8, kx = lane % 8) owns D / 8
-// columns of a row, in runs of kVec: col(u, t) = u * 8 * kVec + kx * kVec + t,
-// so the 8 lanes of a row read 8 * kVec neighbouring floats.
-template <int D>
-struct Cols {
-  static constexpr int kPer = D / 8;
-  static constexpr int kVec = kPer < 4 ? kPer : 4;
-  static constexpr int kRuns = kPer / kVec;
-  __device__ __forceinline__ static int col(int u, int kx) { return u * 8 * kVec + kx * kVec; }
-};
-
-template <int kVec>
-__device__ __forceinline__ void load_vec(float* dst, const float* src) {
-  if constexpr (kVec == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src);
-    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
-  } else {
-    const float2 v = *reinterpret_cast<const float2*>(src);
-    dst[0] = v.x, dst[1] = v.y;
-  }
-}
-
-template <int kVec>
-__device__ __forceinline__ void store_vec(float* dst, const float* src) {
-  if constexpr (kVec == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
-  } else {
-    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
-  }
-}
-
-// the same for bf16 rows (8 or 4 bytes), converted to and from fp32; a
-// store rounds to nearest even
-template <int kVec>
-__device__ __forceinline__ void load_vec(float* dst, const __nv_bfloat16* src) {
-  if constexpr (kVec == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(src);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    dst[0] = a.x, dst[1] = a.y, dst[2] = b.x, dst[3] = b.y;
-  } else {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
-    dst[0] = a.x, dst[1] = a.y;
-  }
-}
-
-template <int kVec>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* src) {
-  if constexpr (kVec == 4) {
-    uint2 u;
-    u.x = pack_bf16(src[0], src[1]);
-    u.y = pack_bf16(src[2], src[3]);
-    *reinterpret_cast<uint2*>(dst) = u;
-  } else {
-    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(src[0], src[1]);
-  }
 }
 
 __host__ __device__ constexpr int round16(int t) { return (t + 15) / 16 * 16; }
@@ -348,46 +303,54 @@ __device__ __forceinline__ void scores_tf32(float (&s)[KC / 8][4], const float* 
     for (int e = 0; e < 4; ++e) s[n][e] *= scale;  // -inf stays -inf
 }
 
-// Scores of lane (ry, kx)'s rows r0 + 4ry + i against keys c0 + kx + 8jj
-// (those below kend), scaled and masked; the rest is -inf.  qw holds the
-// warp's 16 rows, ks the keys from ks0 on.
-template <int D, int KC>
-__device__ __forceinline__ void scores_f32(float (&s)[4][KC / 8], const float* qw, const float* ks,
-                                           int c0, int kend, int seq, int r0, bool causal,
-                                           float scale, int ry, int kx, int ks0 = 0) {
-  constexpr int LD = D + 4, NS = KC / 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NS; ++jj) s[i][jj] = 0.f;
-  // short rows: overlap the loads of several steps
-#pragma unroll (NS <= 8 ? 4 : 1)
-  for (int d = 0; d < D; d += 4) {
-    float q[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) load_vec<4>(q[i], qw + (4 * ry + i) * LD + d);
-#pragma unroll
-    for (int jj = 0; jj < NS; ++jj) {
-      if (c0 + 8 * jj < kend) {
-        float k[4];
-        load_vec<4>(k, ks + (c0 - ks0 + 8 * jj + kx) * LD + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int t = 0; t < 4; ++t) s[i][jj] = fmaf(q[i][t], k[t], s[i][jj]);
-      }
+// c += A . B, 3xTF32, over two k-steps of 8: A straight from the
+// accumulator tiles a0 and a1 of the warp's 16 rows against 16 columns (P,
+// dS or their transposes), each tile's columns 2q, 2q + 1 taken as the
+// fragment's k = q, q + 4, which is what the accumulator layout holds; B the
+// 16 fp32 rows at b (D + 4 floats a row) in that order (rows 2q, 2q + 1,
+// then 8 + 2q, 9 + 2q), columns 8n + g.  The six products of the two
+// k-steps are summed in a zeroed tile and then added to c in fp32 (the
+// tensor cores' adders truncate).  NC of the row's 8-column groups, from
+// b's first column on (all D / 8 by default); operands split by split_tf32,
+// or with kTrunc by split_tf32_trunc.  The column reads are free of bank
+// conflicts (D + 4 = 4 mod 32 floats, or 20 at D = 16).
+template <int D, int NC = D / 8, bool kTrunc = false>
+__device__ __forceinline__ void acc2_times_rows_tf32(float (&c)[NC][4], const float (&a0)[4],
+                                                     const float (&a1)[4], const float* b,
+                                                     int lane) {
+  auto split = [](uint32_t x, uint32_t& hi, uint32_t& lo) {
+    if constexpr (kTrunc) {
+      split_tf32_trunc(x, hi, lo);
+    } else {
+      split_tf32(x, hi, lo);
     }
+  };
+  constexpr int LD = D + 4;
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const float(&a)[4] = u ? a1 : a0;
+    const uint32_t x[4] = {__float_as_uint(a[0]), __float_as_uint(a[2]), __float_as_uint(a[1]),
+                           __float_as_uint(a[3])};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(x[e], ah[u][e], al[u][e]);
   }
+  const float* r = b + 2 * (lane & 3) * LD + lane / 4;
 #pragma unroll
-  for (int jj = 0; jj < NS; ++jj) {
-    const int n0 = c0 + 8 * jj;
-    const bool edge = n0 + 8 > seq || (causal && n0 + 7 > r0);
+  for (int n = 0; n < NC; ++n) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = n0 + kx, row = r0 + 4 * ry + i;
-      const bool valid = n0 < kend && (!edge || (col < seq && (!causal || col <= row)));
-      s[i][jj] = valid ? s[i][jj] * scale : -INFINITY;
+    for (int u = 0; u < 2; ++u) {
+      const float* rk = r + 8 * u * LD + 8 * n;
+      uint32_t bh0, bl0, bh1, bl1;
+      split(__float_as_uint(rk[0]), bh0, bl0);
+      split(__float_as_uint(rk[LD]), bh1, bl1);
+      mma_tf32(t, al[u], bh0, bh1);
+      mma_tf32(t, ah[u], bl0, bl1);
+      mma_tf32(t, ah[u], bh0, bh1);
     }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] += t[e];
   }
 }
 

@@ -21,10 +21,12 @@
 // would become the limit.  What the design has to avoid is
 // paying more than the bytes: scalar 2-byte staging, fp32 conversions, two
 // shared-memory loads per FMA, loads that wait on nothing to overlap.
-// fp32: operations.  An fp32-accurate product on the tensor cores is three
-// TF32 products (3xTF32, below), so the least time is 3 x FLOPs at the TF32
-// rate (494 TFLOP/s), which is under FLOPs at the FMA rate (67 TFLOP/s);
-// PyTorch's own fp32 attention takes the same route.
+// fp32: an fp32-accurate product on the tensor cores is three TF32
+// products (3xTF32, below), so the least time for the operations is 3 x
+// FLOPs at the TF32 rate (494 TFLOP/s), under FLOPs at the FMA rate (67
+// TFLOP/s); PyTorch's own fp32 attention takes the same route.  That keeps
+// fp32 up to 128 tokens bound by memory (ViT-B/32 vision: 0.047 ms of bytes
+// against 0.012 of 3xTF32 operations at B = 256) and past it by operations.
 //
 // Design up to 128 keys (CLIP's text tower, ViT-B/32's vision tower), one
 // block per (batch row, head), reading the fused layout in place (no
@@ -32,24 +34,34 @@
 // - staging: q and k rows, then v rows in a second group that lands while
 //   the scores run, go to shared memory with 16-byte cp.async copies; rows
 //   past T are zero-filled; rows are padded (D + 8 bf16, D + 4 floats) so
-//   that ldmatrix and float4 reads are free of bank conflicts;
-// - the key capacity KC (16, 32, 64, 96 or 128, the smallest holding T) is a
-//   template parameter: score tiles and unrolled loops are sized by it, so
-//   short text sequences and the 50-token vision tower carry no empty slots
-//   and keep few enough registers for several blocks per SM;
-// - the scores are computed once and kept in registers, and exp(s - m) is
-//   taken once (the kernels keep the loop over 128-key chunks, with its
-//   rescaled row statistics, from when they also took longer rows: up to
-//   128 keys it runs once, and the kernels compile to what they were);
+//   that ldmatrix and the column reads of V are free of bank conflicts;
+// - the key capacity KC is a template parameter: score tiles and unrolled
+//   loops are sized by it, so short text sequences and the 50-token vision
+//   tower keep few enough registers for several blocks per SM; bf16 takes
+//   the smallest of 16, 32, 64, 96 and 128 that holds T, fp32 round16(T)
+//   itself (T = 66 computes 80 keys, not 96), and the work stops at the
+//   tile's diagonal when causal;
+// - the scores are computed once and kept in registers, and the
+//   exponential of each is taken once (the bf16 kernel keeps the loop over
+//   128-key chunks, with its rescaled row statistics, from when it also
+//   took longer rows: up to 128 keys it runs once);
 // - bf16, on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
 //   accumulators): each warp's S = Q.K^T for up to 128 keys stays in
 //   registers (16 x 128 fp32 across the warp), the row max and sum are quad
 //   shuffles, and P = exp(s - m) * (1/l) is rounded to bf16 straight into
 //   the A fragments of P.V;
-// - fp32, full-fp32 FFMA register tiles: lane (ry, kx) owns a 4-row x
-//   KC/8-key tile of S and a 4-row x D/8 tile of O, each shared-memory
-//   float4 feeding 4-16 FMAs; the rounded P of the warp's rows goes through
-//   shared memory once;
+// - fp32, on the tensor cores as 3xTF32 (mma.sync m16n8k8, split_tf32 and
+//   mma_3xtf32 in attention_common.cuh, as the streamed form): the warp's S
+//   stays in the accumulators, in base 2 (D^-0.5 * log2(e) folded into the
+//   scale, one ex2 a score), and P = 2^(s - m) * (1/l), normalised in fp32,
+//   goes from there into the A fragments of P.V (the keys 2q, 2q + 1 of a
+//   tile as the fragment's k = q, q + 4, V's rows read in that order), so
+//   no P touches shared memory.  Register tiles on the FMA units, each
+//   shared-memory float4 feeding 4-16 FMAs and a P tile of 16 x (KC + 4)
+//   floats a warp (97 KB a block at T = 66), would be bound by the FMA
+//   rate and by residency; this block takes K, V and its q rows, 3 x
+//   round16(T) x (D + 4) floats (52 KB at T = 50, 65 KB at T = 66-80), for
+//   four and three blocks an SM;
 // - causal rows skip whole 16-key tiles above the diagonal and mask inside
 //   the diagonal tile (and the tile holding T); masked and padded keys give
 //   P = 0 exactly.
@@ -126,9 +138,14 @@ int resident_max_seq(int dtype) { return dtype == 0 ? kShortMaxSeq : kResidentMa
 size_t bf16_smem(int seq, int D) {
   return (size_t)3 * round16(seq) * (D + 8) * sizeof(bf16);
 }
-size_t f32_smem(int seq, int D) {
-  const int tp = round16(seq);
-  return (2 * (size_t)tp * (D + 4) + (size_t)tp * (D + 4 + key_capacity(tp) + 4)) * sizeof(float);
+// fp32: K, V and the warps' q rows, round16(T) rows each
+size_t f32_smem(int seq, int D) { return (size_t)3 * round16(seq) * (D + 4) * sizeof(float); }
+
+// fp32 blocks an SM for KC = round16(T) keys (a warp per 16 of them): as
+// many as shared memory holds at D = 64 (3 x KC x 68 floats a block), at
+// most 8; __launch_bounds__ then keeps the registers within them
+__host__ __device__ constexpr int f32_blocks(int KC) {
+  return KC <= 32 ? 8 : KC <= 48 ? 5 : KC <= 64 ? 4 : KC <= 80 ? 3 : 2;
 }
 
 // bf16, kShortMaxSeq < T <= kResidentMaxSeq: keys a sweep-1 step (and a
@@ -296,26 +313,34 @@ attention_fwd_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ out, int seq
 
 // ------------------------------------------------------------------ fp32
 
+// fp32, T <= kShortMaxSeq.  Block (batch row, head), a warp per 16-row
+// query tile, every product as 3xTF32 on mma.sync m16n8k8.  KC is
+// round16(T) itself, so that the registers and the block are sized to the
+// sequence (f32_blocks blocks an SM).  One sweep: the warp's scores against the keys its rows
+// see (kend: KC, or the tile's diagonal when causal) stay in the
+// accumulators, scaled by D^-0.5 * log2(e), so that P = 2^(s - m) * (1 / l)
+// is formed there in fp32 with one MUFU operation a score and goes straight
+// into the A fragments of P.V (acc2_times_rows_tf32).  Shared memory: the
+// head's K and V and each warp's 16 q rows, D + 4 floats a row; q and K
+// land first, V in a second group while the scores run.
 template <int D, int KC>
-__global__ void __launch_bounds__(2 * KC, KC <= 64 ? 192 / KC : 1)
+__global__ void __launch_bounds__(2 * KC, f32_blocks(KC))
 attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int seq, int width,
                   int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  using C = Cols<D>;
-  constexpr int LD = D + 4, LDP = KC + 4, NS = KC / 8;
+  constexpr int LD = D + 4;
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
   const int tp = round16(seq);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   float* ks = reinterpret_cast<float*>(smem_raw);
   float* vs = ks + tp * LD;
-  float* qw = vs + tp * LD + warp * 16 * (LD + LDP);  // this warp's q rows, then its P
-  float* pw = qw + 16 * LD;
+  float* qw = vs + tp * LD + warp * 16 * LD;  // this warp's q rows
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
-  const int r0 = 16 * (nwarps * blockIdx.y + warp);
-  const bool active = r0 < tp;
-  if (active) stage_rows<float, D>(qw, LD, base + r0 * stride, stride, seq - r0, 16, lane, 32);
+  const int r0 = 16 * warp;  // < T: the block has round16(T) / 16 warps
+  stage_rows<float, D>(qw, LD, base + r0 * stride, stride, seq - r0, 16, lane, 32);
   stage_rows<float, D>(ks, LD, base + width, stride, seq, tp, tid, blockDim.x);
   cp_async_commit();
   stage_rows<float, D>(vs, LD, base + 2 * width, stride, seq, tp, tid, blockDim.x);
@@ -323,88 +348,56 @@ attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int se
   cp_async_wait<1>();
   __syncthreads();
 
-  const int ry = lane / 8, kx = lane % 8;
-  const int kend = causal ? min(tp, r0 + 16) : tp;
-  const int nch = KC < 128 ? 1 : (kend + KC - 1) / KC;  // below 128 keys, KC holds them all
-  float s[4][NS];
-  float m[4], inv_l[4];
-  if (active) {
-    float l[4];
+  const int kend = causal ? r0 + 16 : tp;  // the keys this warp's rows see
+  float s[KC / 8][4];
+  scores_tf32<D, KC>(s, qw, ks, 0, kend, seq, r0, causal, scale2, lane);
+  // each row's max m (key 0 is among its keys: m is finite) and 1 / l,
+  // reduced over the row's quad; s becomes 2^(s - m)
+  float inv_l[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
-    for (int c = 0; c < nch; ++c) {
-      scores_f32<D, KC>(s, qw, ks, c * KC, kend, seq, r0, causal, scale, ry, kx);
+  for (int r = 0; r < 2; ++r) {
+    float m = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float cm = -INFINITY;
+    for (int n = 0; n < KC / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+    m = group_max<4>(m);
+    float l = 0.f;
 #pragma unroll
-        for (int jj = 0; jj < NS; ++jj) cm = fmaxf(cm, s[i][jj]);
-        const float mn = fmaxf(m[i], group_max<8>(cm));
-        float sum = 0.f;
+    for (int n = 0; n < KC / 8; ++n) {
+      if (8 * n >= kend) break;
 #pragma unroll
-        for (int jj = 0; jj < NS; ++jj) {
-          const float ex = expf(s[i][jj] - mn);
-          sum += ex;
-          if (nch == 1) s[i][jj] = ex;
-        }
-        l[i] = l[i] * expf(m[i] - mn) + group_sum<8>(sum);
-        m[i] = mn;
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[n][e] = ex2(s[n][e] - m);
+        l += s[n][e];
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) inv_l[i] = 1.f / l[i];
+    inv_l[r] = 1.f / group_sum<4>(l);
   }
   cp_async_wait<0>();
-  __syncthreads();
-  if (!active) return;
+  __syncthreads();  // V
 
-  float o[4][C::kPer] = {};
-  for (int c = 0; c < nch; ++c) {
-    const int c0 = c * KC;
-    if (nch > 1) {
-      scores_f32<D, KC>(s, qw, ks, c0, kend, seq, r0, causal, scale, ry, kx);
+  // P = 2^(s - m) / l in fp32, then O += P . V 16 keys at a time
+  float o[D / 8][4] = {};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < KC / 16; ++j) {
+    if (16 * j >= kend) break;
+    float p[2][4];
 #pragma unroll
-        for (int jj = 0; jj < NS; ++jj) s[i][jj] = expf(s[i][jj] - m[i]);
-    }
-    // P of the warp's rows, once per chunk, for every lane of the row
+    for (int t = 0; t < 2; ++t)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < NS; ++jj) pw[(4 * ry + i) * LDP + 8 * jj + kx] = s[i][jj] * inv_l[i];
-    __syncwarp();
-    const int n = min(KC, kend - c0);
-#pragma unroll (NS <= 8 ? 4 : 1)
-    for (int j = 0; j < n; j += 4) {
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) load_vec<4>(p[i], pw + (4 * ry + i) * LDP + j);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float* vrow = vs + (c0 + j + t) * LD;
-#pragma unroll
-        for (int u = 0; u < C::kRuns; ++u) {
-          float v[C::kVec];
-          load_vec<C::kVec>(v, vrow + C::col(u, kx));
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < C::kVec; ++e)
-              o[i][u * C::kVec + e] = fmaf(p[i][t], v[e], o[i][u * C::kVec + e]);
-        }
-      }
-    }
-    __syncwarp();
+      for (int e = 0; e < 4; ++e) p[t][e] = s[2 * j + t][e] * inv_l[e >> 1];
+    acc2_times_rows_tf32<D>(o, p[0], p[1], vs + 16 * j * LD, lane);
   }
   float* out_b = out + (size_t)b * seq * width + h * D;
-  const int row0 = r0 + 4 * ry;
+  const int row0 = r0 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (row0 + i < seq)
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * (lane & 3);
 #pragma unroll
-      for (int u = 0; u < C::kRuns; ++u)
-        store_vec<C::kVec>(out_b + (size_t)(row0 + i) * width + C::col(u, kx), o[i] + u * C::kVec);
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < seq)
+        *reinterpret_cast<float2*>(out_b + (size_t)(row0 + 8 * r) * width + col) =
+            make_float2(o[n][2 * r], o[n][2 * r + 1]);
+  }
 }
 
 // ------------------------------------------------------------ resident
@@ -717,24 +710,33 @@ cudaError_t launch_streamed(const void* qkv, void* out, int B, int seq, int widt
   return cudaGetLastError();
 }
 
+// up to kShortMaxSeq: a block per (row, head), a warp per 16-row tile
 template <int D, int KC>
-cudaError_t launch(const void* qkv, void* out, int B, int seq, int width, int heads,
-                   float scale, int causal, int dtype, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* qkv, void* out, int B, int seq, int width, int heads,
+                        float scale, int causal, cudaStream_t stream) {
   cudaError_t e;
-  const dim3 grid(B * heads), block(2 * round16(seq));
-  if (dtype == 0) {
-    const size_t smem = f32_smem(seq, D);
-    if ((e = set_smem(attention_fwd_f32<D, KC>, smem)) != cudaSuccess) return e;
-    attention_fwd_f32<D, KC><<<grid, block, smem, stream>>>(
-        static_cast<const float*>(qkv), static_cast<float*>(out), seq, width, heads, scale,
-        causal);
-  } else {
-    const size_t smem = bf16_smem(seq, D);
-    if ((e = set_smem(attention_fwd_bf16<D, KC>, smem)) != cudaSuccess) return e;
-    attention_fwd_bf16<D, KC><<<grid, block, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), seq, width, heads, scale,
-        causal);
+  const size_t smem = bf16_smem(seq, D);
+  if ((e = set_smem(attention_fwd_bf16<D, KC>, smem)) != cudaSuccess) return e;
+  attention_fwd_bf16<D, KC><<<B * heads, 2 * round16(seq), smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), seq, width, heads, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D, int KC>
+cudaError_t launch_f32(const void* qkv, void* out, int B, int seq, int width, int heads,
+                       float scale, int causal, cudaStream_t stream) {
+  cudaError_t e;
+  const size_t smem = f32_smem(seq, D);
+  if ((e = set_smem(attention_fwd_f32<D, KC>, smem)) != cudaSuccess) return e;
+  // several blocks an SM only with the largest carveout
+  if ((e = cudaFuncSetAttribute(attention_fwd_f32<D, KC>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared)) != cudaSuccess) {
+    return e;
   }
+  attention_fwd_f32<D, KC><<<B * heads, 2 * KC, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), seq, width, heads, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -772,13 +774,27 @@ cudaError_t dispatch_kc(const void* qkv, void* out, int B, int seq, int width, i
   if (seq > kShortMaxSeq) {
     return launch_resident<D>(qkv, out, B, seq, width, heads, scale, causal, stream);
   }
-  switch (key_capacity(round16(seq))) {
-    case 16: return launch<D, 16>(qkv, out, B, seq, width, heads, scale, causal, dtype, stream);
-    case 32: return launch<D, 32>(qkv, out, B, seq, width, heads, scale, causal, dtype, stream);
-    case 64: return launch<D, 64>(qkv, out, B, seq, width, heads, scale, causal, dtype, stream);
-    case 96: return launch<D, 96>(qkv, out, B, seq, width, heads, scale, causal, dtype, stream);
-    default: return launch<D, 128>(qkv, out, B, seq, width, heads, scale, causal, dtype, stream);
+#define MNT_ARGS qkv, out, B, seq, width, heads, scale, causal, stream
+  if (dtype == 0) {  // fp32: KC = round16(T)
+    switch (round16(seq)) {
+      case 16: return launch_f32<D, 16>(MNT_ARGS);
+      case 32: return launch_f32<D, 32>(MNT_ARGS);
+      case 48: return launch_f32<D, 48>(MNT_ARGS);
+      case 64: return launch_f32<D, 64>(MNT_ARGS);
+      case 80: return launch_f32<D, 80>(MNT_ARGS);
+      case 96: return launch_f32<D, 96>(MNT_ARGS);
+      case 112: return launch_f32<D, 112>(MNT_ARGS);
+      default: return launch_f32<D, 128>(MNT_ARGS);
+    }
   }
+  switch (key_capacity(round16(seq))) {
+    case 16: return launch_bf16<D, 16>(MNT_ARGS);
+    case 32: return launch_bf16<D, 32>(MNT_ARGS);
+    case 64: return launch_bf16<D, 64>(MNT_ARGS);
+    case 96: return launch_bf16<D, 96>(MNT_ARGS);
+    default: return launch_bf16<D, 128>(MNT_ARGS);
+  }
+#undef MNT_ARGS
 }
 
 }  // namespace

@@ -71,7 +71,7 @@ _BWD_SIGNATURES = {
     "mnt_attention_bwd_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_size_t),
     "mnt_attention_bwd_resident_max_seq": ([], ctypes.c_int),
     "mnt_attention_bwd_kernels": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
-    "mnt_attention_bwd_warps": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "mnt_attention_bwd_warps": ([ctypes.c_int] * 4, ctypes.c_int),
     "mnt_attention_bwd_workspace": (
         [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_size_t
     ),
@@ -191,6 +191,8 @@ def _forward(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch.Tensor
         fused_attention.streamed_launches += 1
     elif T > _FWD_SHORT_MAX_SEQ:
         fused_attention.resident_launches += 1
+    elif qkv.dtype == torch.float32:
+        fused_attention.f32_short_launches += 1
     return out
 
 
@@ -208,7 +210,8 @@ def attention_bwd(
     counts in `attention_bwd.launches`; a pair's also in
     `attention_bwd.tf32_launches` (fp32: the 3xTF32 pair) or
     `attention_bwd.streamed_launches` (bf16), so that a call's kernels are
-    the three counts' sum."""
+    the three counts' sum; an fp32 call up to 128 tokens (its 3xTF32
+    kernel) also in `attention_bwd.f32_short_launches`."""
     _check_mask(mask)
     if qkv.device != g.device:
         raise ValueError(f"attention_bwd: qkv on {qkv.device}, g on {g.device}")
@@ -246,12 +249,16 @@ def attention_bwd(
             attention_bwd.tf32_launches += 1
         else:
             attention_bwd.streamed_launches += 1
+    elif qkv.dtype == torch.float32:
+        attention_bwd.f32_short_launches += 1
     return dqkv
 
 
 # calls, and of those the ones that take a pair of kernels: bf16's streamed
-# pair (above 320 tokens) and the fp32 pair (above 128), apart
+# pair (above 320 tokens) and the fp32 pair (above 128), apart; and fp32's
+# one kernel up to 128 tokens
 attention_bwd.launches = attention_bwd.streamed_launches = attention_bwd.tf32_launches = 0
+attention_bwd.f32_short_launches = 0
 
 
 class FusedAttention(torch.autograd.Function):
@@ -277,8 +284,9 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch
     CPU tensors take `attention_reference`; CUDA tensors launch the kernel
     (counted in `fused_attention.launches`; where it streams K and V - bf16
     above 320 tokens, fp32 above 128 - in `fused_attention.streamed_launches`
-    too, and where bf16 holds them resident above 128 tokens in
-    `fused_attention.resident_launches`) or raise.  A qkv that requires
+    too, where bf16 holds them resident above 128 tokens in
+    `fused_attention.resident_launches`, and fp32 up to 128 tokens in
+    `fused_attention.f32_short_launches`) or raise.  A qkv that requires
     grad goes through `FusedAttention`, whose backward is `attention_bwd`."""
     _check_mask(mask)
     if qkv.requires_grad and torch.is_grad_enabled():
@@ -287,4 +295,4 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[str], heads: int) -> torch
 
 
 fused_attention.launches = fused_attention.streamed_launches = 0
-fused_attention.resident_launches = 0
+fused_attention.resident_launches = fused_attention.f32_short_launches = 0

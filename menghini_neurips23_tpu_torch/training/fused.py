@@ -35,8 +35,8 @@ reach, the same two functions run eagerly: they are the plain version of the
 captured program.  A failed capture raises.
 
 Launch counts: `fused_attention.launches` and `attention_bwd.launches` (and
-their `streamed_launches`, K1's `resident_launches` and K2's
-`tf32_launches`) count in Python,
+their `streamed_launches` and `f32_short_launches`, K1's
+`resident_launches` and K2's `tf32_launches`) count in Python,
 which a replay never passes through.  Capturing undoes what the
 capture added and keeps it as the per-replay count; `run` adds captured x
 replays after each replay loop.
@@ -74,12 +74,13 @@ from menghini_neurips23_tpu_torch.training.losses import masked_mean, two_group_
 
 # (wrapper, counter): K1, K2, their streamed launches, the step's
 # all-reduces in a process group (every group's), of those the model
-# group's, K1's resident bf16 launches (129 to 320 tokens) and K2's fp32
-# pair's (above 128 tokens)
+# group's, K1's resident bf16 launches (129 to 320 tokens), K2's fp32
+# pair's (above 128 tokens), and K1's and K2's fp32 launches up to 128
 _COUNTERS = ((fused_attention, "launches"), (attention_bwd, "launches"),
              (fused_attention, "streamed_launches"), (attention_bwd, "streamed_launches"),
              (multihost.all_reduce_sum_, "calls"), (tensor.model_all_reduce_, "calls"),
-             (fused_attention, "resident_launches"), (attention_bwd, "tf32_launches"))
+             (fused_attention, "resident_launches"), (attention_bwd, "tf32_launches"),
+             (fused_attention, "f32_short_launches"), (attention_bwd, "f32_short_launches"))
 _WARMUP = 2  # side-stream iterations before capture (PyTorch's advice: a few)
 
 Tree = Dict[str, torch.Tensor]

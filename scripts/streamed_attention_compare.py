@@ -45,12 +45,25 @@ output's bits.  Then the tree's `scripts/exp_attn_kernels.py` `twophase
 fwd`, `ship fwd` and `sdpa fwd` at its default shape, one process each
 (us/rep).
 
+With --short-fp32, K1 and K2 alone in fp32 up to 128 tokens: at every
+length of the smoke's phase 3 up to 128 (SHORT_FWD_SHAPES, SHORT_BWD_SHAPES
+and the ViT-L/14 text tower's shard at 6 heads) beside their plain versions
+and SDPA (forward; forward + backward through autograd), with the bound,
+the bound share, the error against the plain version and a digest of the
+output's bits, and at guard shapes that should not move (bf16 up to 128
+tokens, fp32 at 273), each with its digest; then three fp32 ViT-B/32 runs,
+each with the device busy ms and K1's and K2's ms inside it: the CoOp step
+over 102 classes at the text tower's full length (C x 77, TEXT_TRUNCATE
+off) and the VPT step with a 16-token prompt (T = 66), each in the per-step
+loop and in the whole-run trainer (10 epochs of 10 steps over the smoke's
+synthetic images), and the device encode of a 256-image batch (T = 50).
+
 Prints the card's `nvidia-smi` line, then one JSON line, which names every
 K1 (or K2, or K4) entry point's registers and spill stores as ptxas reports
 them.
 
     python3 scripts/streamed_attention_compare.py [ROOT] [--label NAME] [--reps N]
-        [--resident | --k2-fp32 | --twophase]
+        [--resident | --k2-fp32 | --twophase | --short-fp32]
 
 To compare with a parent commit: unpack it into a directory that .gitignore
 lists (`git archive <parent> | tar -x -C build/parent`) and run parent,
@@ -85,6 +98,14 @@ GUARD_SHAPES = [(256, 50, 768, 12, None), (102, 77, 512, 8, "causal"),
 # 102 classes, ViT-B/32 vision), bf16 resident (273) and streamed (337)
 K2_GUARD_SHAPES = [("float32", (102, 77, 512, 8, "causal")), ("float32", (256, 50, 768, 12, None)),
                    ("bfloat16", (16, 273, 1024, 16, None)), ("bfloat16", (16, 337, 1024, 16, None))]
+
+
+# K1 and K2 where --short-fp32 should not move them: bf16 up to 128 tokens
+# (ViT-B/32 vision, the full text tower over 102 classes) and fp32 above
+# 128 (ViT-L/14 with a 16-token VPT prompt)
+SHORT_GUARD_SHAPES = [("bfloat16", (256, 50, 768, 12, None)),
+                      ("bfloat16", (102, 77, 512, 8, "causal")),
+                      ("float32", (16, 273, 1024, 16, None))]
 
 
 def smoke_helpers():
@@ -228,6 +249,64 @@ def k2_fp32_cases(torch, smoke, reps: int):
     return cases
 
 
+def short_fp32_cases(torch, smoke, reps: int):
+    """K1 and K2 fp32 up to 128 tokens at the smoke's phase-3 shapes, then
+    SHORT_GUARD_SHAPES, each with the error against its plain version and a
+    digest of its output's bits."""
+    import torch.nn.functional as F
+
+    from menghini_neurips23_tpu_torch.ops.attention import (
+        attention_bwd,
+        attention_bwd_reference,
+        attention_reference,
+        fused_attention,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shard = [sh[:5] for sh in smoke.SHARD_SHAPES if sh[1] <= 128]
+    fwd = smoke.SHORT_FWD_SHAPES + shard
+    bwd = smoke.SHORT_BWD_SHAPES + shard
+    runs = ([("float32", sh, "k1", False) for sh in fwd]
+            + [("float32", sh, "k2", False) for sh in bwd]
+            + [(d, sh, k, True) for d, sh in SHORT_GUARD_SHAPES for k in ("k1", "k2")])
+    cases = []
+    for dname, (B, T, W, H, mask), kernel, guard in runs:
+        D = W // H
+        dt = getattr(torch, dname)
+        causal = mask == "causal"
+        pairs = T * (T + 1) // 2 if causal else T * T
+        size = 4 if dt == torch.float32 else 2
+        qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
+        heads = [t.detach().contiguous().requires_grad_(True)
+                 for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4)]
+        if kernel == "k1":
+            run = lambda: fused_attention(qkv, mask, H)  # noqa: E731
+            plain = lambda: attention_reference(qkv, mask, H)  # noqa: E731
+            sdpa = lambda: F.scaled_dot_product_attention(*heads, is_causal=causal)  # noqa: E731
+            bound = smoke.bound(B * T * 4 * W * size, 4 * B * H * D * pairs, dname)
+        else:
+            grad = torch.randn(B, T, W, generator=g, device="cuda").to(dt)
+            g_heads = grad.view(B, T, H, D).transpose(1, 2).contiguous()
+            run = lambda: attention_bwd(qkv, grad, mask, H)  # noqa: E731
+            plain = lambda: attention_bwd_reference(qkv, grad, mask, H)  # noqa: E731
+            sdpa = lambda: torch.autograd.grad(  # noqa: E731
+                F.scaled_dot_product_attention(*heads, is_causal=causal), heads, g_heads)
+            bound = smoke.bound(B * T * 7 * W * size, 10 * B * H * D * pairs, dname)
+        out, ref = run(), plain().float()
+        diff = (out.float() - ref).abs()
+        ms = smoke.device_ms(torch, run, reps)
+        case = {"kernel": kernel, "shape": [B, T, W, H], "mask": mask, "dtype": dname,
+                "guard": guard, "ms": ms, "plain_ms": smoke.device_ms(torch, plain, reps),
+                "sdpa_ms": smoke.device_ms(torch, sdpa, reps), "bound_ms": bound[0],
+                "bound_by": bound[1], "share": bound[0] / ms, "digest": digest(torch, out),
+                "max_abs_err": diff.max().item(),
+                "rel_excess": (diff - smoke.ATTN_TOL[dname] * ref.abs()).max().item()}
+        print("  " + json.dumps(case), flush=True)
+        cases.append(case)
+        del qkv, heads, out, ref, diff
+    return cases
+
+
 def digest(torch, t) -> str:
     return hashlib.sha1(t.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
@@ -334,19 +413,23 @@ def experiment(root: str):
     return res
 
 
-def vit_l14_runtime(torch, prefix: int, dtype: str = "bfloat16"):
+def vit_l14_runtime(torch, prefix: int, dtype: str = "bfloat16", encoder: str = "ViT-L/14",
+                    model: str = "visual_fpl", **extra):
+    """(config, runtime) of `model` at `encoder` in `dtype` (ViT-L/14 VPT by
+    default) with random weights."""
     from menghini_neurips23_tpu_torch.config import Config
     from menghini_neurips23_tpu_torch.runtime import ClipRuntime
 
-    cfg = Config(VIS_ENCODER="ViT-L/14", MODEL="visual_fpl", COMPUTE_DTYPE=dtype,
-                 BATCH_SIZE=16, OPTIM_SEED=1, PREFIX_SIZE=prefix)
+    cfg = Config(VIS_ENCODER=encoder, MODEL=model, COMPUTE_DTYPE=dtype,
+                 BATCH_SIZE=16, OPTIM_SEED=1, PREFIX_SIZE=prefix, **extra)
     return cfg, ClipRuntime(cfg, device="cuda")
 
 
-def vit_l14_encode(torch, smoke, rt, n: int = 5):
-    """The device encode of one 256-image bf16 batch by ViT-L/14's vision
-    tower (T = 257): ms a batch on CUDA events (eager), and under
-    torch.profiler the device busy ms and K1's ms a batch."""
+def encode_256(torch, smoke, rt, n: int = 5):
+    """The device encode of one 256-image batch by the runtime's vision
+    tower (ViT-L/14: T = 257; ViT-B/32: T = 50) in its type: ms a batch on
+    CUDA events (eager), and under torch.profiler the device busy ms and
+    K1's ms a batch."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -359,7 +442,8 @@ def vit_l14_encode(torch, smoke, rt, n: int = 5):
                 rt._encode_images(batch)
             torch.cuda.synchronize()
     kernels, ops, _ = smoke.profiled_kernels(prof, n)
-    return {"encoder": rt.arch.name, "batch": 256, "T": 1 + rt.arch.num_patches,
+    return {"encoder": rt.arch.name, "dtype": rt.cfg.COMPUTE_DTYPE, "batch": 256,
+            "T": 1 + rt.arch.num_patches,
             "encode_ms": ms, "device_busy_ms": sum(kernels.values()), "device_ops": ops,
             "k1_ms": sum(v for k, v in kernels.items() if "attention_fwd" in k)}
 
@@ -378,13 +462,24 @@ def vpt_strategy(torch, runtime, prefix: int):
     return strat
 
 
-def vpt_whole_run(torch, smoke, runtime, prefix: int, epochs: int = 3):
-    """The whole-run trainer of a VPT strategy on `runtime` over 160 of the
-    smoke's synthetic images (10 batches of 16) for `epochs` epochs,
-    validating on 32 more: three runs on the same graphs, the first
+def coop_strategy(torch, runtime, n_classes: int = 102):
+    """A CoOp strategy over `n_classes` classes on `runtime` (its prefix
+    drawn from OPTIM_SEED)."""
+    from menghini_neurips23_tpu_torch.training import TextualStrategy
+
+    cfg, rt = runtime
+    classes = [f"class {i}" for i in range(n_classes)]
+    return TextualStrategy(cfg, {c: i for i, c in enumerate(classes)}, classes, classes,
+                           classes, runtime=rt)
+
+
+def whole_run(torch, smoke, strat, epochs: int = 3):
+    """The whole-run trainer of `strat` over 160 of the smoke's synthetic
+    images (10 batches of 16, labels drawn over its classes) for `epochs`
+    epochs, validating on 32 more: three runs on the same graphs, the first
     capturing, the second on the host clock (ms a step = its wall / its
     steps, epoch ends included), the third under torch.profiler (busy ms and
-    K2's ms a step)."""
+    K1's and K2's ms a step)."""
     import copy
 
     import numpy as np
@@ -396,10 +491,9 @@ def vpt_whole_run(torch, smoke, runtime, prefix: int, epochs: int = 3):
         smoke.make_dataset(root)
     with open(os.path.join(root, "train.txt")) as f:
         files = [os.path.join(root, "train", l.split()[0]) for l in f if l.strip()]
-    strat = vpt_strategy(torch, runtime, prefix)
     cfg = strat.config
     cfg.EPOCHS = epochs
-    labels = np.random.default_rng(0).choice(10, 192)
+    labels = np.random.default_rng(0).choice(len(strat.classes), 192)
     train, val = smoke.Rows(files[:160], labels[:160]), smoke.Rows(files[160:192], labels[160:192])
 
     def run():
@@ -422,10 +516,13 @@ def vpt_whole_run(torch, smoke, runtime, prefix: int, epochs: int = 3):
     steps = epochs * info["steps_per_epoch"]
     kernels, ops, _ = smoke.profiled_kernels(prof, steps)
     busy = sum(kernels.values())
+    k1 = sum(ms for name, ms in kernels.items() if "attention_fwd" in name)
     k2 = sum(ms for name, ms in kernels.items() if "attention_bwd" in name)
-    return {"epochs": epochs, "steps": steps, "graphs": info["graphs"], "first_run_s": first,
+    return {"model": cfg.MODEL, "encoder": cfg.VIS_ENCODER, "dtype": cfg.COMPUTE_DTYPE,
+            "classes": len(strat.classes), "epochs": epochs, "steps": steps,
+            "graphs": info["graphs"], "first_run_s": first,
             "wall_ms_per_step": wall * 1e3 / steps, "device_busy_ms_per_step": busy,
-            "device_ops_per_step": ops, "k2_ms_per_step": k2,
+            "device_ops_per_step": ops, "k1_ms_per_step": k1, "k2_ms_per_step": k2,
             "k2_share_of_busy": k2 / busy if busy else None}
 
 
@@ -433,19 +530,40 @@ def vpt_step(torch, smoke, prefix: int = PREFIX, runtime=None):
     """The VPT step at ViT-L/14 with a `prefix`-token prompt (bf16 unless
     `runtime` says otherwise), per-step loop."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     runtime = runtime or vit_l14_runtime(torch, prefix)
-    cfg, rt = runtime
-    a = rt.arch
-    strat = vpt_strategy(torch, runtime, prefix)
-    strat._w0, strat._w1 = 8.0, 1.0
+    a = runtime[1].arch
     rng = np.random.default_rng(1)
     feats = torch.from_numpy(rng.normal(0, 1, (16, 1 + a.num_patches, a.vision_width))
                              .astype(np.float32)).cuda()
     text = rng.normal(0, 1, (10, a.embed_dim)).astype(np.float32)
     ctx = torch.from_numpy(text / np.linalg.norm(text, axis=1, keepdims=True)).cuda()
-    labels = torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32)).cuda()
+    out = train_step(torch, smoke, vpt_strategy(torch, runtime, prefix), ctx, feats, rng)
+    return {"T": 1 + a.num_patches + prefix, **out}
+
+
+def coop_step(torch, smoke, strat):
+    """The CoOp step of `strat` over its classes' token ids (its text tower
+    over C x the ids' length), per-step loop, on 16 random unit image
+    features."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 1, (16, strat.runtime.arch.embed_dim)).astype(np.float32)
+    feats = torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).cuda()
+    ctx = strat._class_context(strat.classes)
+    return {"text": list(ctx.shape), **train_step(torch, smoke, strat, ctx, feats, rng)}
+
+
+def train_step(torch, smoke, strat, ctx, feats, rng):
+    """STEPS steps of `strat` (lr 0) on one 16-row batch in the per-step
+    loop: wall ms a step on the host clock, then under torch.profiler the
+    device busy ms and K1's and K2's ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, a = strat.config, strat.runtime.arch
+    strat._w0, strat._w1 = 8.0, 1.0
+    labels = torch.from_numpy(rng.integers(0, len(strat.classes), 16).astype("int32")).cuda()
     group = (torch.arange(16, device="cuda") % 2).int()
     valid = torch.ones(16, device="cuda")
 
@@ -465,8 +583,7 @@ def vpt_step(torch, smoke, prefix: int = PREFIX, runtime=None):
     busy = sum(kernels.values())
     k1 = sum(ms for name, ms in kernels.items() if "attention_fwd" in name)
     k2 = sum(ms for name, ms in kernels.items() if "attention_bwd" in name)
-    return {"encoder": a.name, "T": 1 + a.num_patches + prefix, "batch": 16,
-            "dtype": cfg.COMPUTE_DTYPE,
+    return {"model": cfg.MODEL, "encoder": a.name, "batch": 16, "dtype": cfg.COMPUTE_DTYPE,
             "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
             "device_ops_per_step": ops, "k1_ms_per_step": k1, "k2_ms_per_step": k2,
             "top_kernels_ms_per_step": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])}
@@ -481,6 +598,9 @@ def main(argv=None) -> int:
                     help="K1 from 129 to 320 tokens, the T = 273 VPT step, the ViT-L/14 encode")
     ap.add_argument("--k2-fp32", action="store_true",
                     help="K2 fp32 above 128 tokens, guard shapes, the fp32 T = 273 VPT step")
+    ap.add_argument("--short-fp32", action="store_true",
+                    help="K1 and K2 fp32 up to 128 tokens, guard shapes, the fp32 ViT-B/32 "
+                         "CoOp and VPT steps and encode")
     ap.add_argument("--twophase", action="store_true",
                     help="K4 at the smoke's shapes and its longest T, with its G sweep, "
                          "and the attention experiment's fwd")
@@ -507,17 +627,33 @@ def main(argv=None) -> int:
         out["ptxas"] = ptxas(_cuda, ["twophase_attention"], ["twophase"])
         out["kernels"] = twophase_cases(torch, smoke, args.reps)
         out["experiment"] = experiment(root)
+    elif args.short_fp32:
+        out["ptxas"] = ptxas(_cuda, ["attention_fwd", "attention_bwd"],
+                             ["attention_fwd_f32", "attention_bwd_f32", "attention_fwd_bf16",
+                              "attention_bwd_bf16"])
+        out["kernels"] = short_fp32_cases(torch, smoke, args.reps)
+        coop = coop_strategy(torch, vit_l14_runtime(
+            torch, 16, "float32", "ViT-B/32", "textual_fpl", TEXT_TRUNCATE=False))
+        out["coop_step"] = coop_step(torch, smoke, coop)
+        out["coop_whole_run"] = whole_run(torch, smoke, coop, epochs=10)
+        del coop
+        runtime = vit_l14_runtime(torch, RESIDENT_PREFIX, "float32", "ViT-B/32")
+        out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)
+        out["vpt_whole_run"] = whole_run(torch, smoke,
+                                         vpt_strategy(torch, runtime, RESIDENT_PREFIX), epochs=10)
+        out["encode"] = encode_256(torch, smoke, runtime[1])
     elif args.k2_fp32:
         out["ptxas"] = ptxas(_cuda, ["attention_bwd"], ["tf32", "tiled", "streamed"])
         out["kernels"] = k2_fp32_cases(torch, smoke, args.reps)
         runtime = vit_l14_runtime(torch, RESIDENT_PREFIX, "float32")
         out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)
-        out["vpt_whole_run"] = vpt_whole_run(torch, smoke, runtime, RESIDENT_PREFIX)
+        out["vpt_whole_run"] = whole_run(torch, smoke,
+                                         vpt_strategy(torch, runtime, RESIDENT_PREFIX))
     elif args.resident:
         out["ptxas"] = ptxas(_cuda, ["attention_fwd"], ["attention_fwd"])
         out["kernels"] = resident_cases(torch, smoke, args.reps)
         runtime = vit_l14_runtime(torch, RESIDENT_PREFIX)
-        out["encode"] = vit_l14_encode(torch, smoke, runtime[1])
+        out["encode"] = encode_256(torch, smoke, runtime[1])
         out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)
     else:
         out["ptxas"] = ptxas(_cuda, ["attention_fwd", "attention_bwd"], ["streamed", "tiled"])

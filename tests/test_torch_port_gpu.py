@@ -270,18 +270,18 @@ def test_attention_bwd_reports_its_warps_and_workspace():
     assert lib.mnt_attention_bwd_workspace(16, 273, 16, 1) == 0
     assert lib.mnt_attention_bwd_workspace(16, 273, 16, 0) == 8 * 16 * 16 * 320
     assert lib.mnt_attention_bwd_workspace(16, 128, 16, 0) == 0
-    assert lib.mnt_attention_bwd_warps(273, 64, 0) == 4
+    assert lib.mnt_attention_bwd_warps(273, 64, 0, 256) == 4
     for T in (129, 193, 257, 261, 273, 288, 320):
-        tiles, warps = -(-T // 16), lib.mnt_attention_bwd_warps(T, 64, 1)
+        tiles, warps = -(-T // 16), lib.mnt_attention_bwd_warps(T, 64, 1, 256)
         rounds = -(-tiles // warps)
         assert 1 <= warps <= 16 and -(-tiles // rounds) == warps, (T, warps)
-    assert lib.mnt_attention_bwd_warps(273, 64, 1) == 9
-    assert lib.mnt_attention_bwd_warps(66, 64, 1) == 5
+    assert lib.mnt_attention_bwd_warps(273, 64, 1, 256) == 9
+    assert lib.mnt_attention_bwd_warps(66, 64, 1, 256) == 5
     assert lib.mnt_attention_bwd_smem(320, 64) <= 227 * 1024
     assert lib.mnt_attention_bwd_workspace(16, 320, 16, 1) == 0
     assert lib.mnt_attention_bwd_workspace(16, 321, 16, 1) == 8 * 16 * 16 * 384
     assert lib.mnt_attention_bwd_workspace(16, 321, 16, 0) == 8 * 16 * 16 * 384
-    assert lib.mnt_attention_bwd_warps(321, 64, 1) == 4
+    assert lib.mnt_attention_bwd_warps(321, 64, 1, 256) == 4
     assert lib.mnt_attention_bwd_smem(321, 64) == lib.mnt_attention_bwd_smem(4096, 64)
     assert lib.mnt_attention_bwd_smem(4096, 64) <= 227 * 1024
     for T, code, kernels in ((128, 0, 1), (129, 0, 2), (273, 0, 2), (4096, 0, 2), (128, 1, 1),

@@ -269,8 +269,10 @@ def test_k2_tf32_pair_needs_three_tf32_products(mask):
     assert excess["three"] <= 1e-5, excess
 
 
-def test_streamed_compare_script_needs_a_card(capsys):
-    """scripts/streamed_attention_compare.py, which times these kernels on the
+@pytest.mark.parametrize("flags", [[], ["--short-fp32"]], ids=["streamed", "short_fp32"])
+def test_streamed_compare_script_needs_a_card(capsys, flags):
+    """scripts/streamed_attention_compare.py, which times these kernels (and,
+    with --short-fp32, K1's and K2's fp32 forms up to 128 tokens) on the
     card, exits 1 without one (here) before building anything."""
     import importlib.util
     import os
@@ -281,5 +283,5 @@ def test_streamed_compare_script_needs_a_card(capsys):
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     assert not torch.cuda.is_available()
-    assert script.main([]) == 1
+    assert script.main(flags) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
