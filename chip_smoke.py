@@ -21,8 +21,11 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      loader builds; fails when torch sees no card
   2. build: compiles every kernel (one nvcc per source, all at once) and
      prints ptxas's register report; fails if any entry point spills
-     registers, or if an entry point of K1's or K2's fp32 form up to 128
-     tokens holds no TF32 HMMA in its SASS (cuobjdump)
+     registers, if an entry point of K1's or K2's fp32 form up to 128
+     tokens holds no TF32 HMMA in its SASS, or if one of K1's bf16 form
+     above 128 tokens (attention_fwd_wgmma) holds no HGMMA (warpgroup MMA)
+     in its SASS (cuobjdump), whose registers, spills and any ptxas note on
+     its wgmma it prints
   3. kernels: each kernel against its plain version on the card, fp32 and
      bf16, at the main path's shapes (K1 and K2 also at ViT-L/14's and up
      to 320 tokens, where neither keeps a T x T tile, K1 also at the frozen
@@ -291,7 +294,7 @@ def phase_build():
         f"wall {time.perf_counter() - t0:.2f} s")
     for name in secs:
         report = _cuda.build_log(name)
-        regs = [l.strip() for l in report.splitlines() if "registers" in l]
+        regs = [l.strip() for l in report.splitlines() if "Used" in l and "registers" in l]
         log(f"  {name}: {len(regs)} entry points; " + ("; ".join(sorted(set(regs))) or "no report"))
         # every entry point's spill stores, by function (ptxas names the function first)
         spills = dict(re.findall(r"Function properties for (\S+)\s+\d+ bytes stack frame, "
@@ -299,28 +302,63 @@ def phase_build():
         spilled = {f: int(n) for f, n in spills.items() if int(n) > 0}
         if not spills or spilled:
             fail(f"{name}: the ptxas report shows spill stores {spilled or 'nowhere (no report)'}")
+    # K1's bf16 form above 128 tokens: each entry point's registers and
+    # spill stores, and what ptxas says of its wgmma (a serialised pipeline)
+    report = _cuda.build_log("attention_fwd")
+    wg_ptxas = {}
+    for block in report.split("Compiling entry function ")[1:]:
+        sym = re.match(r"'([^']+)'", block).group(1)
+        if "attention_fwd_wgmma" in sym:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            wg_ptxas[f"attention_fwd_wgmma<{', '.join(re.findall(r'L[ib](\d+)E', sym))}>"] = [
+                int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
+    log(f"  attention_fwd_wgmma ptxas [registers, spill stores] by entry point <D, resident>: "
+        f"{json.dumps(wg_ptxas)}")
+    for line in report.splitlines():
+        if "wgmma.mma_async" in line or "Performance Loss" in line:
+            log(f"  ptxas: {line.strip()}")
     # K1's and K2's fp32 forms up to 128 tokens run every product on the
     # tensor cores as 3xTF32: each entry point's SASS must hold HMMA (TF32
     # mma.sync) instructions; its FFMA count (the softmax's and dS's fused
-    # multiply-adds, not a product's main loop) is printed beside them
-    cuobjdump = next((c for c in (os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump"),
-                                  shutil.which("cuobjdump")) if c and os.path.exists(c)), None)
+    # multiply-adds, not a product's main loop) is printed beside them.
+    # K1's bf16 form above 128 tokens runs both products on warpgroup MMA:
+    # each entry point's SASS must hold HGMMA instructions (its HMMA, the
+    # mma.sync kind, printed beside them).  cuobjdump comes with nvcc (or
+    # with Triton's package); without it the check cannot pass.
+    import importlib.util
+
+    triton = importlib.util.find_spec("triton")
+    candidates = [os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump"),
+                  shutil.which("cuobjdump")]
+    if triton is not None and triton.submodule_search_locations:
+        candidates.append(os.path.join(list(triton.submodule_search_locations)[0], "backends",
+                                       "nvidia", "bin", "cuobjdump"))
+    cuobjdump = next((c for c in candidates if c and os.path.exists(c)), None)
     if cuobjdump is None:
-        log("  SASS of the fp32 forms up to 128 tokens: not checked (no cuobjdump beside nvcc)")
-        return
-    for name, fn in (("attention_fwd", "attention_fwd_f32"), ("attention_bwd", "attention_bwd_f32")):
-        sass = subprocess.run([cuobjdump, "-sass", _cuda.library_path(name)], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
+        fail("no cuobjdump beside nvcc, on PATH or in Triton's package: the SASS checks of "
+             "K1's and K2's tensor-core forms cannot run")
+    checks = (("attention_fwd", "attention_fwd_f32", r"\bHMMA\.\S*TF32", "HMMA TF32", r"\bFFMA\b",
+               "FFMA"),
+              ("attention_bwd", "attention_bwd_f32", r"\bHMMA\.\S*TF32", "HMMA TF32", r"\bFFMA\b",
+               "FFMA"),
+              ("attention_fwd", "attention_fwd_wgmma", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.", "HMMA"))
+    sass = {}
+    for name, fn, need, need_name, beside, beside_name in checks:
+        if name not in sass:
+            sass[name] = subprocess.run([cuobjdump, "-sass", _cuda.library_path(name)],
+                                        capture_output=True, text=True, timeout=300,
+                                        check=True).stdout
         counts = {}
-        for block in sass.split("Function : ")[1:]:
+        for block in sass[name].split("Function : ")[1:]:
             sym = block.split(None, 1)[0]
             if fn in sym:
-                ints = ", ".join(re.findall(r"Li(\d+)E", sym))
-                counts[f"{fn}<{ints}>"] = [len(re.findall(r"\bHMMA\.\S*TF32", block)),
-                                         len(re.findall(r"\bFFMA\b", block))]
-        log(f"  {fn} SASS [HMMA TF32, FFMA] by entry point: {json.dumps(counts)}")
+                ints = ", ".join(re.findall(r"L[ib](\d+)E", sym))
+                counts[f"{fn}<{ints}>"] = [len(re.findall(need, block)),
+                                         len(re.findall(beside, block))]
+        log(f"  {fn} SASS [{need_name}, {beside_name}] by entry point: {json.dumps(counts)}")
         if not counts or min(h for h, _ in counts.values()) == 0:
-            fail(f"{fn}: an entry point's SASS holds no TF32 HMMA: {counts}")
+            fail(f"{fn}: an entry point's SASS holds no {need_name}: {counts}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2112,8 +2150,9 @@ def main() -> int:
         f"{N_PER_CLASS} test {RES}px PNGs written in {time.perf_counter() - t0:.2f} s")
 
     # (wrapper, counter) of each kernel; the streamed forms of K1 and K2,
-    # K1's resident bf16 form (129 to 320 tokens) and K2's fp32 pair (above
-    # 128 tokens) count apart as well
+    # K1's resident bf16 form (129 to 320 tokens; with the streamed bf16
+    # form past 320, attention_fwd_wgmma) and K2's fp32 pair (above 128
+    # tokens) count apart as well
     wrappers = {"attention_fwd": (fused_attention, "launches"),
                 "attention_bwd": (attention_bwd, "launches"),
                 "clip_head": (fused_probs, "launches"),
@@ -2288,15 +2327,16 @@ def main() -> int:
         entry("attention_bwd", f"{PKG}/csrc/attention_bwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:96", short_bwd,
               lambda c: c["shape"] == [10, 24, 512, 8] and c["dtype"] == "bfloat16"),
-        # K1's resident bf16 form (129 to 320 tokens), headlined at ViT-L/14
-        # with a 16-token VPT prompt (T = 273)
+        # K1's bf16 form from 129 to 320 tokens (attention_fwd_wgmma with K
+        # and V resident), headlined at ViT-L/14 with a 16-token VPT prompt
+        # (T = 273)
         entry("attention_fwd_resident", f"{PKG}/csrc/attention_fwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:65",
               [c for c in attn_cases if c["resident"]],
               lambda c: c["shape"] == [16, 273, 1024, 16] and c["dtype"] == "bfloat16"),
-        # the streamed forms (K1: bf16 past 320 tokens, fp32 past 128; K2
-        # past 320), headlined at ViT-L/14 with an 80-token VPT prompt (T =
-        # 337, bf16)
+        # the streamed forms (K1: bf16 past 320 tokens, attention_fwd_wgmma
+        # streaming K and V, and fp32 past 128; K2 past 320), headlined at
+        # ViT-L/14 with an 80-token VPT prompt (T = 337, bf16)
         entry("attention_fwd_streamed", f"{PKG}/csrc/attention_fwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:65",
               [c for c in attn_cases if c["streamed"]],

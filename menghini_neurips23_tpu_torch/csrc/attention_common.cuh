@@ -214,12 +214,11 @@ __host__ __device__ constexpr int key_capacity(int tp) {
 // Scores of the warp's 16 rows (r0 ..) against keys [c0, c0 + KC) below
 // kend, scaled, and masked where a tile crosses T or the diagonal; the rest
 // of the chunk is -inf.  Lane l holds rows r0 + l/4 and r0 + l/4 + 8.  ks
-// holds keys from ks0 on (0: all of them; a streamed chunk: its first key).
+// holds all the keys.
 template <int D, int KC>
 __device__ __forceinline__ void scores_bf16(float (&s)[KC / 8][4], const uint32_t (&qf)[D / 16][4],
                                             const __nv_bfloat16* ks, int c0, int kend, int seq,
-                                            int r0, bool causal, float scale, int lane,
-                                            int ks0 = 0) {
+                                            int r0, bool causal, float scale, int lane) {
   constexpr int LD = D + 8;
 #pragma unroll
   for (int j = 0; j < KC / 16; ++j) {
@@ -232,7 +231,7 @@ __device__ __forceinline__ void scores_bf16(float (&s)[KC / 8][4], const uint32_
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t b[4];
-      load_b_rows(b, ks, LD, n0 - ks0, 16 * kk, lane);
+      load_b_rows(b, ks, LD, n0, 16 * kk, lane);
       mma_bf16(s[2 * j], qf[kk], b[0], b[1]);
       mma_bf16(s[2 * j + 1], qf[kk], b[2], b[3]);
     }

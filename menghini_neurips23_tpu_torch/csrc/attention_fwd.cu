@@ -66,58 +66,73 @@
 //   the diagonal tile (and the tile holding T); masked and padded keys give
 //   P = 0 exactly.
 //
-// bf16 from 129 to kResidentMaxSeq (320) keys (ViT-L/14's vision tower: 257
-// tokens, 273 with a 16-token VPT prompt, 261 with UPT's; attention_fwd_
-// resident): K and V of the whole head stay in shared memory (92 KB at
-// 320), and a warp's 16 x T scores no longer fit its registers:
-// - a block per (batch row x head, group of query tiles), a warp per 16
-//   rows, at most 9 warps; the (row, head)'s tiles split evenly over the
-//   fewest blocks (T = 273: 18 tiles, two blocks of 9 warps), and over more
-//   where the grid would give an SM fewer than two blocks, up to one wave
-//   of two an SM (B = 8: blocks of 6 warps; a tensor-parallel rank's H/m
-//   heads); two blocks share an SM (110 KB of shared memory each at 320);
-// - K lands in 64-key commit groups and V in one more, so that sweep 1
-//   starts on the first chunk while the rest of K and then V arrive (one
-//   barrier a chunk); past that, no barrier: each warp runs alone;
-// - two sweeps, the first in 64-key steps for each row's online max m and
-//   sum l, the second in 32-key steps for the normalised, rounded P.V, with
-//   the scores recomputed (the tensor cores recompute them for less than
-//   holding 16 x T fp32 scores a warp would cost in registers); the warp's
-//   q fragments are read once and held: 96 registers a thread, what 18
-//   warps an SM leave (five a scheduler);
-// - the softmax in base 2, D^-0.5 * log2(e) folded into the scores' scale
-//   and every exponential one ex2: the streamed form's schedule, so the two
-//   give the same bits.
-//
-// Above those (bf16 past 320 tokens: ViT-L/14 with a prompt above 63
-// tokens, ViT-L/14@336's 577; fp32 past 128) K and V stream from device
-// memory (attention_fwd_streamed); fp32 holding the head resident would
-// take 174 KB at 320 and one block an SM:
+// bf16 above kShortMaxSeq (ViT-L/14's vision tower: 257 tokens, 273 with a
+// 16-token VPT prompt, 261 with UPT's, 337 with an 80-token prompt;
+// ViT-L/14@336's 577; attention_fwd_wgmma) both products run on Hopper's
+// warpgroup MMA (wgmma.mma_async m64nNk16, bf16 operands, fp32
+// accumulators), the only way to the tensor cores' full rate; mma.sync
+// left the two sweeps issue-bound at 1.4-4x a library call:
+// - a warpgroup (4 warps) per 64 query rows, one or two warpgroups a block
+//   (wgmma_groups: two share every K and V chunk, halving what a block reads
+//   from L2, unless the grid would then give an SM fewer than two blocks),
+//   two blocks an SM in 128 registers a thread;
+// - q, K and V land by 16-byte cp.async in the swizzled layout wgmma's
+//   matrix descriptors read: rows of 2D bytes, the 128-, 64- or 32-byte
+//   swizzle for D = 64, 32 or 16 (a row is one swizzle atom wide); keys
+//   past T are zero-filled;
+// - S = q . K^T is m64n64k16 with both operands in shared memory (q and a
+//   64-key chunk of K, both K-major), 32 fp32 scores a thread in the
+//   accumulator layout of mma.sync's 16 x 8 tiles;
+// - P.V takes P from registers: 2^((s - m) D^-0.5 log2(e)) / l, normalised
+//   in fp32 and rounded to bf16, is the A fragments of m64n(D)k16, and V's
+//   chunk (rows [key][d], MN-major for this product) is B with the
+//   transpose bit; P never touches shared memory;
+// - up to kResidentMaxSeq (320) keys the block holds the head's K and V
+//   (80 KB at 320 and D = 64), K landing with q in one group and V in a
+//   second that lands under sweep 1; sweep 2 reads K again from shared
+//   memory.  Past it a ring of (K, V) chunk pairs streams them (sweep 1
+//   stages K alone, sweep 2 K and V), the next step's chunk landing while
+//   this one computes;
+// - two sweeps, as before: sweep 1 keeps each row's online max m and sum
+//   l, sweep 2 recomputes the scores and adds the normalised, rounded P
+//   times V; the base-2 softmax with D^-0.5 log2(e) folded into one FFMA
+//   and one ex2 a score, chunks past a causal diagonal skipped, the 8-key
+//   groups past T left out of the exponentials (their P is exactly 0
+//   either way), warps whose rows all lie past T left out of the softmax;
+//   one owner per output element, no atomics.
+// Every branch around a wgmma is uniform for the compiler (the warp index
+// is broadcast from lane 0) and no register a wgmma writes is touched while
+// one is in flight: ptxas otherwise serialises every wgmma of the kernel.
+// What bounds it on an H100: the two sweeps' products and exponentials,
+// run back to back within a warpgroup, neither near its peak (PERF.md:
+// the products alone take over half of its time, the softmax alone about
+// two thirds; overlapping a chunk's halves inside a warpgroup measured no
+// faster).
+
+// fp32 above 128 tokens streams K and V from device memory
+// (attention_fwd_streamed); holding the head resident would take 174 KB
+// at 320 and one block an SM:
 // - a block per (batch row, head, 64-query tile), a warp per 16 rows; both
 //   sweeps are one stream of steps over the block's key chunks (sweep 1
 //   stages K alone, sweep 2 K and V) through a cp.async ring, the chunk of
 //   step + stages - 1 landing while step computes, one barrier a step;
-//   the block's shared memory does not depend on T (bf16: 2 stages of
-//   64-key chunks, 46 KB, four blocks and 16 warps an SM; fp32: 3 stages
-//   of 32-key chunks, 70 KB, three blocks and 12 warps an SM); a warp reads
-//   its q fragments from shared memory at each step rather than holding
-//   them, which keeps bf16 within the 128 registers four blocks allow;
-// - the base-2 softmax and recomputed scores of the resident bf16 form;
-// - bf16: the resident arithmetic (mma.sync m16n8k16, quad shuffles, P
-//   packed straight into the A fragments of P.V);
-// - fp32 as 3xTF32 on mma.sync m16n8k8 (attention_common.cuh): each operand
-//   x = hi + lo (hi rounded to TF32 as cvt.rna.tf32.f32 rounds, lo the rest
-//   cut to TF32), every product lo.hi + hi.lo + hi.hi summed in a zeroed
-//   tile and then added to the fp32 accumulator, so the tensor cores'
-//   truncating adders see short sums; P stays fp32 and is split like any
-//   operand; its A fragments come from the scores' accumulators with the
-//   keys of a k-step in the order (2q, 2q + 1) for k = (q, q + 4), and V is
-//   read in that order.  Why three products: one TF32 product keeps 10
-//   fraction bits, and this schedule over T = 337 keys at D = 64 then errs
-//   by 3.4e-4 against the JAX package's forward, past the 1e-5 the kernel
-//   is held to; hi.hi + hi.lo + lo.hi leaves out only lo.lo (2^-22 of a
-//   product) and errs by 5.7e-7, about what two fp32 sums in different
-//   orders differ by (tests/test_torch_port_streamed.py emulates both).
+//   the block's shared memory does not depend on T (3 stages of 32-key
+//   chunks, 70 KB, three blocks and 12 warps an SM);
+// - the base-2 softmax and recomputed scores of the bf16 form;
+// - every product as 3xTF32 on mma.sync m16n8k8 (attention_common.cuh):
+//   each operand x = hi + lo (hi rounded to TF32 as cvt.rna.tf32.f32
+//   rounds, lo the rest cut to TF32), every product lo.hi + hi.lo + hi.hi
+//   summed in a zeroed tile and then added to the fp32 accumulator, so the
+//   tensor cores' truncating adders see short sums; P stays fp32 and is
+//   split like any operand; its A fragments come from the scores'
+//   accumulators with the keys of a k-step in the order (2q, 2q + 1) for k
+//   = (q, q + 4), and V is read in that order.  Why three products: one
+//   TF32 product keeps 10 fraction bits, and this schedule over T = 337
+//   keys at D = 64 then errs by 3.4e-4 against the JAX package's forward,
+//   past the 1e-5 the kernel is held to; hi.hi + hi.lo + lo.hi leaves out
+//   only lo.lo (2^-22 of a product) and errs by 5.7e-7, about what two
+//   fp32 sums in different orders differ by
+//   (tests/test_torch_port_streamed.py emulates both).
 
 #include "attention_common.cuh"
 
@@ -127,9 +142,9 @@ using bf16 = __nv_bfloat16;
 using namespace mnt;
 
 // Up to kShortMaxSeq keys a warp's scores stay in its registers (one block
-// a (row, head), a warp per 16-row tile); up to kResidentMaxSeq bf16 K and V
-// stay resident in shared memory; above those they stream (fp32 above
-// kShortMaxSeq).
+// a (row, head), a warp per 16-row tile); above that bf16 runs on warpgroup
+// MMA, holding K and V resident in shared memory up to kResidentMaxSeq keys
+// and streaming them past it, and fp32 streams them.
 constexpr int kShortMaxSeq = 128;
 constexpr int kResidentMaxSeq = 320;
 
@@ -148,56 +163,47 @@ __host__ __device__ constexpr int f32_blocks(int KC) {
   return KC <= 32 ? 8 : KC <= 48 ? 5 : KC <= 64 ? 4 : KC <= 80 ? 3 : 2;
 }
 
-// bf16, kShortMaxSeq < T <= kResidentMaxSeq: keys a sweep-1 step (and a
-// staging group of K), keys a sweep-2 step, the most warps a block, and
-// blocks an SM (two: 110 KB of shared memory each at T = 320 with 9 warps,
-// 96 registers a thread)
-constexpr int kResKeys = 64;
-constexpr int kResPvKeys = 32;
-constexpr int kResMaxWarps = 9;
-constexpr int kResBlocks = 2;
+// bf16 above kShortMaxSeq (attention_fwd_wgmma): query rows a warpgroup
+// and keys a chunk (a step of either sweep), the most warpgroups a block,
+// blocks an SM (the 128 registers a thread that two blocks of two
+// warpgroups leave; 97 KB of shared memory each resident at T = 320 and D =
+// 64, 49 KB streamed), and the streamed ring's stages of (K, V) chunk
+// pairs
+constexpr int kWgRows = 64;
+constexpr int kWgKeys = 64;
+constexpr int kWgMaxGroups = 2;
+constexpr int kWgBlocks = 2;
+constexpr int kWgStages = 2;
 
-size_t resident_smem(int seq, int warps, int D) {
-  return (16 * (size_t)warps + 2 * (size_t)round16(seq)) * (D + 8) * sizeof(bf16);
+// bytes of a 64-row tile of q, K or V (rows of 2D bytes, swizzled)
+__host__ __device__ constexpr int wg_tile_bytes(int D) { return kWgRows * 2 * D; }
+
+// a block's shared memory: 1 KB to align the tiles to the 128-byte
+// swizzle's 1024-byte period, a q tile a warpgroup, and K and V of every
+// chunk (resident) or of kWgStages chunks (streamed)
+size_t wgmma_smem(int seq, int groups, int D) {
+  const int chunks = seq <= kResidentMaxSeq ? (seq + kWgKeys - 1) / kWgKeys : kWgStages;
+  return 1024 + (size_t)(groups + 2 * chunks) * wg_tile_bytes(D);
 }
 
-// Warps a block of the resident kernel: the (row, head)'s 16-row tiles split
-// evenly over the fewest blocks of at most kResMaxWarps warps; where that
-// grid would give an SM fewer than kResBlocks blocks, over as many more as
-// one wave of kResBlocks an SM holds
-int resident_warps(int seq, int rows_x_heads, int sms) {
-  const int nt = round16(seq) / 16;
-  int nb = (nt + kResMaxWarps - 1) / kResMaxWarps;
-  if ((long long)rows_x_heads * nb < (long long)kResBlocks * sms) {
-    nb = std::max(nb, std::min(nt, kResBlocks * sms / rows_x_heads));
-  }
-  return (nt + nb - 1) / nb;
+// Warpgroups a block: kWgMaxGroups share each K and V chunk, unless the
+// grid of blocks that gives would give an SM fewer than kWgBlocks of them
+int wgmma_groups(int seq, int rows_x_heads, int sms) {
+  const int tiles = (seq + kWgRows - 1) / kWgRows;
+  const long long blocks = (long long)rows_x_heads * ((tiles + kWgMaxGroups - 1) / kWgMaxGroups);
+  return blocks < (long long)kWgBlocks * sms ? 1 : kWgMaxGroups;
 }
 
-// streamed (past resident_max_seq): a block of kStreamRows query rows, a warp
-// per 16; chunks of kKeys keys in a ring of kStages (bf16: 64 keys, 2
-// stages, 46 KB at D = 64, four blocks of 128 registers a thread, 16 warps
-// an SM; fp32: 32 keys, 3 stages, 70 KB, three blocks, 12 warps an SM).
-// Rows are padded to D + 8 bf16 or D + 4 floats (16-byte multiples, free
-// of bank conflicts for ldmatrix and for the fp32 P.V's column reads of V).
+// fp32 streamed (past kShortMaxSeq): a block of kStreamRows query rows, a
+// warp per 16; chunks of kStreamKeys keys in a ring of kStreamStages (70 KB
+// at D = 64, three blocks, 12 warps an SM).  Rows are padded to D + 4
+// floats (16-byte multiples, free of bank conflicts for the P.V's column
+// reads of V).
 constexpr int kStreamRows = 64;
 constexpr int kStreamThreads = 2 * kStreamRows;
-template <typename T>
-struct Stream;
-template <>
-struct Stream<bf16> {
-  static constexpr int kKeys = 64, kStages = 2, kBlocks = 4;
-};
-template <>
-struct Stream<float> {
-  static constexpr int kKeys = 32, kStages = 3, kBlocks = 3;
-};
-template <typename T>
-__host__ __device__ constexpr int row_ld(int D) { return D + 16 / (int)sizeof(T); }
-template <typename T>
+constexpr int kStreamKeys = 32, kStreamStages = 3, kStreamBlocks = 3;
 size_t streamed_smem(int D) {
-  return (kStreamRows + 2 * Stream<T>::kKeys * Stream<T>::kStages) * (size_t)row_ld<T>(D) *
-         sizeof(T);
+  return (kStreamRows + 2 * kStreamKeys * kStreamStages) * (size_t)(D + 4) * sizeof(float);
 }
 
 // ------------------------------------------------------------------ bf16
@@ -400,162 +406,407 @@ attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int se
   }
 }
 
-// ------------------------------------------------------------ resident
+// ------------------------------------------------------------ wgmma
 
-// bf16, kShortMaxSeq < T <= kResidentMaxSeq.  Block (batch row x head,
-// group of query tiles), a warp per 16 rows, K and V of the whole head in
-// shared memory.  Group 0 stages the block's q rows and K's first chunk,
-// group c K's chunk c, the last group V (all of them issued up front).
-// Sweep 1 takes chunk c once its group has landed for every thread (one
-// barrier a chunk) and keeps each row's online max m and sum l (base 2:
-// scale2 = D^-0.5 * log2(e) is folded into the scores, P = 2^(s - m));
-// sweep 2 recomputes the scores and adds the normalised P = 2^(s - m) / l,
-// rounded to bf16 straight into the A fragments of P.V, times V.
+// Warpgroup MMA (PTX ISA, wgmma.mma_async, sm_90a).  A warpgroup is four
+// consecutive warps; each instruction is issued by all 128 threads at once.
+// The fp32 accumulator of m64nNk16 puts warp w's rows 16w .. 16w + 15 in
+// mma.sync's m16n8 layout, tile after tile: lane l (g = l / 4, q = l % 4)
+// holds d[4j], d[4j + 1] at row 16w + g, columns 8j + 2q, 8j + 2q + 1, and
+// d[4j + 2], d[4j + 3] at row 16w + g + 8.  A from registers has mma.sync's
+// m16n8k16 A layout a warp, so two adjacent n8 tiles of an accumulator,
+// rounded to bf16, are one k-step's A fragment.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of (row, 16-byte piece) in a tile of rows of 2D bytes, with the
+// hardware's swizzle for that row width (128, 64 or 32 bytes: one atom a
+// row): bits 4.. of the offset XOR bits 7.. (3, 2 or 1 of them).  The tile
+// starts on a multiple of 1024 bytes, so the offset's bits are the
+// address's.
 template <int D>
-__global__ void __launch_bounds__(32 * kResMaxWarps, kResBlocks)
-attention_fwd_resident(const bf16* __restrict__ qkv, bf16* __restrict__ out, int seq, int width,
-                       int heads, float scale, int causal) {
+__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
+  return off ^ (((off >> 7) & (D / 8 - 1)) << 4);
+}
+
+// Matrix descriptor of a tile (or of its part from `addr` on) in that
+// layout: the start address, the byte offsets between 8-row groups (both
+// fields, 8 rows x 2D bytes: a K-major operand reads one as the stride
+// between groups of rows, a transposed one as the stride between groups
+// of k; the other offset spans swizzle atoms across the row, and a row is
+// one atom), and the swizzle mode (1: 128 bytes, 2: 64, 3: 32).
+template <int D>
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  constexpr uint64_t kMode = D == 64 ? 1 : D == 32 ? 2 : 3;
+  constexpr uint64_t kGroup = (8 * 2 * D) >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kGroup << 16) | (kGroup << 32) | (kMode << 62);
+}
+
+// Rows [0, rows) of a strided (rows, D) bf16 slice into the tile at `tile`
+// (a shared address) in the swizzled layout; rows >= valid are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_swizzled(uint32_t tile, const bf16* gmem, size_t stride,
+                                               int valid, int rows, int tid, int nthreads) {
+  constexpr int kPieces = D / 8;  // 16-byte pieces a row
+  for (int idx = tid; idx < rows * kPieces; idx += nthreads) {
+    const int r = idx / kPieces, c = idx % kPieces;
+    const bool ok = r < valid;
+    const uint32_t dst = tile + swizzled<D>(r * 2 * D + c * 16);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(gmem + (ok ? r * stride + c * 8 : 0)), "r"(ok ? 16 : 0));
+  }
+}
+
+// cp.async writes reach wgmma's (async proxy) reads of shared memory only
+// through this fence, issued by the writing thread before the barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from touching registers a wgmma writes before its
+// wait (or reads after its issue) by making them depend on this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (+)= A . B^T: m64n64k16, A (64 x 16) and B (64 keys x 16) both from
+// shared memory, K-major; kScaleD 0 overwrites d
+template <int kScaleD>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "n"(kScaleD));
+}
+
+// d += A . B: m64n(D)k16, A (64 x 16) from registers, B (16 keys x D) from
+// shared memory with the transpose bit (rows [key][d]: MN-major)
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// bf16, T > kShortMaxSeq.  Block (batch row x head, group of 64-row query
+// tiles), a warpgroup per tile (blockDim / 128 of them), every product on
+// warpgroup MMA.  Shared memory, from a 1024-byte boundary: a q tile a
+// warpgroup, then (kResident) K's and V's chunks in full, or kWgStages
+// (K, V) chunk pairs, all in the swizzled layout.  The two sweeps are one
+// stream of 2 * nch steps over the block's chunks (causal: up to its last
+// row's diagonal): steps 0 .. nch - 1 take each row's online max m and
+// sum l of P = 2^((s - m) scale2) (scale2 = D^-0.5 * log2(e)); steps nch ..
+// 2 nch - 1 recompute the scores and add the normalised P / l, rounded to
+// bf16 in the A fragments of P.V, times V.  Resident: q and K land in one
+// group before step 0, V in a second before step nch.  Streamed: the chunk
+// of step + kWgStages - 1 is staged while step computes, behind one barrier
+// a step.  A warpgroup skips the chunks its rows see none of (causal) and
+// the rest of the block's steps when its tile lies past T, but keeps to
+// the barriers.
+template <int D, bool kResident>
+__global__ void __launch_bounds__(128 * kWgMaxGroups, kWgBlocks)
+attention_fwd_wgmma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int seq, int width,
+                    int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 8, KC = kResKeys;
+  constexpr int TILE = wg_tile_bytes(D), NO = D / 2;
+  // streamed: chunks staged this many steps ahead, into the stage of the
+  // step before (each step ends with nothing in flight)
+  constexpr int kAhead = kWgStages - 1;
   const float scale2 = scale * 1.4426950408889634f;  // log2(e)
-  const int tp = round16(seq);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nthreads = blockDim.x;
-  const int rows = nthreads / 2;  // the block's query rows, 16 a warp
-  const int rb = rows * blockIdx.y, r0 = rb + 16 * warp;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + rows * LD;
-  bf16* vs = ks + tp * LD;
+  const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid % 32;
+  // the warp's index broadcast from lane 0, so that the compiler sees it
+  // warp-uniform: the branches on the tile and row bounds derived from it
+  // are then uniform, and wgmma's register dependences need no barrier
+  // inside a divergent path (which would serialise every wgmma)
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int wg = warp_id / 4, warp = warp_id % 4;
+  const int rows = nthreads / 2;  // the block's query rows, 64 a warpgroup
+  const int rb = rows * blockIdx.y, rt = rb + kWgRows * wg, r0 = rt + 16 * warp;
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv = qs + (nthreads / 128) * TILE;
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
   const bf16* base = qkv + (size_t)b * seq * stride + h * D;
   // the keys the block's rows see (causal: up to its last row's diagonal)
-  const int kb = causal ? min(tp, rb + rows) : tp;
-  const int nch = (kb + KC - 1) / KC;  // at most 5
-  stage_rows<bf16, D>(qs, LD, base + rb * stride, stride, seq - rb, min(rows, tp - rb), tid,
-                      nthreads);
-  for (int c = 0; c < nch; ++c) {
-    const int c0 = c * KC;
-    stage_rows<bf16, D>(ks + c0 * LD, LD, base + width + c0 * stride, stride, seq - c0,
-                        min(KC, kb - c0), tid, nthreads);
-    cp_async_commit();
-  }
-  stage_rows<bf16, D>(vs, LD, base + 2 * width, stride, seq, kb, tid, nthreads);
-  cp_async_commit();
+  const int nch = ((causal ? min(seq, rb + rows) : seq) + kWgKeys - 1) / kWgKeys;
+  const int steps = 2 * nch;
+  const bool active = rt < seq;                             // the warpgroup has rows
+  const bool live = r0 < seq;                               // the warp has rows
+  const int kend = causal ? min(seq, rt + kWgRows) : seq;  // the keys the tile's rows see
+  // the last key each of the thread's two rows sees, and its columns' offset
+  const int row = r0 + lane / 4, q2 = 2 * (lane & 3);
+  const int last[2] = {causal ? min(seq - 1, row) : seq - 1,
+                       causal ? min(seq - 1, row + 8) : seq - 1};
 
-  const bool active = r0 < tp;
-  const int kend = causal ? min(tp, r0 + 16) : tp;  // the keys this warp's rows see
-  // the A fragments of the warp's q rows, held through both sweeps
-  uint32_t qf[D / 16][4];
-  cp_async_wait_upto(nch);  // group 0
-  __syncthreads();
-  if (active) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], qs, LD, r0 - rb, 16 * kk, lane);
-  }
-  // sweep 1: online m (quad-uniform) and l (lane-partial); key 0, in every
-  // row's first chunk, keeps m finite from there on
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int c = 0; c < nch; ++c) {
-    if (c > 0) {
-      cp_async_wait_upto(nch - c);  // groups 0 .. c have landed
-      __syncthreads();              // ... for every thread
+  auto chunk0 = [&](int step) { return (step < nch ? step : step - nch) * kWgKeys; };
+  // K's and V's chunk of a step
+  auto k_tile = [&](int step) -> uint32_t {
+    if constexpr (kResident) {
+      return kv + (step < nch ? step : step - nch) * TILE;
+    } else {
+      return kv + (step % kWgStages) * 2 * TILE;
     }
-    const int c0 = c * KC;
+  };
+  auto v_tile = [&](int step) -> uint32_t {
+    if constexpr (kResident) {
+      return kv + step * TILE;  // V's chunk step - nch, after K's nch
+    } else {
+      return kv + (step % kWgStages) * 2 * TILE + TILE;
+    }
+  };
+  auto stage = [&](int step) {  // streamed: sweep 1 stages K, sweep 2 K and V
+    if (step >= steps) return;
+    const int c0 = chunk0(step);
+    stage_swizzled<D>(k_tile(step), base + width + c0 * stride, stride, seq - c0, kWgKeys, tid,
+                      nthreads);
+    if (step >= nch) {
+      stage_swizzled<D>(v_tile(step), base + 2 * width + c0 * stride, stride, seq - c0, kWgKeys,
+                        tid, nthreads);
+    }
+  };
+  // resident: group 0 q and all of K, group 1 V; streamed: group i the
+  // chunk of step i, q with the first
+  stage_swizzled<D>(qs, base + rb * stride, stride, seq - rb, rows, tid, nthreads);
+  if constexpr (kResident) {
+    stage_swizzled<D>(kv, base + width, stride, seq, nch * kWgKeys, tid, nthreads);
+    cp_async_commit();
+    stage_swizzled<D>(kv + nch * TILE, base + 2 * width, stride, seq, nch * kWgKeys, tid,
+                      nthreads);
+    cp_async_commit();
+  } else {
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      stage(i);
+      cp_async_commit();
+    }
+  }
+  // the block's barrier before a step: its chunk has landed for every
+  // thread (resident: K before step 0, V before step nch, nothing between:
+  // one barrier a chunk measured slower; streamed: the chunk of step +
+  // kAhead is staged behind it)
+  auto landed = [&](int step) {
+    if constexpr (kResident) {
+      if (step == 0 || step == nch) {
+        cp_async_wait_upto(step == 0 ? 1 : 0);
+        fence_proxy_async();
+        __syncthreads();
+      }
+    } else {
+      cp_async_wait<kAhead - 1>();
+      fence_proxy_async();
+      __syncthreads();
+      stage(step + kAhead);
+      cp_async_commit();
+    }
+  };
+  // S = q . K^T for the chunk of `step`, both operands from shared memory,
+  // waited for; -inf where a key lies past T or the row's diagonal.  The
+  // scores stay unscaled: scale2 is folded into each exponential's FFMA.
+  const uint64_t q_desc = wg_desc<D>(qs + wg * TILE);
+  auto scores = [&](float(&s)[32], int step) {
+    const uint64_t k_desc = wg_desc<D>(k_tile(step));
+    wgmma_fence();
+    wgmma_ss<0>(s, q_desc, k_desc);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) wgmma_ss<1>(s, q_desc + 2 * kk, k_desc + 2 * kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    const int c0 = chunk0(step);
+    if (c0 + kWgKeys > seq || (causal && c0 + kWgKeys - 1 > r0)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * i + q2 + (e & 1) > last[e >> 1]) s[4 * i + e] = -INFINITY;
+    }
+  };
+
+  // sweep 1: online m (the raw scores' max, quad-uniform) and l
+  // (lane-partial) of 2^((s - m) scale2); key 0, in every row's first
+  // chunk, keeps m finite from there on; 8-key groups past the tile's keys
+  // add 2^-inf = 0 and are left out
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int step = 0; step < nch; ++step) {
+    landed(step);
+    const int c0 = chunk0(step);
     if (!active || c0 >= kend) continue;
-    float s[KC / 8][4];
-    scores_bf16<D, KC>(s, qf, ks, c0, kend, seq, r0, causal, scale2, lane);
+    float s[32];
+    scores(s, step);
+    if (!live) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float cm = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < KC / 8; ++n) cm = fmaxf(cm, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      const float mn = fmaxf(m[r], group_max<4>(cm));
+      for (int i = 0; i < 8; ++i) cm = fmaxf(cm, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+      const float mn = fmaxf(m[r], group_max<4>(cm)), mns = mn * scale2;
       float sum = 0.f;
 #pragma unroll
-      for (int n = 0; n < KC / 8; ++n) sum += ex2(s[n][2 * r] - mn) + ex2(s[n][2 * r + 1] - mn);
-      l[r] = fmaf(l[r], ex2(m[r] - mn), sum);
+      for (int i = 0; i < 8; ++i) {
+        if (c0 + 8 * i < kend) {
+          sum += ex2(fmaf(s[4 * i + 2 * r], scale2, -mns)) +
+                 ex2(fmaf(s[4 * i + 2 * r + 1], scale2, -mns));
+        }
+      }
+      l[r] = fmaf(l[r], ex2(fmaf(m[r], scale2, -mns)), sum);
       m[r] = mn;
     }
   }
-  cp_async_wait<0>();  // V
-  __syncthreads();
-  if (!active) return;
-
-  // sweep 2: P = 2^(s - m) / l rounded to bf16 into the A fragments of P.V
-  float inv_l[2];
+  float ms[2] = {m[0] * scale2, m[1] * scale2}, inv_l[2] = {0.f, 0.f};
+  if (live) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / group_sum<4>(l[r]);
-  float o[D / 8][4] = {};
-  constexpr int KP = kResPvKeys;
-  for (int c0 = 0; c0 < kend; c0 += KP) {
-    float s[KP / 8][4];
-    scores_bf16<D, KP>(s, qf, ks, c0, kend, seq, r0, causal, scale2, lane);
+    for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / group_sum<4>(l[r]);
+  }
+  // sweep 2: P = 2^((s - m) scale2) / l in fp32, rounded to bf16 into the A
+  // fragments of P.V (k-step j: keys c0 + 16j ..), then O += P . V over the
+  // 16-key steps the tile's rows see
+  float o[NO];
 #pragma unroll
-    for (int j = 0; j < KP / 16; ++j) {
-      const int n0 = c0 + 16 * j;
-      if (n0 >= kend) break;
-      uint32_t a[4];
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  for (int step = nch; step < steps; ++step) {
+    landed(step);
+    const int c0 = chunk0(step);
+    if (!active || c0 >= kend) continue;
+    float s[32];
+    scores(s, step);
+    uint32_t a[4][4];
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float(&x)[4] = s[2 * j + t];
-        a[2 * t] = pack_bf16(ex2(x[0] - m[0]) * inv_l[0], ex2(x[1] - m[0]) * inv_l[0]);
-        a[2 * t + 1] = pack_bf16(ex2(x[2] - m[1]) * inv_l[1], ex2(x[3] - m[1]) * inv_l[1]);
-      }
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t bv[4];
-        load_b_cols(bv, vs, LD, n0, 16 * dd, lane);
-        mma_bf16(o[2 * dd], a, bv[0], bv[1]);
-        mma_bf16(o[2 * dd + 1], a, bv[2], bv[3]);
+    for (int i = 0; i < 8; ++i) {
+      uint32_t& lo = a[i / 2][2 * (i % 2)];
+      uint32_t& hi = a[i / 2][2 * (i % 2) + 1];
+      if (live && c0 + 8 * i < kend) {
+        lo = pack_bf16(ex2(fmaf(s[4 * i], scale2, -ms[0])) * inv_l[0],
+                       ex2(fmaf(s[4 * i + 1], scale2, -ms[0])) * inv_l[0]);
+        hi = pack_bf16(ex2(fmaf(s[4 * i + 2], scale2, -ms[1])) * inv_l[1],
+                       ex2(fmaf(s[4 * i + 3], scale2, -ms[1])) * inv_l[1]);
+      } else {
+        lo = hi = 0u;
       }
     }
-  }
-  bf16* out_b = out + (size_t)b * seq * width + h * D;
-  const int row0 = r0 + lane / 4;
+    const uint32_t vt = v_tile(step);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = 8 * n + 2 * (lane & 3);
+    for (int j = 0; j < 4; ++j) fence_regs(a[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (c0 + 16 * j < kend) wgmma_rs<D>(o, a[j], wg_desc<D>(vt + j * 16 * 2 * D));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+  if (!live) return;
+  bf16* out_b = out + (size_t)b * seq * width + h * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (row0 + 8 * r < seq)
-        *reinterpret_cast<uint32_t*>(out_b + (size_t)(row0 + 8 * r) * width + col) =
-            pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
-  }
+      if (row + 8 * r < seq)
+        *reinterpret_cast<uint32_t*>(out_b + (size_t)(row + 8 * r) * width + 8 * j + q2) =
+            pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
 }
 
 // ------------------------------------------------------------ streamed
 
-// Past resident_max_seq (bf16 320, fp32 128).  Block (batch row x head, 64-query
-// tile), a warp per 16 rows.  The two sweeps are one stream of 2 * nch
-// steps over the block's chunks (causal: up to its last row's diagonal):
-// steps 0 .. nch - 1 stage K alone and take each row's online max m and
-// sum l (base 2: scale2 = D^-0.5 * log2(e) is folded into the scores, P =
-// 2^(s - m)); steps nch .. 2 nch - 1 stage K and V, recompute the scores
-// and add the normalised P = 2^(s - m) / l (rounded to bf16 for bf16) times
-// V.  Chunk step + kStages - 1 is staged while step computes, behind one
-// barrier a step.  bf16: every product on mma.sync m16n8k16, P packed
-// straight into the A fragments of P.V.  fp32: every product as 3xTF32
-// on m16n8k8; P.V takes P from the scores' accumulators with the chunk's
-// keys in the order (n0 + 2q, n0 + 2q + 1) for the fragment's k = (q, q +
-// 4), and V's column reads in that order.
-template <typename T, int D>
-__global__ void __launch_bounds__(kStreamThreads, Stream<T>::kBlocks)
-attention_fwd_streamed(const T* __restrict__ qkv, T* __restrict__ out, int seq, int width,
-                       int heads, float scale, int causal) {
+// fp32 past kShortMaxSeq.  Block (batch row x head, 64-query tile), a warp
+// per 16 rows.  The two sweeps are one stream of 2 * nch steps over the
+// block's chunks (causal: up to its last row's diagonal): steps 0 .. nch -
+// 1 stage K alone and take each row's online max m and sum l (base 2:
+// scale2 = D^-0.5 * log2(e) is folded into the scores, P = 2^(s - m));
+// steps nch .. 2 nch - 1 stage K and V, recompute the scores and add the
+// normalised P = 2^(s - m) / l times V.  Chunk step + kStreamStages - 1 is
+// staged while step computes, behind one barrier a step.  Every product as
+// 3xTF32 on m16n8k8; P.V takes P from the scores' accumulators with the
+// chunk's keys in the order (n0 + 2q, n0 + 2q + 1) for the fragment's k =
+// (q, q + 4), and V's column reads in that order.
+template <int D>
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocks)
+attention_fwd_streamed(const float* __restrict__ qkv, float* __restrict__ out, int seq,
+                       int width, int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int KC = Stream<T>::kKeys, S = Stream<T>::kStages, LD = row_ld<T>(D);
+  constexpr int KC = kStreamKeys, S = kStreamStages, LD = D + 4;
   const float scale2 = scale * 1.4426950408889634f;  // log2(e)
   const int tp = round16(seq);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rb = kStreamRows * blockIdx.y, r0 = rb + 16 * warp;
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ring = qs + kStreamRows * LD;  // stage i: KC rows of K, then KC of V
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ring = qs + kStreamRows * LD;  // stage i: KC rows of K, then KC of V
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
-  const T* base = qkv + (size_t)b * seq * stride + h * D;
+  const float* base = qkv + (size_t)b * seq * stride + h * D;
   const bool active = r0 < tp;
   const int kend = causal ? min(tp, r0 + 16) : tp;  // the keys this warp's rows see
   const int nch = ((causal ? min(tp, rb + kStreamRows) : tp) + KC - 1) / KC;
@@ -563,17 +814,17 @@ attention_fwd_streamed(const T* __restrict__ qkv, T* __restrict__ out, int seq, 
   auto stage = [&](int step) {
     if (step >= steps) return;
     const int c0 = (step < nch ? step : step - nch) * KC;
-    T* dst = ring + (step % S) * 2 * KC * LD;
-    stage_rows<T, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, KC, tid,
-                     kStreamThreads);
+    float* dst = ring + (step % S) * 2 * KC * LD;
+    stage_rows<float, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, KC, tid,
+                         kStreamThreads);
     if (step >= nch) {
-      stage_rows<T, D>(dst + KC * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0, KC,
-                       tid, kStreamThreads);
+      stage_rows<float, D>(dst + KC * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
+                           KC, tid, kStreamThreads);
     }
   };
   // group 0: the block's q rows and step 0; then steps 1 .. S - 2
-  stage_rows<T, D>(qs, LD, base + rb * stride, stride, seq - rb, kStreamRows, tid,
-                   kStreamThreads);
+  stage_rows<float, D>(qs, LD, base + rb * stride, stride, seq - rb, kStreamRows, tid,
+                       kStreamThreads);
   stage(0);
   cp_async_commit();
 #pragma unroll
@@ -596,20 +847,10 @@ attention_fwd_streamed(const T* __restrict__ qkv, T* __restrict__ out, int seq, 
     }
     const int c0 = (step < nch ? step : step - nch) * KC;
     if (c0 >= kend) continue;
-    const T* ks = ring + (step % S) * 2 * KC * LD;
-    const T* vs = ks + KC * LD;
+    const float* ks = ring + (step % S) * 2 * KC * LD;
+    const float* vs = ks + KC * LD;
     float s[KC / 8][4];
-    if constexpr (kBf16) {
-      // the A fragments of the warp's q rows, read again each step rather
-      // than held (bf16 fits the 128 registers of four blocks an SM so)
-      uint32_t qf[D / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], qs, LD, r0 - rb, 16 * kk, lane);
-      scores_bf16<D, KC>(s, qf, ks, c0, kend, seq, r0, causal, scale2, lane, c0);
-    } else {
-      scores_tf32<D, KC>(s, qs + (r0 - rb) * LD, ks, c0, kend, seq, r0, causal, scale2, lane,
-                         c0);
-    }
+    scores_tf32<D, KC>(s, qs + (r0 - rb) * LD, ks, c0, kend, seq, r0, causal, scale2, lane, c0);
     if (step < nch) {
       // online m and l: m quad-uniform, l lane-partial (key 0, in every
       // row's first chunk, keeps m finite from there on)
@@ -632,49 +873,28 @@ attention_fwd_streamed(const T* __restrict__ qkv, T* __restrict__ out, int seq, 
     for (int n = 0; n < KC / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - m[e >> 1]) * inv_l[e >> 1];
-    if constexpr (kBf16) {
-      // rounded to bf16 straight into the A fragments of P.V
+    // k-step kk: keys c0 + 8kk + (2q, 2q + 1) as the fragment's k = (q, q + 4)
+    const int q = lane & 3, g = lane / 4;
 #pragma unroll
-      for (int j = 0; j < KC / 16; ++j) {
-        if (c0 + 16 * j >= kend) break;
-        uint32_t a[4];
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      if (c0 + 8 * kk >= kend) break;
+      const uint32_t a[4] = {__float_as_uint(s[kk][0]), __float_as_uint(s[kk][2]),
+                             __float_as_uint(s[kk][1]), __float_as_uint(s[kk][3])};
+      uint32_t ah[4], al[4];
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          a[2 * t] = pack_bf16(s[2 * j + t][0], s[2 * j + t][1]);
-          a[2 * t + 1] = pack_bf16(s[2 * j + t][2], s[2 * j + t][3]);
-        }
+      for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+      const float* v0 = vs + (8 * kk + 2 * q) * LD + g;
 #pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          uint32_t bv[4];
-          load_b_cols(bv, vs, LD, 16 * j, 16 * dd, lane);
-          mma_bf16(o[2 * dd], a, bv[0], bv[1]);
-          mma_bf16(o[2 * dd + 1], a, bv[2], bv[3]);
-        }
-      }
-    } else {
-      // k-step kk: keys c0 + 8kk + (2q, 2q + 1) as the fragment's k = (q, q + 4)
-      const int q = lane & 3, g = lane / 4;
-#pragma unroll
-      for (int kk = 0; kk < KC / 8; ++kk) {
-        if (c0 + 8 * kk >= kend) break;
-        const uint32_t a[4] = {__float_as_uint(s[kk][0]), __float_as_uint(s[kk][2]),
-                               __float_as_uint(s[kk][1]), __float_as_uint(s[kk][3])};
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
-        const float* v0 = reinterpret_cast<const float*>(vs) + (8 * kk + 2 * q) * LD + g;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(__float_as_uint(v0[8 * n]), bh0, bl0);
-          split_tf32(__float_as_uint(v0[LD + 8 * n]), bh1, bl1);
-          mma_3xtf32(o[n], ah, al, bh0, bh1, bl0, bl1);
-        }
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(__float_as_uint(v0[8 * n]), bh0, bl0);
+        split_tf32(__float_as_uint(v0[LD + 8 * n]), bh1, bl1);
+        mma_3xtf32(o[n], ah, al, bh0, bh1, bl0, bl1);
       }
     }
   }
   if (!active) return;
-  T* out_b = out + (size_t)b * seq * width + h * D;
+  float* out_b = out + (size_t)b * seq * width + h * D;
   const int row0 = r0 + lane / 4;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -682,31 +902,27 @@ attention_fwd_streamed(const T* __restrict__ qkv, T* __restrict__ out, int seq, 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (row0 + 8 * r >= seq) continue;
-      T* dst = out_b + (size_t)(row0 + 8 * r) * width + col;
-      if constexpr (kBf16) {
-        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
-      } else {
-        *reinterpret_cast<float2*>(dst) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
-      }
+      *reinterpret_cast<float2*>(out_b + (size_t)(row0 + 8 * r) * width + col) =
+          make_float2(o[n][2 * r], o[n][2 * r + 1]);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_streamed(const void* qkv, void* out, int B, int seq, int width, int heads,
                             float scale, int causal, cudaStream_t stream) {
   cudaError_t e;
-  const size_t smem = streamed_smem<T>(D);
-  if ((e = set_smem(attention_fwd_streamed<T, D>, smem)) != cudaSuccess) return e;
+  const size_t smem = streamed_smem(D);
+  if ((e = set_smem(attention_fwd_streamed<D>, smem)) != cudaSuccess) return e;
   // several blocks an SM only with the largest carveout
-  if ((e = cudaFuncSetAttribute(attention_fwd_streamed<T, D>,
+  if ((e = cudaFuncSetAttribute(attention_fwd_streamed<D>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 cudaSharedmemCarveoutMaxShared)) != cudaSuccess) {
     return e;
   }
   const dim3 grid(B * heads, (round16(seq) + kStreamRows - 1) / kStreamRows);
-  attention_fwd_streamed<T, D><<<grid, kStreamThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), seq, width, heads, scale, causal);
+  attention_fwd_streamed<D><<<grid, kStreamThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), seq, width, heads, scale, causal);
   return cudaGetLastError();
 }
 
@@ -740,39 +956,40 @@ cudaError_t launch_f32(const void* qkv, void* out, int B, int seq, int width, in
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_resident(const void* qkv, void* out, int B, int seq, int width, int heads,
-                            float scale, int causal, cudaStream_t stream) {
+template <int D, bool kResident>
+cudaError_t launch_wgmma(const void* qkv, void* out, int B, int seq, int width, int heads,
+                         float scale, int causal, cudaStream_t stream) {
   cudaError_t e;
   int dev, sms;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
     return e;
   }
-  const int nw = resident_warps(seq, B * heads, sms), tiles = round16(seq) / 16;
-  const size_t smem = resident_smem(seq, nw, D);
-  if ((e = set_smem(attention_fwd_resident<D>, smem)) != cudaSuccess) return e;
+  const int groups = wgmma_groups(seq, B * heads, sms);
+  const int tiles = (seq + kWgRows - 1) / kWgRows;
+  const size_t smem = wgmma_smem(seq, groups, D);
+  if ((e = set_smem(attention_fwd_wgmma<D, kResident>, smem)) != cudaSuccess) return e;
   // two blocks an SM only with the largest carveout
-  if ((e = cudaFuncSetAttribute(attention_fwd_resident<D>,
+  if ((e = cudaFuncSetAttribute(attention_fwd_wgmma<D, kResident>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 cudaSharedmemCarveoutMaxShared)) != cudaSuccess) {
     return e;
   }
-  attention_fwd_resident<D><<<dim3(B * heads, (tiles + nw - 1) / nw), 32 * nw, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), seq, width, heads, scale, causal);
+  attention_fwd_wgmma<D, kResident>
+      <<<dim3(B * heads, (tiles + groups - 1) / groups), 128 * groups, smem, stream>>>(
+          static_cast<const bf16*>(qkv), static_cast<bf16*>(out), seq, width, heads, scale,
+          causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch_kc(const void* qkv, void* out, int B, int seq, int width, int heads,
                         float scale, int causal, int dtype, cudaStream_t stream) {
-  if (seq > resident_max_seq(dtype)) {
-    return dtype == 0
-               ? launch_streamed<float, D>(qkv, out, B, seq, width, heads, scale, causal, stream)
-               : launch_streamed<bf16, D>(qkv, out, B, seq, width, heads, scale, causal, stream);
-  }
   if (seq > kShortMaxSeq) {
-    return launch_resident<D>(qkv, out, B, seq, width, heads, scale, causal, stream);
+    if (dtype == 0) return launch_streamed<D>(qkv, out, B, seq, width, heads, scale, causal, stream);
+    return seq > kResidentMaxSeq
+               ? launch_wgmma<D, false>(qkv, out, B, seq, width, heads, scale, causal, stream)
+               : launch_wgmma<D, true>(qkv, out, B, seq, width, heads, scale, causal, stream);
   }
 #define MNT_ARGS qkv, out, B, seq, width, heads, scale, causal, stream
   if (dtype == 0) {  // fp32: KC = round16(T)
@@ -805,10 +1022,9 @@ extern "C" {
 // bfloat16) needs at most; the wrapper checks it against the card's limit
 // before launching.  Above the resident length it no longer depends on seq.
 size_t mnt_attention_fwd_smem(int seq, int head_dim, int dtype) {
-  if (seq > resident_max_seq(dtype)) {
-    return dtype == 0 ? streamed_smem<float>(head_dim) : streamed_smem<bf16>(head_dim);
+  if (seq > kShortMaxSeq) {
+    return dtype == 0 ? streamed_smem(head_dim) : wgmma_smem(seq, kWgMaxGroups, head_dim);
   }
-  if (seq > kShortMaxSeq) return resident_smem(seq, kResMaxWarps, head_dim);
   return dtype == 0 ? f32_smem(seq, head_dim) : bf16_smem(seq, head_dim);
 }
 

@@ -8,7 +8,8 @@ per call (20 calls captured in one CUDA graph, replayed), beside
 `scaled_dot_product_attention` on the same inputs (forward alone for K1;
 forward + backward through autograd for K2), the bound (`chip_smoke.bound`:
 bytes over the HBM rate or operations over the peak, fp32 as 3xTF32) and
-bound / ms.  Then one bf16 VPT training step at ViT-L/14's full width with
+bound / ms, K1's error against its plain version, a digest of its output's
+bits and the most shared memory a block of it takes.  Then one bf16 VPT training step at ViT-L/14's full width with
 an 80-token prompt (T = 337, the vision tower over a 16-row batch, random
 weights, lr 0) in the per-step loop: wall ms on the host clock, and under
 torch.profiler the device busy ms and K1's and K2's ms a step.
@@ -20,7 +21,7 @@ and, to show that they did not move, at a few lengths up to 128 and past
 and the device encode of a 256-image bf16 batch by ViT-L/14's vision tower
 (T = 257), each with K1's ms; each K1 case carries a digest of the
 output's bits, so that two trees' runs show whether they compute the same
-bits.
+bits, and the most shared memory a block of it takes.
 
 With --k2-fp32, K2 alone in fp32 above 128 tokens: at the smoke's phase-3
 lengths (129, 261, 273, 288, 320 at ViT-L/14's width, LONG_SHAPES and the
@@ -117,9 +118,9 @@ def smoke_helpers():
 
 
 def ptxas(_cuda, libs, forms):
-    """{kernel<type, D[, KC]>: [registers, spill-store bytes]} of the entry
-    points of `libs` whose names hold one of `forms`, from the compiler's
-    report beside the libraries."""
+    """{kernel<type, D[, KC or resident]>: [registers, spill-store bytes]}
+    of the entry points of `libs` whose names hold one of `forms`, from the
+    compiler's report beside the libraries."""
     import re
 
     out = {}
@@ -130,7 +131,7 @@ def ptxas(_cuda, libs, forms):
                 continue
             kernel = re.search(r"\d((?:attention|twophase)\w*?)I", name).group(1)
             kind = "bf16, " if "bfloat16Li" in name else "f32, " if "IfLi" in name else ""
-            ints = ", ".join(re.findall(r"Li(\d+)E", name))
+            ints = ", ".join(re.findall(r"L[ib](\d+)E", name))
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores", block)
             out[f"{kernel}<{kind}{ints}>"] = [int(regs.group(1)) if regs else None,
@@ -141,7 +142,11 @@ def ptxas(_cuda, libs, forms):
 def kernel_cases(torch, smoke, reps: int):
     import torch.nn.functional as F
 
-    from menghini_neurips23_tpu_torch.ops.attention import attention_bwd, fused_attention
+    from menghini_neurips23_tpu_torch.ops.attention import (
+        attention_bwd,
+        attention_reference,
+        fused_attention,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -156,6 +161,9 @@ def kernel_cases(torch, smoke, reps: int):
             causal = mask == "causal"
             pairs = T * (T + 1) // 2 if causal else T * T
             size = qkv.element_size()
+            out = fused_attention(qkv, mask, H)
+            err = (out.float() - attention_reference(qkv, mask, H).float()).abs().max().item()
+            bits = digest(torch, out)
             fwd = smoke.device_ms(torch, lambda: fused_attention(qkv, mask, H), reps)
             sdpa_fwd = smoke.device_ms(torch, lambda: F.scaled_dot_product_attention(
                 *heads, is_causal=causal), reps)
@@ -166,7 +174,8 @@ def kernel_cases(torch, smoke, reps: int):
             bb, bb_by = smoke.bound(B * T * 7 * W * size, 10 * B * H * D * pairs, dname)
             case = {"shape": [B, T, W, H], "mask": mask, "dtype": dname,
                     "k1_ms": fwd, "k1_sdpa_ms": sdpa_fwd, "k1_bound_ms": fb, "k1_bound_by": fb_by,
-                    "k1_share": fb / fwd,
+                    "k1_share": fb / fwd, "k1_max_abs_err": err, "k1_digest": bits,
+                    "k1_smem_max": smem_max(torch, T, D, dt),
                     "k2_ms": bwd, "k2_sdpa_ms": sdpa_bwd, "k2_bound_ms": bb, "k2_bound_by": bb_by,
                     "k2_share": bb / bwd}
             print("  " + json.dumps(case), flush=True)
@@ -199,6 +208,7 @@ def resident_cases(torch, smoke, reps: int):
             case = {"shape": [B, T, W, H], "mask": mask, "dtype": dname, "k1_ms": fwd,
                     "k1_sdpa_ms": sdpa, "k1_bound_ms": fb, "k1_bound_by": fb_by,
                     "k1_share": fb / fwd, "k1_digest": bits,
+                    "k1_smem_max": smem_max(torch, T, D, dt),
                     "guard": (B, T, W, H, mask) in GUARD_SHAPES}
             print("  " + json.dumps(case), flush=True)
             cases.append(case)
@@ -305,6 +315,16 @@ def short_fp32_cases(torch, smoke, reps: int):
         cases.append(case)
         del qkv, heads, out, ref, diff
     return cases
+
+
+def smem_max(torch, T, D, dt) -> int:
+    """The most dynamic shared memory a block of K1 takes at (T, D, dt), as
+    the tree's library reports it."""
+    from menghini_neurips23_tpu_torch.ops import _cuda
+    from menghini_neurips23_tpu_torch.ops.attention import _DTYPE_CODES, _FWD_SIGNATURES
+
+    return _cuda.library("attention_fwd", _FWD_SIGNATURES).mnt_attention_fwd_smem(
+        T, D, _DTYPE_CODES[dt])
 
 
 def digest(torch, t) -> str:
@@ -656,7 +676,8 @@ def main(argv=None) -> int:
         out["encode"] = encode_256(torch, smoke, runtime[1])
         out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)
     else:
-        out["ptxas"] = ptxas(_cuda, ["attention_fwd", "attention_bwd"], ["streamed", "tiled"])
+        out["ptxas"] = ptxas(_cuda, ["attention_fwd", "attention_bwd"],
+                             ["streamed", "tiled", "wgmma"])
         out["kernels"] = kernel_cases(torch, smoke, args.reps)
         out["vpt_step"] = vpt_step(torch, smoke)
     print(json.dumps(out), flush=True)
