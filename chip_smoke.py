@@ -22,10 +22,10 @@ Phases (one or more lines each; any failure raises and exits non-zero):
   2. build: compiles every kernel (one nvcc per source, all at once) and
      prints ptxas's register report; fails if any entry point spills
      registers, if an entry point of K1's or K2's fp32 form up to 128
-     tokens holds no TF32 HMMA in its SASS, or if one of K1's bf16 form
-     above 128 tokens (attention_fwd_wgmma) holds no HGMMA (warpgroup MMA)
-     in its SASS (cuobjdump), whose registers, spills and any ptxas note on
-     its wgmma it prints
+     tokens holds no TF32 HMMA in its SASS, or if one of K1's forms above
+     128 tokens (bf16 attention_fwd_wgmma, fp32 attention_fwd_tf32) holds
+     no HGMMA (warpgroup MMA) in its SASS (cuobjdump), whose registers,
+     spills and any ptxas note on its wgmma it prints
   3. kernels: each kernel against its plain version on the card, fp32 and
      bf16, at the main path's shapes (K1 and K2 also at ViT-L/14's and up
      to 320 tokens, where neither keeps a T x T tile, K1 also at the frozen
@@ -153,7 +153,7 @@ PKG = "menghini_neurips23_tpu_torch"
 # is FLOPs at the bf16 tensor-core rate.  For fp32 inputs it is 3 x FLOPs at
 # the TF32 rate: an fp32-accurate product on the tensor cores is three TF32
 # products (3xTF32: hi.hi + hi.lo + lo.hi of x = hi + lo), which K3 and K1's
-# streamed form run, as does PyTorch's own fp32 attention; 3 x FLOPs at 494
+# and K2's fp32 forms run, as does PyTorch's own fp32 attention; 3 x FLOPs at 494
 # TFLOP/s is less time than FLOPs at the FMA units' 67, and against the FMA
 # rate a tensor-core kernel would read above 100% of its bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -302,19 +302,23 @@ def phase_build():
         spilled = {f: int(n) for f, n in spills.items() if int(n) > 0}
         if not spills or spilled:
             fail(f"{name}: the ptxas report shows spill stores {spilled or 'nowhere (no report)'}")
-    # K1's bf16 form above 128 tokens: each entry point's registers and
-    # spill stores, and what ptxas says of its wgmma (a serialised pipeline)
+    # K1's forms above 128 tokens on warpgroup MMA (bf16 and fp32): each
+    # entry point's registers and spill stores, and what ptxas says of its
+    # wgmma (a serialised pipeline)
     report = _cuda.build_log("attention_fwd")
-    wg_ptxas = {}
-    for block in report.split("Compiling entry function ")[1:]:
-        sym = re.match(r"'([^']+)'", block).group(1)
-        if "attention_fwd_wgmma" in sym:
-            regs = re.search(r"Used (\d+) registers", block)
-            spill = re.search(r"(\d+) bytes spill stores", block)
-            wg_ptxas[f"attention_fwd_wgmma<{', '.join(re.findall(r'L[ib](\d+)E', sym))}>"] = [
-                int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
-    log(f"  attention_fwd_wgmma ptxas [registers, spill stores] by entry point <D, resident>: "
-        f"{json.dumps(wg_ptxas)}")
+    for fn, params in (("attention_fwd_wgmma", "<D, resident>"), ("attention_fwd_tf32", "<D>")):
+        wg_ptxas = {}
+        for block in report.split("Compiling entry function ")[1:]:
+            sym = re.match(r"'([^']+)'", block).group(1)
+            if fn in sym:
+                regs = re.search(r"Used (\d+) registers", block)
+                spill = re.search(r"(\d+) bytes spill stores", block)
+                wg_ptxas[f"{fn}<{', '.join(re.findall(r'L[ib](\d+)E', sym))}>"] = [
+                    int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
+        log(f"  {fn} ptxas [registers, spill stores] by entry point {params}: "
+            f"{json.dumps(wg_ptxas)}")
+        if not wg_ptxas:
+            fail(f"{fn}: no entry point in the ptxas report")
     for line in report.splitlines():
         if "wgmma.mma_async" in line or "Performance Loss" in line:
             log(f"  ptxas: {line.strip()}")
@@ -322,10 +326,11 @@ def phase_build():
     # tensor cores as 3xTF32: each entry point's SASS must hold HMMA (TF32
     # mma.sync) instructions; its FFMA count (the softmax's and dS's fused
     # multiply-adds, not a product's main loop) is printed beside them.
-    # K1's bf16 form above 128 tokens runs both products on warpgroup MMA:
-    # each entry point's SASS must hold HGMMA instructions (its HMMA, the
-    # mma.sync kind, printed beside them).  cuobjdump comes with nvcc (or
-    # with Triton's package); without it the check cannot pass.
+    # K1's forms above 128 tokens (bf16, and fp32 as 3xTF32) run both
+    # products on warpgroup MMA: each entry point's SASS must hold HGMMA
+    # instructions (its HMMA, the mma.sync kind, printed beside them).
+    # cuobjdump comes with nvcc (or with Triton's package); without it the
+    # check cannot pass.
     import importlib.util
 
     triton = importlib.util.find_spec("triton")
@@ -342,7 +347,8 @@ def phase_build():
                "FFMA"),
               ("attention_bwd", "attention_bwd_f32", r"\bHMMA\.\S*TF32", "HMMA TF32", r"\bFFMA\b",
                "FFMA"),
-              ("attention_fwd", "attention_fwd_wgmma", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.", "HMMA"))
+              ("attention_fwd", "attention_fwd_wgmma", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.", "HMMA"),
+              ("attention_fwd", "attention_fwd_tf32", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.", "HMMA"))
     sass = {}
     for name, fn, need, need_name, beside, beside_name in checks:
         if name not in sass:
@@ -2249,7 +2255,8 @@ def main() -> int:
             vit_l14_long_prompt)
     log("[7] ViT-L/14 VPT in float32, the default type (T = 273)")
     # main_ul visual_fpl fp32, 3 epochs: every step takes K2's fp32 pair, and
-    # K1 streams in fp32 from 129 tokens (the zero-shot pass's T = 257 too)
+    # K1 its fp32 form above 128 tokens (attention_fwd_tf32, counted with the
+    # streamed forms; the zero-shot pass's T = 257 too)
     def vit_l14_fp32():
         key = "ul_visual_fpl_float32@ViT-L/14"
         walls[key], trained[key] = phase_train(
@@ -2335,8 +2342,9 @@ def main() -> int:
               [c for c in attn_cases if c["resident"]],
               lambda c: c["shape"] == [16, 273, 1024, 16] and c["dtype"] == "bfloat16"),
         # the streamed forms (K1: bf16 past 320 tokens, attention_fwd_wgmma
-        # streaming K and V, and fp32 past 128; K2 past 320), headlined at
-        # ViT-L/14 with an 80-token VPT prompt (T = 337, bf16)
+        # streaming K and V, and fp32 past 128, attention_fwd_tf32; K2 past
+        # 320), headlined at ViT-L/14 with an 80-token VPT prompt (T = 337,
+        # bf16)
         entry("attention_fwd_streamed", f"{PKG}/csrc/attention_fwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:65",
               [c for c in attn_cases if c["streamed"]],

@@ -51,7 +51,7 @@
 //   shuffles, and P = exp(s - m) * (1/l) is rounded to bf16 straight into
 //   the A fragments of P.V;
 // - fp32, on the tensor cores as 3xTF32 (mma.sync m16n8k8, split_tf32 and
-//   mma_3xtf32 in attention_common.cuh, as the streamed form): the warp's S
+//   mma_3xtf32 in attention_common.cuh): the warp's S
 //   stays in the accumulators, in base 2 (D^-0.5 * log2(e) folded into the
 //   scale, one ex2 a score), and P = 2^(s - m) * (1/l), normalised in fp32,
 //   goes from there into the A fragments of P.V (the keys 2q, 2q + 1 of a
@@ -109,30 +109,51 @@
 // two thirds; overlapping a chunk's halves inside a warpgroup measured no
 // faster).
 
-// fp32 above 128 tokens streams K and V from device memory
-// (attention_fwd_streamed); holding the head resident would take 174 KB
-// at 320 and one block an SM:
-// - a block per (batch row, head, 64-query tile), a warp per 16 rows; both
-//   sweeps are one stream of steps over the block's key chunks (sweep 1
-//   stages K alone, sweep 2 K and V) through a cp.async ring, the chunk of
-//   step + stages - 1 landing while step computes, one barrier a step;
-//   the block's shared memory does not depend on T (3 stages of 32-key
-//   chunks, 70 KB, three blocks and 12 warps an SM);
-// - the base-2 softmax and recomputed scores of the bf16 form;
-// - every product as 3xTF32 on mma.sync m16n8k8 (attention_common.cuh):
-//   each operand x = hi + lo (hi rounded to TF32 as cvt.rna.tf32.f32
-//   rounds, lo the rest cut to TF32), every product lo.hi + hi.lo + hi.hi
-//   summed in a zeroed tile and then added to the fp32 accumulator, so the
-//   tensor cores' truncating adders see short sums; P stays fp32 and is
-//   split like any operand; its A fragments come from the scores'
-//   accumulators with the keys of a k-step in the order (2q, 2q + 1) for k
-//   = (q, q + 4), and V is read in that order.  Why three products: one
-//   TF32 product keeps 10 fraction bits, and this schedule over T = 337
-//   keys at D = 64 then errs by 3.4e-4 against the JAX package's forward,
-//   past the 1e-5 the kernel is held to; hi.hi + hi.lo + lo.hi leaves out
-//   only lo.lo (2^-22 of a product) and errs by 5.7e-7, about what two
-//   fp32 sums in different orders differ by
-//   (tests/test_torch_port_streamed.py emulates both).
+// fp32 above kShortMaxSeq (ViT-L/14's vision tower at the default type:
+// 257 tokens for the frozen passes, 273 for VPT, 261 for UPT;
+// attention_fwd_tf32) runs on warpgroup MMA as 3xTF32, on the bf16 form's
+// 64-row tiles, 64-key chunks and two sweeps (replacing a 3xTF32 kernel on
+// mma.sync m16n8k8, which Ampere has, at 1.0-1.25x SDPA's forward and
+// 0.10-0.16 of its bound, held by the instructions that split every
+// fragment into hi and lo in every warp at every product).  What bounds it on an H100:
+// operations, 3 x FLOPs at the TF32 rate (the two sweeps form S twice, so
+// the design's own floor is 1.5x that, and a 64-row tile over T = 257
+// computes 320 rows and keys).  The design:
+// - every product is hi.hi + hi.lo + lo.hi of x = hi + lo (hi x rounded to
+//   TF32 as split_tf32 rounds it, lo = x - hi exactly, of which the tensor
+//   cores read the top bits), m64nNk8 tf32;
+// - 32-bit operands of wgmma are K-major only (no transpose bit), and B
+//   comes from shared memory: S = q . K^T takes q and K's chunk from shared
+//   memory as they land (rows [row][d]), P.V takes P from registers and V^T
+//   (rows [d][key]).  The split lives in shared memory as planes: the block
+//   turns each landed tile of q and K into its hi in place and writes its lo
+//   beside it, and transposes V's landed rows through registers into V^T's
+//   two planes, each 8-key group in the order (0, 2, 4, 6, 1, 3, 5, 7), the
+//   k order of P's A fragment taken straight from the scores' accumulators
+//   (which is mma.sync's m16n8k8 A layout a warp);
+// - an fp32 row of D = 64 is 256 bytes, two swizzle atoms: q's and K's
+//   tiles are cut along d into sub-tiles of 32 floats (128-byte rows,
+//   128-byte swizzle; D = 16 one of 64 bytes), V^T's along the keys into two
+//   of 32;
+// - the tensor cores' adders truncate: each product sums its small terms
+//   first (lo.hi, then hi.lo, then hi.hi), and each chunk's P.V goes into a
+//   zeroed tile that is then added to O in fp32, so no chain of truncating
+//   additions runs over more than a chunk;
+// - three warpgroups a block share each chunk's planes (q's two planes a
+//   warpgroup, two stages of K, K's lo plane, V^T's two, V's landing rows:
+//   194 KB at D = 64, one block an SM), the next chunk landing while this
+//   one computes; 4 x 32 fp32 registers a thread at D = 64 (S and then P's
+//   hi fragments, P's lo, the chunk's P.V, O) would just exceed the 168
+//   that 384 threads an SM leave (28 bytes of spills), so P.V takes each
+//   chunk in two halves of 32 keys, each waited for before the next half's
+//   fragments are formed (163 registers, and no slower).
+// Why three products: one TF32 product keeps 10 fraction bits, and the
+// schedule over T = 337 keys at D = 64 then errs by 3.2e-4 (1.2e-3 causal)
+// against the JAX package's forward, past the 1e-5 the kernel is held to;
+// hi.hi + hi.lo + lo.hi leaves out lo.lo and the bits below lo and errs by
+// 6.0e-7 (7.7e-7) in the emulation, 2-2.5e-6 on the card, where the
+// tensor cores' adders truncate (tests/test_torch_port_wgmma_tf32.py
+// emulates both).
 
 #include "attention_common.cuh"
 
@@ -144,7 +165,7 @@ using namespace mnt;
 // Up to kShortMaxSeq keys a warp's scores stay in its registers (one block
 // a (row, head), a warp per 16-row tile); above that bf16 runs on warpgroup
 // MMA, holding K and V resident in shared memory up to kResidentMaxSeq keys
-// and streaming them past it, and fp32 streams them.
+// and streaming them past it, and fp32 runs on it as 3xTF32, streaming them.
 constexpr int kShortMaxSeq = 128;
 constexpr int kResidentMaxSeq = 320;
 
@@ -194,16 +215,23 @@ int wgmma_groups(int seq, int rows_x_heads, int sms) {
   return blocks < (long long)kWgBlocks * sms ? 1 : kWgMaxGroups;
 }
 
-// fp32 streamed (past kShortMaxSeq): a block of kStreamRows query rows, a
-// warp per 16; chunks of kStreamKeys keys in a ring of kStreamStages (70 KB
-// at D = 64, three blocks, 12 warps an SM).  Rows are padded to D + 4
-// floats (16-byte multiples, free of bank conflicts for the P.V's column
-// reads of V).
-constexpr int kStreamRows = 64;
-constexpr int kStreamThreads = 2 * kStreamRows;
-constexpr int kStreamKeys = 32, kStreamStages = 3, kStreamBlocks = 3;
-size_t streamed_smem(int D) {
-  return (kStreamRows + 2 * kStreamKeys * kStreamStages) * (size_t)(D + 4) * sizeof(float);
+// fp32 above kShortMaxSeq (attention_fwd_tf32), on attention_fwd_wgmma's
+// 64-row tiles and 64-key chunks: warpgroups a block (they share each
+// chunk's planes; one block an SM at D = 64, so three warpgroups there in
+// up to 168 registers a thread), and the bytes of a 64-row fp32 tile (q or
+// a chunk of K) and of a chunk of V^T
+constexpr int kTfGroups = 3;
+__host__ __device__ constexpr int tf_tile_bytes(int D) { return kWgRows * 4 * D; }
+__host__ __device__ constexpr int tf_vt_bytes(int D) { return D * 4 * kWgKeys; }
+
+// a block's shared memory: 1 KB to align the tiles to the swizzle's
+// 1024-byte period, q's hi and lo planes a warpgroup, K's chunk in two
+// stages and its lo plane, V^T's hi and lo planes, and V's landing rows
+// (D + 4 floats, free of bank conflicts for the transposing reads):
+// 198,656 bytes at D = 64
+size_t tf32_smem(int D) {
+  return 1024 + (size_t)(2 * kTfGroups + 3) * tf_tile_bytes(D) + 2 * (size_t)tf_vt_bytes(D) +
+         (size_t)kWgKeys * (D + 4) * sizeof(float);
 }
 
 // ------------------------------------------------------------------ bf16
@@ -421,27 +449,37 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of (row, 16-byte piece) in a tile of rows of 2D bytes, with the
-// hardware's swizzle for that row width (128, 64 or 32 bytes: one atom a
-// row): bits 4.. of the offset XOR bits 7.. (3, 2 or 1 of them).  The tile
+// Byte offset of (row, 16-byte piece) in a tile of rows of kRowBytes (128,
+// 64 or 32: one swizzle atom a row), with the hardware's swizzle for that
+// width: bits 4.. of the offset XOR bits 7.. (3, 2 or 1 of them).  The tile
 // starts on a multiple of 1024 bytes, so the offset's bits are the
 // address's.
-template <int D>
-__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
-  return off ^ (((off >> 7) & (D / 8 - 1)) << 4);
+template <int kRowBytes>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  return off ^ (((off >> 7) & (kRowBytes / 16 - 1)) << 4);
 }
 
 // Matrix descriptor of a tile (or of its part from `addr` on) in that
 // layout: the start address, the byte offsets between 8-row groups (both
-// fields, 8 rows x 2D bytes: a K-major operand reads one as the stride
+// fields, 8 rows x kRowBytes: a K-major operand reads one as the stride
 // between groups of rows, a transposed one as the stride between groups
 // of k; the other offset spans swizzle atoms across the row, and a row is
 // one atom), and the swizzle mode (1: 128 bytes, 2: 64, 3: 32).
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t kMode = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  constexpr uint64_t kGroup = (8 * kRowBytes) >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kGroup << 16) | (kGroup << 32) | (kMode << 62);
+}
+
+// the bf16 tiles: rows of D values, 2D bytes
+template <int D>
+__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
+  return swizzle<2 * D>(off);
+}
 template <int D>
 __device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
-  constexpr uint64_t kMode = D == 64 ? 1 : D == 32 ? 2 : 3;
-  constexpr uint64_t kGroup = (8 * 2 * D) >> 4;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kGroup << 16) | (kGroup << 32) | (kMode << 62);
+  return smem_desc<2 * D>(addr);
 }
 
 // Rows [0, rows) of a strided (rows, D) bf16 slice into the tile at `tile`
@@ -778,151 +816,404 @@ attention_fwd_wgmma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int se
             pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
 }
 
-// ------------------------------------------------------------ streamed
+// ------------------------------------------------------------ wgmma, tf32
 
-// fp32 past kShortMaxSeq.  Block (batch row x head, 64-query tile), a warp
-// per 16 rows.  The two sweeps are one stream of 2 * nch steps over the
-// block's chunks (causal: up to its last row's diagonal): steps 0 .. nch -
-// 1 stage K alone and take each row's online max m and sum l (base 2:
-// scale2 = D^-0.5 * log2(e) is folded into the scores, P = 2^(s - m));
-// steps nch .. 2 nch - 1 stage K and V, recompute the scores and add the
-// normalised P = 2^(s - m) / l times V.  Chunk step + kStreamStages - 1 is
-// staged while step computes, behind one barrier a step.  Every product as
-// 3xTF32 on m16n8k8; P.V takes P from the scores' accumulators with the
-// chunk's keys in the order (n0 + 2q, n0 + 2q + 1) for the fragment's k =
-// (q, q + 4), and V's column reads in that order.
+// d (+)= A . B^T: m64n64k8, tf32 (fp32 operands, of which the tensor cores
+// read the TF32 bits), A (64 x 8) and B (64 keys x 8) both from shared
+// memory, K-major (the only layout 32-bit operands take); kScaleD 0
+// overwrites d
+template <int kScaleD>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "n"(kScaleD));
+}
+
+// d (+)= A . B: m64n(D)k8, tf32, A (64 x 8) from registers in mma.sync's
+// m16n8k8 A layout a warp, B (8 keys x D) from shared memory stored as
+// B^T (rows [d][key], K-major)
+template <int D, int kScaleD>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  if constexpr (D == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScaleD));
+  } else if constexpr (D == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScaleD));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScaleD));
+  }
+}
+
+// x = hi + lo, 4 values: hi = x rounded to TF32 as split_tf32 rounds it (a
+// value the tensor cores read whole) and lo = x - hi exactly (of which they
+// read the top bits).  Cutting hi instead (split_tf32_trunc) saves two
+// integer operations a value and doubled the kernel's error on the card.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) {
+  hi = make_float4(__uint_as_float(tf32_round(x.x)), __uint_as_float(tf32_round(x.y)),
+                   __uint_as_float(tf32_round(x.z)), __uint_as_float(tf32_round(x.w)));
+  lo = make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w);
+}
+
+// Byte offset of (row r, 16-byte piece c) in a 64-row K-major fp32 tile of D
+// floats a row (q, or a chunk of K), as wgmma reads it: cut along d into
+// sub-tiles of tf_sub(D) floats (one 128- or 64-byte swizzle atom a row),
+// each 64 rows apart
+__host__ __device__ constexpr int tf_sub(int D) { return D < 32 ? D : 32; }
 template <int D>
-__global__ void __launch_bounds__(kStreamThreads, kStreamBlocks)
-attention_fwd_streamed(const float* __restrict__ qkv, float* __restrict__ out, int seq,
-                       int width, int heads, float scale, int causal) {
+__device__ __forceinline__ uint32_t tf_offset(int r, int c) {
+  constexpr int kRowBytes = 4 * tf_sub(D), kPieces = tf_sub(D) / 4;
+  return (c / kPieces) * kWgRows * kRowBytes +
+         swizzle<kRowBytes>(r * kRowBytes + (c % kPieces) * 16);
+}
+
+// Rows [0, rows) of a strided (rows, D) fp32 slice into consecutive 64-row
+// tiles at `tile` (a shared address) in that layout; rows >= valid are
+// zero-filled
+template <int D>
+__device__ __forceinline__ void stage_tf32(uint32_t tile, const float* gmem, size_t stride,
+                                           int valid, int rows, int tid, int nthreads) {
+  constexpr int kPieces = D / 4;  // 16-byte pieces a row
+  for (int idx = tid; idx < rows * kPieces; idx += nthreads) {
+    const int r = idx / kPieces, c = idx % kPieces;
+    const bool ok = r < valid;
+    const uint32_t dst = tile + (r / kWgRows) * tf_tile_bytes(D) + tf_offset<D>(r % kWgRows, c);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(gmem + (ok ? r * stride + c * 4 : 0)), "r"(ok ? 16 : 0));
+  }
+}
+
+// A landed tile's two planes: each value x of [hi, hi + bytes) becomes its
+// hi in place and its lo at the same offset from `lo` (an elementwise map,
+// so the swizzle does not matter)
+__device__ __forceinline__ void split_planes(float* hi, float* lo, int bytes, int tid,
+                                             int nthreads) {
+  for (int i = tid; i < bytes / 16; i += nthreads) {
+    float4 h, l;
+    split4(reinterpret_cast<const float4*>(hi)[i], h, l);
+    reinterpret_cast<float4*>(hi)[i] = h;
+    reinterpret_cast<float4*>(lo)[i] = l;
+  }
+}
+
+// V's landed chunk (rows [key][d], D + 4 floats a row) into V^T's two
+// planes, the B operand of P.V: rows d, the chunk's 64 keys along k in two
+// sub-tiles of 32 (128-byte rows, swizzled, D rows apart), each 8-key group
+// in the order (0, 2, 4, 6, 1, 3, 5, 7), which is the k order of P's A
+// fragment taken from the scores' accumulators (keys 2q, 2q + 1 of the
+// group as k = q, q + 4).  A thread writes one 16-byte piece of each plane
+// (four keys of one d, read from four rows); a warp's lanes take 32
+// consecutive d, so the reads are one row each and the writes fill the
+// banks.
+template <int D>
+__device__ __forceinline__ void transpose_v(const float* vrows, float* vt, float* vt_lo, int tid,
+                                            int nthreads) {
+  constexpr int LD = D + 4;
+  for (int idx = tid; idx < D * kWgKeys / 4; idx += nthreads) {
+    const int d = idx % D, piece = idx / D;  // piece 2j + h: keys 8j + h + (0, 2, 4, 6)
+    const float* src = vrows + (8 * (piece >> 1) + (piece & 1)) * LD + d;
+    float4 h, l;
+    split4(make_float4(src[0], src[2 * LD], src[4 * LD], src[6 * LD]), h, l);
+    const uint32_t off = (piece / 8) * D * 128 + swizzle<128>(d * 128 + (piece % 8) * 16);
+    *reinterpret_cast<float4*>(reinterpret_cast<unsigned char*>(vt) + off) = h;
+    *reinterpret_cast<float4*>(reinterpret_cast<unsigned char*>(vt_lo) + off) = l;
+  }
+}
+
+// fp32, T > kShortMaxSeq.  Block (batch row x head, kTfGroups 64-row query
+// tiles), a warpgroup per tile, every product 3xTF32 on warpgroup MMA:
+// hi.hi + hi.lo + lo.hi of x = hi + lo, hi rounded to TF32 and lo the rest.
+// Shared memory, from a 1024-byte boundary: q's hi and lo planes (a tile
+// each a warpgroup), two stages of K's chunk (its hi plane), K's lo plane,
+// V^T's hi and lo planes, V's landing rows.  The two sweeps are one stream
+// of 2 * nch steps over the block's 64-key chunks (causal: up to its last
+// row's diagonal), each behind two barriers: the step's chunk has landed
+// (K, and in sweep 2 V); the block splits it into its planes (q's too at
+// step 0), fences them for the async proxy and meets again; then the next
+// chunk is staged while this one computes.  Steps 0 .. nch - 1 take each
+// row's online max m and sum l of 2^((s - m) scale2); steps nch .. 2 nch -
+// 1 recompute the scores and add P = 2^((s - m) scale2) / l, in fp32, times
+// V, each chunk's P.V summed in a zeroed tile (in two halves of 32 keys,
+// each waited for: registers) and then added to O.  Each product sums its
+// two small terms first: the tensor cores' adders truncate, and the large
+// sum then takes the fewest additions.
+template <int D>
+__global__ void __launch_bounds__(128 * kTfGroups, 1)
+attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int seq, int width,
+                   int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int KC = kStreamKeys, S = kStreamStages, LD = D + 4;
+  constexpr int TILE = tf_tile_bytes(D), VT = tf_vt_bytes(D), NO = D / 2, KS = D / 8;
+  constexpr int kRowBytes = 4 * tf_sub(D), kStepsSub = tf_sub(D) / 8;  // k-steps a sub-tile
   const float scale2 = scale * 1.4426950408889634f;  // log2(e)
-  const int tp = round16(seq);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rb = kStreamRows * blockIdx.y, r0 = rb + 16 * warp;
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ring = qs + kStreamRows * LD;  // stage i: KC rows of K, then KC of V
+  const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid % 32;
+  // the warp's index broadcast from lane 0 (attention_fwd_wgmma says why)
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int wg = warp_id / 4, warp = warp_id % 4, groups = nthreads / 128;
+  const int rows = kWgRows * groups;  // the block's query rows
+  const int rb = rows * blockIdx.y, rt = rb + kWgRows * wg, r0 = rt + 16 * warp;
+  const uint32_t raw = smem_u32(smem_raw), qh = (raw + 1023) & ~1023u;
+  const uint32_t ql = qh + groups * TILE, kh = ql + groups * TILE, kl = kh + 2 * TILE;
+  const uint32_t vt = kl + TILE, vt_lo = vt + VT, vrows = vt_lo + VT;
+  auto at = [&](uint32_t addr) { return reinterpret_cast<float*>(smem_raw + (addr - raw)); };
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
-  const bool active = r0 < tp;
-  const int kend = causal ? min(tp, r0 + 16) : tp;  // the keys this warp's rows see
-  const int nch = ((causal ? min(tp, rb + kStreamRows) : tp) + KC - 1) / KC;
+  const int nch = ((causal ? min(seq, rb + rows) : seq) + kWgKeys - 1) / kWgKeys;
   const int steps = 2 * nch;
-  auto stage = [&](int step) {
+  const bool active = rt < seq;                             // the warpgroup has rows
+  const bool live = r0 < seq;                               // the warp has rows
+  const int kend = causal ? min(seq, rt + kWgRows) : seq;  // the keys the tile's rows see
+  const int row = r0 + lane / 4, q2 = 2 * (lane & 3);
+  const int last[2] = {causal ? min(seq - 1, row) : seq - 1,
+                       causal ? min(seq - 1, row + 8) : seq - 1};
+
+  auto chunk0 = [&](int step) { return (step < nch ? step : step - nch) * kWgKeys; };
+  auto stage = [&](int step) {  // sweep 1 stages K, sweep 2 K and V
     if (step >= steps) return;
-    const int c0 = (step < nch ? step : step - nch) * KC;
-    float* dst = ring + (step % S) * 2 * KC * LD;
-    stage_rows<float, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, KC, tid,
-                         kStreamThreads);
+    const int c0 = chunk0(step);
+    stage_tf32<D>(kh + (step & 1) * TILE, base + width + c0 * stride, stride, seq - c0, kWgKeys,
+                  tid, nthreads);
     if (step >= nch) {
-      stage_rows<float, D>(dst + KC * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
-                           KC, tid, kStreamThreads);
+      stage_rows<float, D>(at(vrows), D + 4, base + 2 * width + c0 * stride, stride, seq - c0,
+                           kWgKeys, tid, nthreads);
     }
   };
-  // group 0: the block's q rows and step 0; then steps 1 .. S - 2
-  stage_rows<float, D>(qs, LD, base + rb * stride, stride, seq - rb, kStreamRows, tid,
-                       kStreamThreads);
+  stage_tf32<D>(qh, base + rb * stride, stride, seq - rb, rows, tid, nthreads);
   stage(0);
   cp_async_commit();
-#pragma unroll
-  for (int i = 1; i < S - 1; ++i) {
-    stage(i);
-    cp_async_commit();
-  }
 
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
-  float o[D / 8][4] = {};
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<S - 2>();  // this step's chunk has landed
-    __syncthreads();         // ... for every thread; and step - 1's stage is free
-    stage(step + S - 1);
+  // descriptors: a k-step's offset from a tile's start, its sub-tile's and
+  // its 32 bytes within the row
+  auto k_off = [](int kk) -> uint64_t {
+    return (uint64_t)(((kk / kStepsSub) * kWgRows * kRowBytes + (kk % kStepsSub) * 32) >> 4);
+  };
+  auto v_off = [](int j) -> uint64_t {
+    return (uint64_t)(((j / 4) * D * 128 + (j % 4) * 32) >> 4);
+  };
+  const uint64_t qh_desc = smem_desc<kRowBytes>(qh + wg * TILE);
+  const uint64_t ql_desc = smem_desc<kRowBytes>(ql + wg * TILE);
+  const uint64_t kl_desc = smem_desc<kRowBytes>(kl);
+  const uint64_t vt_desc = smem_desc<128>(vt), vt_lo_desc = smem_desc<128>(vt_lo);
+  // S = q . K^T for the chunk of `step`, waited for; -inf where a key lies
+  // past T or the row's diagonal.  The scores stay unscaled: scale2 is
+  // folded into each exponential's FFMA.
+  auto scores = [&](float(&s)[32], int step) {
+    const uint64_t kh_desc = smem_desc<kRowBytes>(kh + (step & 1) * TILE);
+    wgmma_fence();
+    wgmma_tf32_ss<0>(s, ql_desc, kh_desc);
+#pragma unroll
+    for (int kk = 1; kk < KS; ++kk) wgmma_tf32_ss<1>(s, ql_desc + k_off(kk), kh_desc + k_off(kk));
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_tf32_ss<1>(s, qh_desc + k_off(kk), kl_desc + k_off(kk));
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_tf32_ss<1>(s, qh_desc + k_off(kk), kh_desc + k_off(kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    const int c0 = chunk0(step);
+    if (c0 + kWgKeys > seq || (causal && c0 + kWgKeys - 1 > r0)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * i + q2 + (e & 1) > last[e >> 1]) s[4 * i + e] = -INFINITY;
+    }
+  };
+  // the block's step: the chunk has landed; its planes (and q's at step
+  // 0) split and fenced for wgmma's reads; the next chunk staged behind
+  // the second barrier (K's other stage and V's rows are free by then)
+  auto landed = [&](int step) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (step == 0) split_planes(at(qh), at(ql), groups * TILE, tid, nthreads);
+    split_planes(at(kh + (step & 1) * TILE), at(kl), TILE, tid, nthreads);
+    if (step >= nch) transpose_v<D>(at(vrows), at(vt), at(vt_lo), tid, nthreads);
+    fence_proxy_async();
+    __syncthreads();
+    stage(step + 1);
     cp_async_commit();
-    if (!active) continue;
-    if (step == nch) {  // sweep 1 is done: reduce l over the row's quad
-#pragma unroll
-      for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / group_sum<4>(l[r]);
-    }
-    const int c0 = (step < nch ? step : step - nch) * KC;
-    if (c0 >= kend) continue;
-    const float* ks = ring + (step % S) * 2 * KC * LD;
-    const float* vs = ks + KC * LD;
-    float s[KC / 8][4];
-    scores_tf32<D, KC>(s, qs + (r0 - rb) * LD, ks, c0, kend, seq, r0, causal, scale2, lane, c0);
-    if (step < nch) {
-      // online m and l: m quad-uniform, l lane-partial (key 0, in every
-      // row's first chunk, keeps m finite from there on)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float cm = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < KC / 8; ++n) cm = fmaxf(cm, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-        const float mn = fmaxf(m[r], group_max<4>(cm));
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < KC / 8; ++n) sum += ex2(s[n][2 * r] - mn) + ex2(s[n][2 * r + 1] - mn);
-        l[r] = fmaf(l[r], ex2(m[r] - mn), sum);
-        m[r] = mn;
-      }
-      continue;
-    }
-    // P = 2^(s - m) / l in fp32
-#pragma unroll
-    for (int n = 0; n < KC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - m[e >> 1]) * inv_l[e >> 1];
-    // k-step kk: keys c0 + 8kk + (2q, 2q + 1) as the fragment's k = (q, q + 4)
-    const int q = lane & 3, g = lane / 4;
-#pragma unroll
-    for (int kk = 0; kk < KC / 8; ++kk) {
-      if (c0 + 8 * kk >= kend) break;
-      const uint32_t a[4] = {__float_as_uint(s[kk][0]), __float_as_uint(s[kk][2]),
-                             __float_as_uint(s[kk][1]), __float_as_uint(s[kk][3])};
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
-      const float* v0 = vs + (8 * kk + 2 * q) * LD + g;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(__float_as_uint(v0[8 * n]), bh0, bl0);
-        split_tf32(__float_as_uint(v0[LD + 8 * n]), bh1, bl1);
-        mma_3xtf32(o[n], ah, al, bh0, bh1, bl0, bl1);
-      }
-    }
-  }
-  if (!active) return;
-  float* out_b = out + (size_t)b * seq * width + h * D;
-  const int row0 = r0 + lane / 4;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = 8 * n + 2 * (lane & 3);
+  };
+
+  // sweep 1: online m (the raw scores' max, quad-uniform) and l
+  // (lane-partial) of 2^((s - m) scale2), as attention_fwd_wgmma takes them
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int step = 0; step < nch; ++step) {
+    landed(step);
+    const int c0 = chunk0(step);
+    if (!active || c0 >= kend) continue;
+    float s[32];
+    scores(s, step);
+    if (!live) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (row0 + 8 * r >= seq) continue;
-      *reinterpret_cast<float2*>(out_b + (size_t)(row0 + 8 * r) * width + col) =
-          make_float2(o[n][2 * r], o[n][2 * r + 1]);
+      float cm = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cm = fmaxf(cm, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+      const float mn = fmaxf(m[r], group_max<4>(cm)), mns = mn * scale2;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (c0 + 8 * i < kend) {
+          sum += ex2(fmaf(s[4 * i + 2 * r], scale2, -mns)) +
+                 ex2(fmaf(s[4 * i + 2 * r + 1], scale2, -mns));
+        }
+      }
+      l[r] = fmaf(l[r], ex2(fmaf(m[r], scale2, -mns)), sum);
+      m[r] = mn;
     }
   }
+  float ms[2] = {m[0] * scale2, m[1] * scale2}, inv_l[2] = {0.f, 0.f};
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / group_sum<4>(l[r]);
+  }
+  // sweep 2: P = 2^((s - m) scale2) / l in fp32, split into the hi and lo A
+  // fragments of P.V (k-step j: keys c0 + 8j ..), then the chunk's P.V over
+  // the k-steps the tile's rows see into a zeroed tile, added to O
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  for (int step = nch; step < steps; ++step) {
+    landed(step);
+    const int c0 = chunk0(step);
+    if (!active || c0 >= kend) continue;
+    float s[32];
+    scores(s, step);
+    // the chunk's P.V in two halves of 32 keys, each waited for before the
+    // next half's fragments are formed: all 64 keys' hi and lo fragments at
+    // once spill at D = 64 (and forming one half's while the other is in
+    // flight spills more)
+    float oc[NO];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (half == 1 && c0 + 32 >= kend) break;
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * half + i;
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        if (live && c0 + 8 * j < kend) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = ex2(fmaf(s[4 * j + e], scale2, -ms[e >> 1])) * inv_l[e >> 1];
+          }
+        }
+        // the fragment's k = q, q + 4 are keys 2q, 2q + 1: (row g, row g + 8) each
+        const float x[4] = {p[0], p[2], p[1], p[3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ph[i][e] = tf32_round(x[e]);
+          pl[i][e] = __float_as_uint(x[e] - __uint_as_float(ph[i][e]));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        fence_regs(ph[i]);
+        fence_regs(pl[i]);
+      }
+      wgmma_fence();
+      if (half == 0) {
+        wgmma_tf32_rs<D, 0>(oc, pl[0], vt_desc);
+      } else {
+        wgmma_tf32_rs<D, 1>(oc, pl[0], vt_desc + v_off(4));
+      }
+#pragma unroll
+      for (int i = 1; i < 4; ++i) {
+        const int j = 4 * half + i;
+        if (c0 + 8 * j < kend) wgmma_tf32_rs<D, 1>(oc, pl[i], vt_desc + v_off(j));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * half + i;
+        if (c0 + 8 * j < kend) wgmma_tf32_rs<D, 1>(oc, ph[i], vt_lo_desc + v_off(j));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * half + i;
+        if (c0 + 8 * j < kend) wgmma_tf32_rs<D, 1>(oc, ph[i], vt_desc + v_off(j));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(oc);
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] += oc[i];
+  }
+  if (!live) return;
+  float* out_b = out + (size_t)b * seq * width + h * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < seq)
+        *reinterpret_cast<float2*>(out_b + (size_t)(row + 8 * r) * width + 8 * j + q2) =
+            make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
 }
 
 template <int D>
-cudaError_t launch_streamed(const void* qkv, void* out, int B, int seq, int width, int heads,
-                            float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_tf32(const void* qkv, void* out, int B, int seq, int width, int heads,
+                        float scale, int causal, cudaStream_t stream) {
   cudaError_t e;
-  const size_t smem = streamed_smem(D);
-  if ((e = set_smem(attention_fwd_streamed<D>, smem)) != cudaSuccess) return e;
-  // several blocks an SM only with the largest carveout
-  if ((e = cudaFuncSetAttribute(attention_fwd_streamed<D>,
+  const size_t smem = tf32_smem(D);
+  if ((e = set_smem(attention_fwd_tf32<D>, smem)) != cudaSuccess) return e;
+  if ((e = cudaFuncSetAttribute(attention_fwd_tf32<D>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 cudaSharedmemCarveoutMaxShared)) != cudaSuccess) {
     return e;
   }
-  const dim3 grid(B * heads, (round16(seq) + kStreamRows - 1) / kStreamRows);
-  attention_fwd_streamed<D><<<grid, kStreamThreads, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), seq, width, heads, scale, causal);
+  const int tiles = (seq + kWgRows - 1) / kWgRows;
+  attention_fwd_tf32<D>
+      <<<dim3(B * heads, (tiles + kTfGroups - 1) / kTfGroups), 128 * kTfGroups, smem, stream>>>(
+          static_cast<const float*>(qkv), static_cast<float*>(out), seq, width, heads, scale,
+          causal);
   return cudaGetLastError();
 }
 
@@ -986,7 +1277,7 @@ template <int D>
 cudaError_t dispatch_kc(const void* qkv, void* out, int B, int seq, int width, int heads,
                         float scale, int causal, int dtype, cudaStream_t stream) {
   if (seq > kShortMaxSeq) {
-    if (dtype == 0) return launch_streamed<D>(qkv, out, B, seq, width, heads, scale, causal, stream);
+    if (dtype == 0) return launch_tf32<D>(qkv, out, B, seq, width, heads, scale, causal, stream);
     return seq > kResidentMaxSeq
                ? launch_wgmma<D, false>(qkv, out, B, seq, width, heads, scale, causal, stream)
                : launch_wgmma<D, true>(qkv, out, B, seq, width, heads, scale, causal, stream);
@@ -1023,7 +1314,7 @@ extern "C" {
 // before launching.  Above the resident length it no longer depends on seq.
 size_t mnt_attention_fwd_smem(int seq, int head_dim, int dtype) {
   if (seq > kShortMaxSeq) {
-    return dtype == 0 ? streamed_smem(head_dim) : wgmma_smem(seq, kWgMaxGroups, head_dim);
+    return dtype == 0 ? tf32_smem(head_dim) : wgmma_smem(seq, kWgMaxGroups, head_dim);
   }
   return dtype == 0 ? f32_smem(seq, head_dim) : bf16_smem(seq, head_dim);
 }

@@ -59,12 +59,23 @@ off) and the VPT step with a 16-token prompt (T = 66), each in the per-step
 loop and in the whole-run trainer (10 epochs of 10 steps over the smoke's
 synthetic images), and the device encode of a 256-image batch (T = 50).
 
+With --long-fp32, K1 alone in fp32 above 128 tokens (`attention_fwd_tf32`,
+3xTF32 on warpgroup MMA): at `chip_smoke.py`'s RESIDENT_SHAPES, ViT-L/14's
+two tensor-parallel shards and LONG_SHAPES, beside its plain version and
+SDPA's forward, with the bound, the bound share, the error against the
+plain version, whether two launches give the same bits and a digest of
+them, and at guard shapes that should not move (bf16 at 257, 273 and 337
+tokens, fp32 at 50 and 77), each with its digest; then the fp32 VPT step at
+ViT-L/14 with a 16-token prompt (T = 273) in the per-step loop (busy ms,
+K1's and K2's ms a step) and the device encode of a 256-image fp32 batch by
+ViT-L/14's vision tower (T = 257: ms, busy ms and K1's ms a batch).
+
 Prints the card's `nvidia-smi` line, then one JSON line, which names every
 K1 (or K2, or K4) entry point's registers and spill stores as ptxas reports
 them.
 
     python3 scripts/streamed_attention_compare.py [ROOT] [--label NAME] [--reps N]
-        [--resident | --k2-fp32 | --twophase | --short-fp32]
+        [--resident | --k2-fp32 | --twophase | --short-fp32 | --long-fp32]
 
 To compare with a parent commit: unpack it into a directory that .gitignore
 lists (`git archive <parent> | tar -x -C build/parent`) and run parent,
@@ -107,6 +118,16 @@ K2_GUARD_SHAPES = [("float32", (102, 77, 512, 8, "causal")), ("float32", (256, 5
 SHORT_GUARD_SHAPES = [("bfloat16", (256, 50, 768, 12, None)),
                       ("bfloat16", (102, 77, 512, 8, "causal")),
                       ("float32", (16, 273, 1024, 16, None))]
+
+
+# K1 where --long-fp32 should not move it: bf16 above 128 tokens (ViT-L/14's
+# frozen pass over 8 images, VPT's 16- and 80-token prompts) and fp32 up to
+# 128 (ViT-B/32 vision, the full text tower over 102 classes)
+LONG_FP32_GUARD_SHAPES = [("bfloat16", (8, 257, 1024, 16, None)),
+                          ("bfloat16", (16, 273, 1024, 16, None)),
+                          ("bfloat16", (16, 337, 1024, 16, None)),
+                          ("float32", (256, 50, 768, 12, None)),
+                          ("float32", (102, 77, 512, 8, "causal"))]
 
 
 def smoke_helpers():
@@ -314,6 +335,44 @@ def short_fp32_cases(torch, smoke, reps: int):
         print("  " + json.dumps(case), flush=True)
         cases.append(case)
         del qkv, heads, out, ref, diff
+    return cases
+
+
+def long_fp32_cases(torch, smoke, reps: int):
+    """K1 fp32 above 128 tokens, then LONG_FP32_GUARD_SHAPES, each with the
+    error against its plain version and a digest of its output's bits."""
+    import torch.nn.functional as F
+
+    from menghini_neurips23_tpu_torch.ops.attention import attention_reference, fused_attention
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    long = (smoke.RESIDENT_SHAPES + [sh[:5] for sh in smoke.SHARD_SHAPES if sh[1] > 128]
+            + smoke.LONG_SHAPES)
+    cases = []
+    for dname, (B, T, W, H, mask), guard in ([("float32", sh, False) for sh in long]
+                                             + [(d, sh, True) for d, sh in LONG_FP32_GUARD_SHAPES]):
+        D = W // H
+        dt = getattr(torch, dname)
+        causal = mask == "causal"
+        pairs = T * (T + 1) // 2 if causal else T * T
+        qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(dt)
+        heads = [t.contiguous() for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4)]
+        out, again = fused_attention(qkv, mask, H), fused_attention(qkv, mask, H)
+        err = (out.float() - attention_reference(qkv, mask, H).float()).abs().max().item()
+        ms = smoke.device_ms(torch, lambda: fused_attention(qkv, mask, H), reps)
+        bound = smoke.bound(B * T * 4 * W * qkv.element_size(), 4 * B * H * D * pairs, dname)
+        case = {"shape": [B, T, W, H], "mask": mask, "dtype": dname, "guard": guard, "ms": ms,
+                "plain_ms": smoke.device_ms(torch, lambda: attention_reference(qkv, mask, H),
+                                            reps),
+                "sdpa_ms": smoke.device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    *heads, is_causal=causal), reps),
+                "bound_ms": bound[0], "bound_by": bound[1], "share": bound[0] / ms,
+                "max_abs_err": err, "tol": smoke.ATTN_TOL[dname],
+                "bit_identical": torch.equal(out.view(torch.uint8), again.view(torch.uint8)),
+                "digest": digest(torch, out), "smem_max": smem_max(torch, T, D, dt)}
+        print("  " + json.dumps(case), flush=True)
+        cases.append(case)
+        del qkv, heads, out, again
     return cases
 
 
@@ -621,6 +680,9 @@ def main(argv=None) -> int:
     ap.add_argument("--short-fp32", action="store_true",
                     help="K1 and K2 fp32 up to 128 tokens, guard shapes, the fp32 ViT-B/32 "
                          "CoOp and VPT steps and encode")
+    ap.add_argument("--long-fp32", action="store_true",
+                    help="K1 fp32 above 128 tokens, guard shapes, the fp32 T = 273 VPT step "
+                         "and the fp32 ViT-L/14 encode")
     ap.add_argument("--twophase", action="store_true",
                     help="K4 at the smoke's shapes and its longest T, with its G sweep, "
                          "and the attention experiment's fwd")
@@ -661,6 +723,12 @@ def main(argv=None) -> int:
         out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)
         out["vpt_whole_run"] = whole_run(torch, smoke,
                                          vpt_strategy(torch, runtime, RESIDENT_PREFIX), epochs=10)
+        out["encode"] = encode_256(torch, smoke, runtime[1])
+    elif args.long_fp32:
+        out["ptxas"] = ptxas(_cuda, ["attention_fwd"], ["attention_fwd"])
+        out["kernels"] = long_fp32_cases(torch, smoke, args.reps)
+        runtime = vit_l14_runtime(torch, RESIDENT_PREFIX, "float32")
+        out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)
         out["encode"] = encode_256(torch, smoke, runtime[1])
     elif args.k2_fp32:
         out["ptxas"] = ptxas(_cuda, ["attention_bwd"], ["tf32", "tiled", "streamed"])

@@ -269,11 +269,13 @@ def test_k2_tf32_pair_needs_three_tf32_products(mask):
     assert excess["three"] <= 1e-5, excess
 
 
-@pytest.mark.parametrize("flags", [[], ["--short-fp32"]], ids=["streamed", "short_fp32"])
+@pytest.mark.parametrize("flags", [[], ["--short-fp32"], ["--long-fp32"]],
+                         ids=["streamed", "short_fp32", "long_fp32"])
 def test_streamed_compare_script_needs_a_card(capsys, flags):
     """scripts/streamed_attention_compare.py, which times these kernels (and,
-    with --short-fp32, K1's and K2's fp32 forms up to 128 tokens) on the
-    card, exits 1 without one (here) before building anything."""
+    with --short-fp32, K1's and K2's fp32 forms up to 128 tokens; with
+    --long-fp32, K1's fp32 form above 128) on the card, exits 1 without one
+    (here) before building anything."""
     import importlib.util
     import os
 
