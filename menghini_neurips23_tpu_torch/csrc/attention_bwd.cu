@@ -105,29 +105,23 @@
 //   fp32 work per score (three exponentials of every (query, key) pair, and
 //   the rounding of P and dS), not the tensor cores: P = 2^(s * c - lse)
 //   costs one FFMA and one MUFU operation, dS one FFMA and one multiply;
-// - fp32, two launches of 4-warp blocks over 64-row tiles (a resident head
-//   would take 348 KB), every product on the tensor cores as 3xTF32
-//   (mma.sync m16n8k8, attention_common.cuh: x = hi + lo split on the bit
-//   pattern, lo.hi + hi.lo + hi.hi of two k-steps summed in a zeroed tile
-//   and added to the fp32 accumulator, since the tensor cores' adders
-//   truncate).  The query
-//   side streams 32-key chunks of k and v through a 2-stage cp.async ring,
-//   both sweeps as one stream of steps, and writes dq and each row's lse
-//   and r * D^-0.5 to a (B, H, 2, round64(T)) workspace (the bf16 pair's);
-//   the key side streams 32-query chunks of q and g with their statistics.
-//   A landed chunk is split once by the block into hi and lo planes (each
-//   thread its own pieces), so the four warps read both halves ready; a
-//   warp's A fragments of the block's resident operands are split at each
-//   use, held in registers as raw fp32 on the query side (q and g, 64
-//   registers a lane at D = 64) and read again from shared memory on the
-//   key side (k and v), whose dk and dv hold 64 more; S, dP and their
-//   transposes stay in the
-//   accumulators, and P, dS and theirs go from there straight into the A
-//   fragments of the next product (tile n's keys 2q, 2q + 1 as the
-//   fragment's k = q, q + 4, the B rows read in that order), so no T x T
-//   tile touches shared memory.  103 KB of shared memory a block at D = 64
-//   (the 64 resident rows of two operands, 34 KB, and two stages of 34 KB),
-//   two blocks an SM;
+// - fp32, two launches (a resident head would take 348 KB) on Hopper's
+//   warpgroup MMA, every product as 3xTF32 (wgmma m64nNk8 tf32; x = hi +
+//   lo, hi rounded to TF32, lo.hi + hi.lo + hi.hi): a block is one
+//   warpgroup owning 64 rows of the resident side and streams the other
+//   side in 32-row chunks.  The query side forms S and dP, then dq += dS . K
+//   with dS's fragments taken from the accumulators; it writes dq and each
+//   row's lse and r * D^-0.5 to a (B, H, 2, round64(T)) workspace (the
+//   bf16 pair's).  The key side forms S^T and dP^T, then dv += P^T . g and
+//   dk += dS^T . q.  32-bit wgmma operands are K-major only and B comes only
+//   from shared memory, so the streamed rows live there as TF32 hi and lo
+//   planes in the swizzled layout wgmma reads, and transposed (written
+//   through registers in the A fragments' k order) for the products whose B
+//   is their columns; the resident rows' hi parts are held as A fragments
+//   in registers and their lo parts as planes.  No T x T tile touches shared
+//   memory.  113 KB a block at D = 64, two blocks an SM.  mma.sync m16n8k8
+//   left this pair issue-bound at two warps a scheduler (0.09-0.16 of its
+//   bound), each product costing ~3.6 other instructions;
 // - bf16 above 320 tokens (ViT-L/14 with a prompt above 63 tokens, 577 at
 //   ViT-L/14@336), where the resident head would pass 227 KB: two launches,
 //   the resident kernel's phase A and phase B, each a block per (batch row,
@@ -142,7 +136,7 @@
 //   points; about 75 KB a block, three blocks an SM.  Nothing depends on T
 //   but the grid and the workspace, so every T is taken.
 
-#include "attention_common.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -158,13 +152,12 @@ constexpr int kResidentMaxSeq = 320;
 // per staging group and sweep-1 step
 constexpr int kResidentWarps = 10;
 constexpr int kChunk = 64;
-// The streamed pairs (fp32 above 128 tokens, bf16 above kResidentMaxSeq):
-// rows per block, a warp per 16 of them, and stages in the bf16 pair's
-// ring (the fp32 pair's: kTf32Stages); fp32 streams chunks of kSub rows,
-// bf16 of kChunk
+// The bf16 streamed pair (above kResidentMaxSeq): rows per block, a warp
+// per 16 of them, and stages in its ring of kChunk-row chunks (the fp32
+// pair's tiles: kTfRows, kTfChunk); kTile is also the
+// workspace's row multiple
 constexpr int kTile = 64;
 constexpr int kTileThreads = 128;
-constexpr int kSub = 32;
 constexpr int kStages = 3;
 
 size_t bf16_smem(int seq, int D) {
@@ -971,333 +964,385 @@ __host__ __device__ constexpr int stats_rows(int seq) { return (seq + kTile - 1)
 
 // ------------------------------------------------ fp32, T > kWholeMaxSeq
 
-// The fp32 pair, every product as 3xTF32 on mma.sync m16n8k8.  A stage of
-// its ring holds kSub rows of two streamed operands, each in two planes:
-// the rows land (cp.async) in the first plane and are then split in place,
-// x = hi + lo (split_tf32_uncut), hi staying where x was and lo going to the
-// second plane, so that the block's four warps read both halves ready and
-// no warp splits a streamed value; each thread splits the 16-byte pieces
-// it staged itself, so nothing but its own cp.async wait comes between
-// landing and splitting.  On the key side the chunk's lse and r * D^-0.5
-// follow the planes.  Rows are D + 4 floats (16-byte multiples, free of
-// bank conflicts for ldmatrix and for the column reads of the products
-// whose B is a chunk's rows).  Two stages (the chunk of step + 1 lands
-// while step computes), one barrier a step.
-constexpr int kTf32Stages = 2;
-// Where a warp's A fragments of the block's resident operands come from at
-// each step (the kHold argument of the two kernels): held in registers as
-// raw fp32 (loaded once, split at each use), or read again from shared
-// memory and split.  The query side holds its q and g; the key side, whose
-// dk and dv take 64 more registers, reads its k and v again.  Each side was
-// measured on the other route too, and lost there (PERF.md, Findings).
+// The fp32 pair on Hopper's warpgroup MMA, every product as 3xTF32
+// (m64nNk8 tf32: lo.hi + hi.lo + hi.hi of x = hi + lo, hi rounded to TF32
+// and lo the rest, of which the tensor cores read the top bits).  A block
+// is one warpgroup owning kTfRows rows of the resident side (query rows on
+// the query side, keys on the key side); it streams the other side
+// through shared memory in chunks of kTfChunk rows.  The resident rows'
+// hi parts stay in registers as A fragments (loaded once, rounded), their
+// lo parts in shared memory as a plane, so lo.hi takes both operands from
+// shared memory and hi.lo and hi.hi take A from registers: a k-step of a
+// product reads 5 KB of shared memory for 48 clocks of tensor work at
+// m64n32k8, within the 128 bytes a clock an SM reads (both operands from
+// shared memory: 9 KB), and 113 KB a block leaves two blocks an SM.
+// (Two warpgroups a block sharing each chunk, with the next chunk split
+// under this one's products, ran out of registers and measured slower.)
+// 32-bit wgmma
+// operands are K-major only and B comes only from shared memory: the
+// chunk's rows are hi and lo planes in the layout wgmma reads
+// (attention_wgmma.cuh), and for the products whose B is the chunk's rows
+// as columns (dq += dS . K on the query side, dv += P^T . g and dk += dS^T
+// . q on the key side) those rows transposed (D rows of kTfChunk, each
+// 8-row group in the order (0, 2, 4, 6, 1, 3, 5, 7): the k order of an A
+// fragment taken from the accumulators, which dS and P are).  A chunk
+// lands by cp.async in a landing tile; at its step the block writes its
+// planes from there (split, and transposed through registers) between two
+// barriers, then stages the next chunk into the landing tile, which lands
+// while this one computes.  What bounds it: the products alone run at
+// about 80% of the TF32 rate; the split passes, the softmax and the
+// staging add to them nearly in full (PERF.md).  The tensor cores' adders
+// truncate: each product sums its two small terms first, the query side's
+// S and dP put their hi.hi terms in two zeroed tiles (each half of d; the
+// key side's registers leave room for one), and each chunk's dq, dk or dv
+// goes to a zeroed tile, each added in fp32, so no chain takes more than 8
+// k-steps at full size.  The workspace is the bf16 pair's (each row's
+// base-2 lse and r * D^-0.5); no atomics, one owner per output.
+constexpr int kTfRows = 64;    // resident rows a block (a warpgroup)
+constexpr int kTfChunk = 32;   // streamed rows a step
+constexpr int kTfThreads = 128;
 
-// x = hi + lo for the tensor cores: hi as split_tf32 rounds it, lo = x - hi
-// left uncut, since an m16n8k8 .tf32 operand is read as its top 19 bits
-// (the tensor cores cut the rest, as split_tf32's mask does): one integer
-// operation less a value.  The PTX ISA does not promise that cut: it is
-// empirical, shown on the H100 by outputs with the masked split's bits at
-// every measured shape.  A card that read or rounded the low bits instead
-// would move the products' last bits only; the card test
-// test_attention_bwd_kernel_matches_plain (fp32, T > 128, 1e-5 + 1e-5
-// |ref|) and the smoke's phase 3 fail if the error grows past that.
-// split_tf32 (attention_common.cuh) is the masked form K1 and K3 use.
-__device__ __forceinline__ void split_tf32_uncut(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  hi = (x + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
-}
+// bytes of a K-major fp32 tile of `rows` rows of D, and of a transposed
+// chunk plane (D rows of kTfChunk floats, one 128-byte swizzle atom each)
+__host__ __device__ constexpr int tf_rows_bytes(int rows, int D) { return rows * 4 * D; }
+__host__ __device__ constexpr int tf_t_bytes(int D) { return D * 4 * kTfChunk; }
 
-__host__ __device__ constexpr int tf32_plane(int D) { return kSub * (D + 4); }  // floats
-
-__host__ __device__ constexpr size_t tf32_stage_bytes(int D) {
-  return (4 * (size_t)tf32_plane(D) + 2 * kSub) * sizeof(float);
-}
-
-// the block's 64 rows of two resident operands, then the ring
+// a block's shared memory (the key side's, the larger): 1 KB to align the
+// tiles to the swizzle's 1024-byte period; the lo planes of the two
+// resident operands; the chunk's two operands' hi and lo planes, their
+// transposed hi and lo planes (the query side: one operand's) and their
+// landing tiles.  115,712 bytes at D = 64: two blocks an SM, to the byte
+// (the SM's 233,472 less 1 KB a block).
 size_t tf32_smem(int D) {
-  return 2 * kTile * (size_t)(D + 4) * sizeof(float) + kTf32Stages * tf32_stage_bytes(D);
+  return 1024 + 2 * (size_t)tf_rows_bytes(kTfRows, D) + 6 * (size_t)tf_rows_bytes(kTfChunk, D) +
+         4 * (size_t)tf_t_bytes(D);
 }
 
-// Split the 16-byte pieces of a plane's kSub rows that this thread staged
-// with stage_rows<float, D>(plane, D + 4, ..., kSub, tid, kTileThreads):
-// hi in place, lo one plane further on (split_tf32_uncut).
+// The resident side: a warp's hi A fragments of its 16 rows of a landed
+// tile (kTfRows rows in tf_offset<D, kTfRows>'s layout), k-step kk's (row
+// g, d 8kk + q), (g + 8, 8kk + q), (g, 8kk + q + 4), (g + 8, 8kk + q + 4)
+// rounded to TF32; the block then turns the tile into its lo plane in
+// place (split_planes with hi and lo both the tile: lo is written last),
+// after a barrier.
 template <int D>
-__device__ __forceinline__ void split_staged(float* plane, int tid) {
-  constexpr int LD = D + 4, kPieces = D / 4;
-  for (int idx = tid; idx < kSub * kPieces; idx += kTileThreads) {
-    float* p = plane + (idx / kPieces) * LD + (idx % kPieces) * 4;
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    uint4 hi, lo;
-    split_tf32_uncut(x.x, hi.x, lo.x);
-    split_tf32_uncut(x.y, hi.y, lo.y);
-    split_tf32_uncut(x.z, hi.z, lo.z);
-    split_tf32_uncut(x.w, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(p) = hi;
-    *reinterpret_cast<uint4*>(p + tf32_plane(D)) = lo;
-  }
-}
-
-// The raw m16n8k8 .tf32 A fragment of k-step kk (columns 8kk .. 8kk + 7)
-// of 16 fp32 rows, `rows` the first (ldmatrix reads fp32 rows: an 8 x 8
-// matrix of b16 pairs is an 8 x 4 matrix of floats); matrices (rows 0-7,
-// 8kk..), (8-15, 8kk..), (0-7, 8kk + 4..), (8-15, 8kk + 4..)
-template <int D>
-__device__ __forceinline__ void load_a_f32(uint32_t (&a)[4], const float* rows, int kk, int lane) {
-  ldmatrix_x4(a, rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * (D + 4) + 8 * kk + (lane >> 4) * 4);
-}
-
-// B fragments of two n8 tiles, B[k][n] = rows[n0 + n][8kk + k]: matrices
-// (rows n0.., 8kk..), (n0.., 8kk + 4..), (n0 + 8.., 8kk..), (n0 + 8.., 8kk + 4..)
-template <int D>
-__device__ __forceinline__ void load_b_f32(uint32_t (&b)[4], const float* rows, int n0, int kk,
-                                           int lane) {
-  ldmatrix_x4(b, rows + (n0 + (lane & 7) + (lane >> 4) * 8) * (D + 4) + 8 * kk +
-                     ((lane >> 3) & 1) * 4);
-}
-
-// A warp's 16 rows of a resident operand as the A side of a product over D:
-// the raw fragments held (kHold) or read again at each use; either way each
-// k-step's fragment is split at its use.
-template <int D, bool kHold>
-struct RowFrags {
-  uint32_t f[kHold ? D / 8 : 1][4];
-  const float* rows;
-
-  __device__ __forceinline__ void load(const float* r, int lane) {
-    rows = r;
-    if constexpr (kHold) {
+__device__ __forceinline__ void load_hi_frags(uint32_t (&f)[D / 8][4], const unsigned char* tile,
+                                              int warp, int lane) {
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) load_a_f32<D>(f[kk], r, kk, lane);
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * warp + lane / 4 + 8 * (e & 1), d = 8 * kk + lane % 4 + 4 * (e >> 1);
+      f[kk][e] = tf32_round(
+          *reinterpret_cast<const float*>(tile + tf_offset<D, kTfRows>(row, d / 4) + 4 * (d % 4)));
     }
-  }
+}
 
-  __device__ __forceinline__ void split(uint32_t (&hi)[4], uint32_t (&lo)[4], int kk,
-                                        int lane) const {
-    uint32_t a[4];
-    if constexpr (kHold) {
+// The 16-byte pieces of a chunk tile (kTfChunk rows of D) one thread
+// stages: idx = tid + kTfThreads k, so the piece tid % (D / 4) of rows tid /
+// (D / 4) + kRowsPass k, each pass a multiple of 8 rows (the swizzle's
+// period), so its offsets are the first row's plus k passes.
+template <int D>
+struct ChunkPieces {
+  static constexpr int kPieces = D / 4, kRowsPass = kTfThreads / kPieces;
+  static constexpr int kRowBytes = 4 * tf_sub(D);
+  static_assert(kRowsPass % 8 == 0 && kTfChunk % kRowsPass == 0, "whole swizzle periods a pass");
+  int row, col;  // the thread's first row, and its piece's first float
+  uint32_t off;  // the piece's byte offset in the tile
+  __device__ explicit ChunkPieces(int tid)
+      : row(tid / kPieces),
+        col(4 * (tid % kPieces)),
+        off(tf_offset<D, kTfChunk>(tid / kPieces, tid % kPieces)) {}
+  // rows [0, kTfChunk) of a strided (rows, D) fp32 slice into the tile at
+  // `tile` (a shared address); rows >= valid are zero-filled
+  __device__ __forceinline__ void stage(uint32_t tile, const float* gmem, size_t stride,
+                                        int valid) const {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) a[e] = f[kk][e];
-    } else {
-      load_a_f32<D>(a, rows, kk, lane);
+    for (int k = 0; k < kTfChunk / kRowsPass; ++k) {
+      const int r = row + kRowsPass * k;
+      const bool ok = r < valid;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       tile + off + k * kRowsPass * kRowBytes),
+                   "l"(gmem + (ok ? r * stride + col : 0)), "r"(ok ? 16 : 0));
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32_uncut(a[e], hi[e], lo[e]);
   }
 };
 
-// c1 = A1 . B1^T and c2 = A2 . B2^T over D, 3xTF32: the warp's 16 rows of
-// two resident operands against the kSub rows of two streamed ones (hi and
-// lo planes at b1, b2).  The three products (lo.hi, hi.lo, hi.hi) of two
-// k-steps are summed in a zeroed tile and then added to c in fp32, so that
-// no sum runs longer than six products inside the tensor cores' truncating
-// adders (one k-step a tile takes twice the fp32 adds, and was 7% slower
-// on the card).  The 16-row groups of the chunk outside [nbeg, nend) are
-// left at 0.  Accumulator tile n: rows g, g + 8 of the warp against chunk
-// rows 8n + 2q, 8n + 2q + 1.
-template <int D, bool kHold>
-__device__ __forceinline__ void dots2_tf32(float (&c1)[kSub / 8][4], float (&c2)[kSub / 8][4],
-                                           const RowFrags<D, kHold>& a1,
-                                           const RowFrags<D, kHold>& a2, const float* b1,
-                                           const float* b2, int nbeg, int nend, int lane) {
-  constexpr int PL = tf32_plane(D);
-#pragma unroll
-  for (int n = 0; n < kSub / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c1[n][e] = c2[n][e] = 0.f;
-#pragma unroll
-  for (int k0 = 0; k0 < D / 8; k0 += 2) {
-    uint32_t ah1[2][4], al1[2][4], ah2[2][4], al2[2][4];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      a1.split(ah1[u], al1[u], k0 + u, lane);
-      a2.split(ah2[u], al2[u], k0 + u, lane);
-    }
-#pragma unroll
-    for (int j = 0; j < kSub / 16; ++j) {
-      if (16 * j < nbeg || 16 * j >= nend) continue;
-      float t1[2][4] = {}, t2[2][4] = {};
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        uint32_t bh[4], bl[4];
-        load_b_f32<D>(bh, b1, 16 * j, k0 + u, lane);
-        load_b_f32<D>(bl, b1 + PL, 16 * j, k0 + u, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          mma_tf32(t1[t], al1[u], bh[2 * t], bh[2 * t + 1]);
-          mma_tf32(t1[t], ah1[u], bl[2 * t], bl[2 * t + 1]);
-          mma_tf32(t1[t], ah1[u], bh[2 * t], bh[2 * t + 1]);
-        }
-        load_b_f32<D>(bh, b2, 16 * j, k0 + u, lane);
-        load_b_f32<D>(bl, b2 + PL, 16 * j, k0 + u, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          mma_tf32(t2[t], al2[u], bh[2 * t], bh[2 * t + 1]);
-          mma_tf32(t2[t], ah2[u], bl[2 * t], bl[2 * t + 1]);
-          mma_tf32(t2[t], ah2[u], bh[2 * t], bh[2 * t + 1]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c1[2 * j + t][e] += t1[t][e], c2[2 * j + t][e] += t2[t][e];
-    }
-  }
-}
-
-// c[n] += A . B, 3xTF32, over the chunk's rows 8kk .. 8kk + 7 for the
-// k-steps kk in [kk0, kk1), taken two at a time (the pair's six products
-// summed in a zeroed tile, then added in fp32; a pair's k-step outside the
-// range multiplies A's zeros there): A straight from an accumulator tile
-// of the warp's 16 rows against the chunk (dS, P or their transposes; tile
-// kk's columns 2q, 2q + 1 taken as the fragment's k = q, q + 4, which is
-// what the accumulator layout holds), B the chunk's rows in that order
-// (8kk + 2q, 8kk + 2q + 1), columns 8n + g, from the hi and lo planes at b.
+// A landed chunk tile (kTfChunk rows of D in tf_offset<D, kTfChunk>'s
+// layout) into its transposed hi and lo planes: rows d, the chunk's rows
+// along k.  A thread writes one 16-byte piece of each plane (four rows of
+// one d, read from four rows): d = tid % D and the pieces 2j + h of the
+// 8-row groups j, h = tid / D % 2 (rows 8j + h + (0, 2, 4, 6)), so its
+// reads sit at fixed offsets within each group, 8 rows apart from group to
+// group.  A warp's lanes take consecutive d, so the reads are one row's
+// bytes and the writes, 128 bytes apart, swizzled, fill the banks.
 template <int D>
-__device__ __forceinline__ void acc_times_rows(float (&c)[D / 8][4], const float (&a)[kSub / 8][4],
-                                               const float* b, int kk0, int kk1, int lane) {
-  constexpr int LD = D + 4, PL = tf32_plane(D);
-  const float* r = b + 2 * (lane & 3) * LD + lane / 4;
+__device__ __forceinline__ void transpose_split(const unsigned char* land, unsigned char* th,
+                                                unsigned char* tl, int tid) {
+  static_assert(kTfThreads % D == 0, "whole rows of d a pass");
+  constexpr int kRowBytes = 4 * tf_sub(D), kPass = kTfThreads / D;  // pieces a pass
+  const int d = tid % D, p0 = tid / D;
+  const int h = p0 & 1;
+  // the four source rows of group 0 (the swizzle repeats every 8 rows)
+  uint32_t src[4];
 #pragma unroll
-  for (int k0 = 0; k0 < kSub / 8; k0 += 2) {
-    if (k0 + 1 < kk0 || k0 >= kk1) continue;
-    uint32_t ah[2][4], al[2][4];
+  for (int i = 0; i < 4; ++i) src[i] = tf_offset<D, kTfChunk>(h + 2 * i, d / 4) + 4 * (d % 4);
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int kk = k0 + u;
-      const uint32_t x[4] = {__float_as_uint(a[kk][0]), __float_as_uint(a[kk][2]),
-                             __float_as_uint(a[kk][1]), __float_as_uint(a[kk][3])};
+  for (int k = 0; k < kTfChunk / 4 / kPass; ++k) {
+    const int piece = p0 + kPass * k, j = piece >> 1;
+    float x[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32_uncut(x[e], ah[u][e], al[u][e]);
+    for (int i = 0; i < 4; ++i) {
+      x[i] = *reinterpret_cast<const float*>(land + src[i] + 8 * j * kRowBytes);
     }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float t[4] = {};
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float* rk = r + 8 * (k0 + u) * LD + 8 * n;
-        const uint32_t bh0 = __float_as_uint(rk[0]), bh1 = __float_as_uint(rk[LD]);
-        const uint32_t bl0 = __float_as_uint(rk[PL]), bl1 = __float_as_uint(rk[PL + LD]);
-        mma_tf32(t, al[u], bh0, bh1);
-        mma_tf32(t, ah[u], bl0, bl1);
-        mma_tf32(t, ah[u], bh0, bh1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[n][e] += t[e];
-    }
+    float4 hi, lo;
+    split4(make_float4(x[0], x[1], x[2], x[3]), hi, lo);
+    const uint32_t off = swizzle<128>(d * 128 + piece * 16);
+    *reinterpret_cast<float4*>(th + off) = hi;
+    *reinterpret_cast<float4*>(tl + off) = lo;
   }
 }
 
-// Query side.  Block (batch row x head, 64-query tile), a warp per 16 rows.
-// The key chunks stream through the ring as one stream of 2 * nch steps
-// (causal: up to the block's last row's diagonal), each chunk's k and v:
-// sweep 1 (steps < nch) forms S = q . k^T and dP = g . v^T and keeps each
-// row's online max m of the raw dots, l = sum 2^(s c - m c) and rho = sum
-// 2^(s c - m c) dP (c = D^-0.5 log2(e)), l and rho rescaled alike when m
-// grows; sweep 2 forms S and dP again, P = 2^(s c - lse) and dS = P (dP
-// D^-0.5 - r D^-0.5) in fp32 in the accumulators, and dq += dS . k with dS
-// taken from there.  Every row of the tile leaves lse = m c + log2(l) (+inf
-// past T: P = 0) and r D^-0.5 in the workspace.
-template <int D, bool kHold>
-__global__ void __launch_bounds__(kTileThreads, 2)
+// c1 (+ c2) = A . B^T, m64n32 over D, 3xTF32, issued (not waited for): A
+// the block's 64 resident rows (hi fragments ah, lo plane al), B the
+// chunk's rows (hi and lo planes bh, bl).  lo.hi (both from shared
+// memory), then hi.lo over all of d, then hi.hi over the k-steps below
+// kTwo go to the zeroed tile c1, hi.hi over the rest to the zeroed tile
+// c2, which the caller adds in fp32 (kTwo = D / 8: all into c1, and c2 is
+// not touched).
+template <int D, int kTwo>
+__device__ __forceinline__ void dots_tf32(float (&c1)[kTfChunk / 2], float (&c2)[kTfChunk / 2],
+                                          const uint32_t (&ah)[D / 8][4], uint64_t al,
+                                          uint64_t bh, uint64_t bl) {
+  constexpr int KS = D / 8;
+  auto ka = [](int kk) { return tf_k_off<D, kTfRows>(kk); };
+  auto kb = [](int kk) { return tf_k_off<D, kTfChunk>(kk); };
+  wgmma_tf32_ss<kTfChunk, 0>(c1, al, bh);
+#pragma unroll
+  for (int kk = 1; kk < KS; ++kk) wgmma_tf32_ss<kTfChunk, 1>(c1, al + ka(kk), bh + kb(kk));
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) wgmma_tf32_rs<kTfChunk, 1>(c1, ah[kk], bl + kb(kk));
+#pragma unroll
+  for (int kk = 0; kk < kTwo; ++kk) wgmma_tf32_rs<kTfChunk, 1>(c1, ah[kk], bh + kb(kk));
+  if constexpr (kTwo < KS) {
+    wgmma_tf32_rs<kTfChunk, 0>(c2, ah[kTwo], bh + kb(kTwo));
+#pragma unroll
+    for (int kk = kTwo + 1; kk < KS; ++kk) wgmma_tf32_rs<kTfChunk, 1>(c2, ah[kk], bh + kb(kk));
+  }
+}
+
+// The hi and lo A fragments of k-step j (the chunk's rows 8j .. 8j + 7) of
+// an accumulator over the chunk (dS, P or their transposes): tile j's
+// columns 2q, 2q + 1 as the fragment's k = q, q + 4
+__device__ __forceinline__ void acc_frags(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                          const float (&c)[kTfChunk / 2], int j) {
+  const float x[4] = {c[4 * j], c[4 * j + 2], c[4 * j + 1], c[4 * j + 3]};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = tf32_round(x[e]);
+    lo[e] = __float_as_uint(x[e] - __uint_as_float(hi[e]));
+  }
+}
+
+// c = A . B over the chunk's first 8 * ks rows (k-steps), 3xTF32, in the
+// zeroed tile c, issued and waited for: A the accumulator `acc` over the
+// chunk (its hi and lo fragments), B a transposed chunk plane pair (bh, bl
+// descriptors); lo.hi, then hi.lo, then hi.hi
+template <int D>
+__device__ __forceinline__ void acc_times_chunk(float (&c)[D / 2], const float (&acc)[kTfChunk / 2],
+                                                uint64_t bh, uint64_t bl, int ks) {
+  uint32_t ah[4][4], al[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc_frags(ah[j], al[j], acc, j);
+    fence_regs(ah[j]);
+    fence_regs(al[j]);
+  }
+  wgmma_fence();
+  wgmma_tf32_rs<D, 0>(c, al[0], bh);
+#pragma unroll
+  for (int j = 1; j < 4; ++j) {
+    if (j < ks) wgmma_tf32_rs<D, 1>(c, al[j], bh + 2 * j);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < ks) wgmma_tf32_rs<D, 1>(c, ah[j], bl + 2 * j);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < ks) wgmma_tf32_rs<D, 1>(c, ah[j], bh + 2 * j);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(c);
+}
+
+// Shared memory of either side, from a 1024-byte boundary: the resident
+// operands' lo planes (res(0), res(1): 64-row tiles), the chunk's planes
+// (ch: first hi, lo, second hi, lo), the transposed planes (tr: first hi,
+// lo, second hi, lo), the landing tiles (land: first, second).  The kernels
+// hide the base from the compiler at each step, so that every plane's
+// address and descriptor is formed where it is used: held across the step
+// loop, they took some 30 registers, which the key side lacks.
+template <int D>
+struct TfSmem {
+  static constexpr int RES = tf_rows_bytes(kTfRows, D);
+  static constexpr int CH = tf_rows_bytes(kTfChunk, D), TR = tf_t_bytes(D);
+  uint32_t base;
+  __device__ explicit TfSmem(uint32_t b) : base(b) {}
+  __device__ __forceinline__ void hide() { asm volatile("" : "+r"(base)); }
+  __device__ __forceinline__ uint32_t res(int p) const { return base + p * RES; }
+  __device__ __forceinline__ uint32_t ch(int p) const { return base + 2 * RES + p * CH; }
+  __device__ __forceinline__ uint32_t tr(int p) const { return base + 2 * RES + 4 * CH + p * TR; }
+  __device__ __forceinline__ uint32_t land(int p) const {
+    return base + 2 * RES + 4 * CH + 4 * TR + p * CH;
+  }
+};
+
+// Query side.  Block (batch row x head, 64-query tile), one warpgroup.
+// The key chunks stream as one stream of 2 * nch steps (causal: up to the
+// tile's last row's diagonal): sweep 1 (steps < nch) forms S = q . K^T and
+// dP = g . V^T and keeps each row's online max m of the raw dots, l = sum
+// 2^(s c - m c) and rho = sum 2^(s c - m c) dP (c = D^-0.5 log2(e)), l and
+// rho rescaled alike when m grows; sweep 2 forms S and dP again, P = 2^(s
+// c - lse) and dS = P (dP D^-0.5 - r D^-0.5) in fp32 in the accumulators,
+// and dq += dS . K, dS taken from there (K^T's planes made only in sweep
+// 2).  Every row of the tile leaves lse = m c + log2(l) (+inf past T: P =
+// 0) and r D^-0.5 in the workspace.
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 2)
 attention_bwd_q_tf32(const float* __restrict__ qkv, const float* __restrict__ grad,
                      float* __restrict__ dqkv, float* __restrict__ stats, int seq, int width,
                      int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 4, PL = tf32_plane(D), NT = kSub / 8;
-  constexpr size_t SB = tf32_stage_bytes(D);
+  using S = TfSmem<D>;
+  constexpr int NC = kTfChunk / 2, NO = D / 2, kRowBytes = 4 * tf_sub(D);
   const float scale2 = scale * 1.4426950408889634f;  // log2(e)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* qs = reinterpret_cast<float*>(smem_raw);  // the block's query rows
-  float* gs = qs + kTile * LD;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + kTile * LD);  // k, v
+  const int tid = threadIdx.x, lane = tid % 32;
+  // the warp's index broadcast from lane 0 (attention_fwd.cu's
+  // attention_fwd_wgmma says why)
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int rt = kTfRows * blockIdx.y, r0 = rt + 16 * warp;
+  const uint32_t raw = smem_u32(smem_raw);
+  S sm((raw + 1023) & ~1023u);
+  auto at = [&](uint32_t addr) { return smem_raw + (addr - raw); };
+  auto fl = [&](uint32_t addr) { return reinterpret_cast<float*>(at(addr)); };
+  // planes: res q lo, g lo; ch K hi, K lo, V hi, V lo; tr K^T hi, K^T lo;
+  // land K, V
 
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads, rb = kTile * blockIdx.y;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
-  const int r0 = rb + 16 * warp, row0 = r0 + lane / 4;  // rows row0 and row0 + 8
-  const bool active = r0 < seq;
-  const int kend = causal ? min(seq, r0 + 16) : seq;  // the keys this warp's rows see
-  const int nch = ((causal ? min(seq, rb + kTile) : seq) + kSub - 1) / kSub;
-  const int steps = 2 * nch;
-  auto slot = [&](int step) {
-    return reinterpret_cast<float*>(ring + (step % kTf32Stages) * SB);
-  };
+  const int kend = causal ? min(seq, rt + kTfRows) : seq;  // the keys the tile's rows see
+  const int nch = (kend + kTfChunk - 1) / kTfChunk, steps = 2 * nch;
+  const bool live = r0 < seq;                             // the warp has rows
+  const int row0 = r0 + lane / 4, q2 = 2 * (lane & 3);  // rows row0, row0 + 8
+
+  auto chunk0 = [&](int step) { return (step < nch ? step : step - nch) * kTfChunk; };
+  const ChunkPieces<D> pieces(tid);
   auto stage = [&](int step) {
     if (step >= steps) return;
-    const int c0 = (step < nch ? step : step - nch) * kSub;
-    float* dst = slot(step);
-    stage_rows<float, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kSub, tid,
-                         kTileThreads);
-    stage_rows<float, D>(dst + 2 * PL, LD, base + 2 * width + c0 * stride, stride, seq - c0,
-                         kSub, tid, kTileThreads);
+    const int c0 = chunk0(step);
+    pieces.stage(sm.land(0), base + width + c0 * stride, stride, seq - c0);
+    pieces.stage(sm.land(1), base + 2 * width + c0 * stride, stride, seq - c0);
   };
-  stage_rows<float, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
-  stage_rows<float, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width, seq - rb,
-                       kTile, tid, kTileThreads);
+  stage_tf32<D, kTfRows>(sm.res(0), base + rt * stride, stride, seq - rt, kTfRows, tid,
+                         kTfThreads);
+  stage_tf32<D, kTfRows>(sm.res(1), grad + ((size_t)b * seq + rt) * width + h * D, width,
+                         seq - rt, kTfRows, tid, kTfThreads);
   stage(0);
   cp_async_commit();
-
-  RowFrags<D, kHold> qa, ga;
-  // (from sweep 2 on, m and rho hold each row's lse and r * D^-0.5)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rho[2] = {0.f, 0.f};
-  float dq[D / 8][4] = {};
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<0>();  // this thread's pieces of the chunk (and at step 0 of q and g)
-    split_staged<D>(slot(step), tid);
-    split_staged<D>(slot(step) + 2 * PL, tid);
-    __syncthreads();  // the chunk's planes are whole; every warp is done with step - 1
+  uint32_t qf[D / 8][4], gf[D / 8][4];  // the warp's rows of q and g: hi A fragments
+  // the block's step: the chunk has landed; its planes (and at step 0 q's
+  // and g's hi fragments and lo planes, in sweep 2 K^T's planes) written
+  // and fenced for wgmma's reads; the next chunk staged behind the second
+  // barrier
+  auto landed = [&](int step) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (step == 0) {
+      load_hi_frags<D>(qf, at(sm.res(0)), warp, lane);
+      load_hi_frags<D>(gf, at(sm.res(1)), warp, lane);
+      __syncthreads();
+      split_planes(fl(sm.res(0)), fl(sm.res(0)), fl(sm.res(0)), S::RES, tid, kTfThreads);
+      split_planes(fl(sm.res(1)), fl(sm.res(1)), fl(sm.res(1)), S::RES, tid, kTfThreads);
+    }
+    split_planes(fl(sm.land(0)), fl(sm.ch(0)), fl(sm.ch(1)), S::CH, tid, kTfThreads);
+    split_planes(fl(sm.land(1)), fl(sm.ch(2)), fl(sm.ch(3)), S::CH, tid, kTfThreads);
+    if (step >= nch) transpose_split<D>(at(sm.land(0)), at(sm.tr(0)), at(sm.tr(1)), tid);
+    fence_proxy_async();
+    __syncthreads();
     stage(step + 1);
     cp_async_commit();
-    if (!active) continue;
-    if (step == 0) {
-      qa.load(qs + 16 * warp * LD, lane);
-      ga.load(gs + 16 * warp * LD, lane);
-    }
+  };
+
+  // (from sweep 2 on, m and rho hold each row's lse and r * D^-0.5)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rho[2] = {0.f, 0.f};
+  float dq[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+  for (int step = 0; step < steps; ++step) {
+    sm.hide();
+    landed(step);
     if (step == nch) {  // sweep 1 is done: lse (+inf past T: P = 0) and r * D^-0.5
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
-        const float lsum = group_sum<4>(l[e2]);
-        rho[e2] = group_sum<4>(rho[e2]) / lsum * scale;
-        m[e2] = row0 + 8 * e2 < seq ? fmaf(m[e2], scale2, log2f(lsum)) : INFINITY;
+        const float lsum = group_sum<4>(l[e2]), rsum = group_sum<4>(rho[e2]);
+        const bool in = row0 + 8 * e2 < seq;
+        rho[e2] = in ? rsum / lsum * scale : 0.f;
+        m[e2] = in ? fmaf(m[e2], scale2, log2f(lsum)) : INFINITY;
       }
     }
-    const int c0 = (step < nch ? step : step - nch) * kSub;
-    if (c0 >= kend) continue;
-    const float* ks = slot(step);
-    float s[NT][4], dp[NT][4];
-    dots2_tf32<D, kHold>(s, dp, qa, ga, ks, ks + 2 * PL, 0, kend - c0, lane);
-    if (step < nch) {
-      // keys past T or above the diagonal (and groups past kend) are -inf
+    const int c0 = chunk0(step);
+    float s[NC], s2[NC], dp[NC], dp2[NC];
 #pragma unroll
-      for (int j = 0; j < kSub / 16; ++j) {
-        const int n0 = c0 + 16 * j;
-        if (n0 + 16 > seq || (causal && n0 + 15 > r0) || n0 >= kend) {
+    for (int kk = 0; kk < D / 8; ++kk) {
+      fence_regs(qf[kk]);
+      fence_regs(gf[kk]);
+    }
+    wgmma_fence();
+    dots_tf32<D, D / 16>(s, s2, qf, smem_desc<kRowBytes>(sm.res(0)),
+                         smem_desc<kRowBytes>(sm.ch(0)), smem_desc<kRowBytes>(sm.ch(1)));
+    dots_tf32<D, D / 16>(dp, dp2, gf, smem_desc<kRowBytes>(sm.res(1)),
+                         smem_desc<kRowBytes>(sm.ch(2)), smem_desc<kRowBytes>(sm.ch(3)));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(s2);
+    fence_regs(dp);
+    fence_regs(dp2);
 #pragma unroll
-          for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < NC; ++i) s[i] += s2[i], dp[i] += dp2[i];
+    // keys past T or above a row's diagonal: -inf, so P = 0
+    if (c0 + kTfChunk > seq || (causal && c0 + kTfChunk - 1 > r0)) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int col = n0 + 8 * t + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
-              const bool valid = n0 < kend && col < seq && (!causal || col <= row);
-              s[2 * j + t][e] = valid ? s[2 * j + t][e] : -INFINITY;
-            }
+      for (int i = 0; i < NC / 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * i + q2 + (e & 1), row = row0 + 8 * (e >> 1);
+          if (col >= seq || (causal && col > row)) s[4 * i + e] = -INFINITY;
         }
-      }
+    }
+    if (step < nch) {
+      if (!live) continue;
       // online m (quad-uniform), l and rho (lane-partial); key 0 is in
       // every row's first chunk, so m is finite from there on
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
         float cm = -INFINITY;
 #pragma unroll
-        for (int n = 0; n < NT; ++n) cm = fmaxf(cm, fmaxf(s[n][2 * e2], s[n][2 * e2 + 1]));
+        for (int i = 0; i < NC / 4; ++i) {
+          cm = fmaxf(cm, fmaxf(s[4 * i + 2 * e2], s[4 * i + 2 * e2 + 1]));
+        }
         const float mn = fmaxf(m[e2], group_max<4>(cm)), mn2 = mn * scale2;
         const float alpha = ex2(m[e2] * scale2 - mn2);
         float ls = 0.f, rs = 0.f;
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
+        for (int i = 0; i < NC / 4; ++i)
 #pragma unroll
           for (int e = 2 * e2; e < 2 * e2 + 2; ++e) {
-            const float p = ex2(fmaf(s[n][e], scale2, -mn2));
+            const float p = ex2(fmaf(s[4 * i + e], scale2, -mn2));
             ls += p;
-            rs = fmaf(p, dp[n][e], rs);
+            rs = fmaf(p, dp[4 * i + e], rs);
           }
         l[e2] = fmaf(l[e2], alpha, ls);
         rho[e2] = fmaf(rho[e2], alpha, rs);
@@ -1305,21 +1350,19 @@ attention_bwd_q_tf32(const float* __restrict__ qkv, const float* __restrict__ gr
       }
       continue;
     }
-    // sweep 2: dS in place of S (0 past T and above the diagonal), then
-    // dq += dS . k over the key steps below kend
+    // sweep 2: dS in place of S (P = 0 for the -inf keys, and in rows past
+    // T, whose lse is +inf), then dq += dS . K over the k-steps below kend,
+    // in a zeroed tile
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int n0 = c0 + 8 * n;
-      const bool edge = n0 + 8 > seq || (causal && n0 + 7 > r0);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
-        const bool valid = !edge || (col < seq && (!causal || col <= row));
-        const float p = valid ? ex2(fmaf(s[n][e], scale2, -m[e >> 1])) : 0.f;
-        s[n][e] = p * fmaf(dp[n][e], scale, -rho[e >> 1]);
-      }
+    for (int i = 0; i < NC; ++i) {
+      const float p = ex2(fmaf(s[i], scale2, -m[(i >> 1) & 1]));
+      s[i] = p * fmaf(dp[i], scale, -rho[(i >> 1) & 1]);
     }
-    acc_times_rows<D>(dq, s, ks, 0, (kend - c0 + 7) / 8, lane);
+    float dqc[NO];
+    acc_times_chunk<D>(dqc, s, smem_desc<128>(sm.tr(0)), smem_desc<128>(sm.tr(1)),
+                       min(4, (kend - c0 + 7) / 8));
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dq[i] += dqc[i];
   }
   float* out = dqkv + (size_t)b * seq * stride + h * D;
   const int tw = stats_rows(seq);
@@ -1327,126 +1370,170 @@ attention_bwd_q_tf32(const float* __restrict__ qkv, const float* __restrict__ gr
 #pragma unroll
   for (int e2 = 0; e2 < 2; ++e2) {
     const int row = row0 + 8 * e2;
-    if (active && row < seq) {
+    if (row < seq) {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(out + row * stride + 8 * n + 2 * (lane & 3)) =
-            make_float2(dq[n][2 * e2], dq[n][2 * e2 + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(out + row * stride + 8 * j + q2) =
+            make_float2(dq[4 * j + 2 * e2], dq[4 * j + 2 * e2 + 1]);
     }
-    if ((lane & 3) == 0) st[row] = active ? m[e2] : INFINITY, st[tw + row] = rho[e2];
+    if ((lane & 3) == 0) st[row] = live ? m[e2] : INFINITY, st[tw + row] = live ? rho[e2] : 0.f;
   }
 }
 
-// Key side.  Block (batch row x head, 64-key tile), a warp per 16 keys.
-// The query chunks stream through the ring with their lse and r D^-0.5
-// (causal: from the block's own diagonal chunk): S^T = k . q^T and dP^T =
-// v . g^T, then P^T = 2^(s c - lse) and dS^T = P^T (dP^T D^-0.5 - r
-// D^-0.5) in the accumulators, which are the A fragments of dv += P^T . g
-// and dk += dS^T . q.  Queries past T have lse = +inf, so P = dS = 0; keys
-// past T own dk and dv rows that are never written.
-template <int D, bool kHold>
-__global__ void __launch_bounds__(kTileThreads, 2)
+// Key side.  Block (batch row x head, 64-key tile), one warpgroup.  The
+// query chunks stream (causal: from the tile's first key on), their lse
+// and r D^-0.5 read from the workspace into registers while the step's
+// first products run: S^T = K . q^T and dP^T = V . g^T, then P^T = 2^(s c
+// - lse) and dS^T = P^T (dP^T D^-0.5 - r D^-0.5) in the accumulators,
+// whose fragments are the A of dv += P^T . g and then of dk += dS^T . q
+// (g's and q's transposed planes as B).  Queries past T have lse = +inf,
+// so P = dS = 0; keys past T own dk and dv rows that are never written.
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 2)
 attention_bwd_kv_tf32(const float* __restrict__ qkv, const float* __restrict__ grad,
                       float* __restrict__ dqkv, const float* __restrict__ stats, int seq,
                       int width, int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 4, PL = tf32_plane(D), NT = kSub / 8;
-  constexpr size_t SB = tf32_stage_bytes(D);
+  using S = TfSmem<D>;
+  constexpr int NC = kTfChunk / 2, NO = D / 2, kRowBytes = 4 * tf_sub(D);
   const float scale2 = scale * 1.4426950408889634f;  // log2(e)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* ks = reinterpret_cast<float*>(smem_raw);  // the block's keys
-  float* vs = ks + kTile * LD;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTile * LD);  // q, g, statistics
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int jt = kTfRows * blockIdx.y, j0 = jt + 16 * warp;
+  const uint32_t raw = smem_u32(smem_raw);
+  S sm((raw + 1023) & ~1023u);
+  auto at = [&](uint32_t addr) { return smem_raw + (addr - raw); };
+  auto fl = [&](uint32_t addr) { return reinterpret_cast<float*>(at(addr)); };
+  // planes: res K lo, V lo; ch q hi, q lo, g hi, g lo; tr q^T hi, lo, g^T
+  // hi, lo; land q, g
 
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads, jb = kTile * blockIdx.y;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
   const float* base = qkv + (size_t)b * seq * stride + h * D;
   const float* gbase = grad + (size_t)b * seq * width + h * D;
   const int tw = stats_rows(seq);
   const float* st = stats + (size_t)blockIdx.x * 2 * tw;
-  // causal: query chunks before the block's first key see none of its keys
-  const int first = causal ? jb / kSub : 0, nch = (seq + kSub - 1) / kSub;
-  auto slot = [&](int c) {
-    return reinterpret_cast<float*>(ring + ((c - first) % kTf32Stages) * SB);
-  };
+  // causal: query chunks before the tile's first key see none of its keys
+  const int first = causal ? jt / kTfChunk : 0, nch = (seq + kTfChunk - 1) / kTfChunk;
+  const bool live = j0 < seq;  // the warp has keys
+  const int key0 = j0 + lane / 4, q2 = 2 * (lane & 3);  // keys key0, key0 + 8
+
+  const ChunkPieces<D> pieces(tid);
   auto stage = [&](int c) {
     if (c >= nch) return;
-    const int i0c = c * kSub;
-    float* dst = slot(c);
-    stage_rows<float, D>(dst, LD, base + i0c * stride, stride, seq - i0c, kSub, tid,
-                         kTileThreads);
-    stage_rows<float, D>(dst + 2 * PL, LD, gbase + (size_t)i0c * width, width, seq - i0c, kSub,
-                         tid, kTileThreads);
-    // the statistics rows run to stats_rows(seq) >= i0c + kSub
-    float* sdst = dst + 4 * PL;
-    for (int idx = tid; idx < 2 * kSub / 4; idx += kTileThreads) {
-      const int a = idx / (kSub / 4), o = 4 * (idx % (kSub / 4));
-      cp_async16(sdst + a * kSub + o, st + a * tw + i0c + o, true);
-    }
+    const int i0c = c * kTfChunk;
+    pieces.stage(sm.land(0), base + i0c * stride, stride, seq - i0c);
+    pieces.stage(sm.land(1), gbase + (size_t)i0c * width, width, seq - i0c);
   };
-  stage_rows<float, D>(ks, LD, base + width + jb * stride, stride, seq - jb, kTile, tid,
-                       kTileThreads);
-  stage_rows<float, D>(vs, LD, base + 2 * width + jb * stride, stride, seq - jb, kTile, tid,
-                       kTileThreads);
+  stage_tf32<D, kTfRows>(sm.res(0), base + width + jt * stride, stride, seq - jt, kTfRows, tid,
+                         kTfThreads);
+  stage_tf32<D, kTfRows>(sm.res(1), base + 2 * width + jt * stride, stride, seq - jt, kTfRows,
+                         tid, kTfThreads);
   stage(first);
   cp_async_commit();
-
-  const int j0 = jb + 16 * warp, key0 = j0 + lane / 4;  // keys key0 and key0 + 8
-  const bool active = j0 < seq;
-  RowFrags<D, kHold> ka, va;
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  for (int c = first; c < nch; ++c) {
-    cp_async_wait<0>();  // this thread's pieces of the chunk (and at first of k and v)
-    split_staged<D>(slot(c), tid);
-    split_staged<D>(slot(c) + 2 * PL, tid);
-    __syncthreads();  // the chunk's planes are whole; every warp is done with c - 1
+  uint32_t kf[D / 8][4], vf[D / 8][4];  // the warp's keys of K and V: hi A fragments
+  auto landed = [&](int c) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (c == first) {
+      load_hi_frags<D>(kf, at(sm.res(0)), warp, lane);
+      load_hi_frags<D>(vf, at(sm.res(1)), warp, lane);
+      __syncthreads();
+      split_planes(fl(sm.res(0)), fl(sm.res(0)), fl(sm.res(0)), S::RES, tid, kTfThreads);
+      split_planes(fl(sm.res(1)), fl(sm.res(1)), fl(sm.res(1)), S::RES, tid, kTfThreads);
+    }
+    split_planes(fl(sm.land(0)), fl(sm.ch(0)), fl(sm.ch(1)), S::CH, tid, kTfThreads);
+    split_planes(fl(sm.land(1)), fl(sm.ch(2)), fl(sm.ch(3)), S::CH, tid, kTfThreads);
+    transpose_split<D>(at(sm.land(0)), at(sm.tr(0)), at(sm.tr(1)), tid);
+    transpose_split<D>(at(sm.land(1)), at(sm.tr(2)), at(sm.tr(3)), tid);
+    fence_proxy_async();
+    __syncthreads();
     stage(c + 1);
     cp_async_commit();
-    if (!active) continue;
-    if (c == first) {
-      ka.load(ks + 16 * warp * LD, lane);
-      va.load(vs + 16 * warp * LD, lane);
-    }
-    const int i0c = c * kSub;
-    if (causal && i0c + kSub <= j0) continue;  // every query of the chunk is before the keys
-    // the chunk's queries the warp's keys see: from its diagonal (causal) to T
-    const int nbeg = causal ? max(0, j0 - i0c) : 0, nend = min(kSub, seq - i0c);
-    const float* qs = slot(c);
-    const float* gs = qs + 2 * PL;
-    const float* st_lse = qs + 4 * PL;
-    const float* st_rs = st_lse + kSub;
-    float p[NT][4], ds[NT][4];
-    dots2_tf32<D, kHold>(p, ds, ka, va, qs, gs, nbeg, nend, lane);  // S^T, dP^T: (key, query)
+  };
+
+  float dk[NO], dv[NO];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int q1 = 8 * n + 2 * (lane & 3);  // queries i0c + q1, i0c + q1 + 1
-      const float2 lq = *reinterpret_cast<const float2*>(st_lse + q1);
-      const float2 rq = *reinterpret_cast<const float2*>(st_rs + q1);
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+  for (int c = first; c < nch; ++c) {
+    sm.hide();
+    landed(c);
+    const int i0c = c * kTfChunk;
+    // the queries of the thread's columns: their lse and r * D^-0.5
+    float2 lq[NC / 4], rq[NC / 4];
+#pragma unroll
+    for (int i = 0; i < NC / 4; ++i) {
+      lq[i] = *reinterpret_cast<const float2*>(st + i0c + 8 * i + q2);
+      rq[i] = *reinterpret_cast<const float2*>(st + tw + i0c + 8 * i + q2);
+    }
+    // S^T: (key, query), and dP^T, each in one tile: the key side's
+    // registers hold dk and dv besides
+    float s[NC], dp[NC];
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      fence_regs(kf[kk]);
+      fence_regs(vf[kk]);
+    }
+    wgmma_fence();
+    dots_tf32<D, D / 8>(s, s, kf, smem_desc<kRowBytes>(sm.res(0)), smem_desc<kRowBytes>(sm.ch(0)),
+                        smem_desc<kRowBytes>(sm.ch(1)));
+    dots_tf32<D, D / 8>(dp, dp, vf, smem_desc<kRowBytes>(sm.res(1)),
+                        smem_desc<kRowBytes>(sm.ch(2)), smem_desc<kRowBytes>(sm.ch(3)));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    // P^T and dS^T in place of S^T and dP^T; queries past T have lse = +inf
+    // (P = 0), queries before a key (causal) are set to 0
+    const bool edge = causal && j0 + 15 > i0c;
+#pragma unroll
+    for (int i = 0; i < NC / 4; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = key0 + 8 * (e >> 1), q = i0c + q1 + (e & 1);
-        const bool valid = !causal || key <= q;
-        const float lv = e & 1 ? lq.y : lq.x, rv = e & 1 ? rq.y : rq.x;
-        const float pv = valid ? ex2(fmaf(p[n][e], scale2, -lv)) : 0.f;
-        ds[n][e] = pv * fmaf(ds[n][e], scale, -rv);
-        p[n][e] = pv;
+        const int x = 4 * i + e;
+        const float lv = e & 1 ? lq[i].y : lq[i].x, rv = e & 1 ? rq[i].y : rq[i].x;
+        float pv = ex2(fmaf(s[x], scale2, -lv));
+        if (edge && key0 + 8 * (e >> 1) > i0c + 8 * i + q2 + (e & 1)) pv = 0.f;
+        dp[x] = pv * fmaf(dp[x], scale, -rv);
+        s[x] = pv;
       }
     }
-    const int kk0 = nbeg / 8, kk1 = (nend + 7) / 8;
-    acc_times_rows<D>(dv, p, gs, kk0, kk1, lane);
-    acc_times_rows<D>(dk, ds, qs, kk0, kk1, lane);
+    // dv += P^T . g, then dk += dS^T . q, over the chunk's queries below T,
+    // each in a zeroed tile
+    const int ks = min(4, (seq - i0c + 7) / 8);
+    // (in halves of d at D >= 32: a zeroed tile of D / 4 registers)
+    constexpr int NH = D >= 32 ? D / 2 : D, kHalves = D / NH;
+#pragma unroll
+    for (int hh = 0; hh < kHalves; ++hh) {
+      float t[NH / 2];
+      acc_times_chunk<NH>(t, s, smem_desc<128>(sm.tr(2) + hh * NH * 128),
+                          smem_desc<128>(sm.tr(3) + hh * NH * 128), ks);
+#pragma unroll
+      for (int i = 0; i < NH / 2; ++i) dv[hh * NH / 2 + i] += t[i];
+    }
+    fence_regs(dp);  // dS^T's fragments no earlier: registers
+#pragma unroll
+    for (int hh = 0; hh < kHalves; ++hh) {
+      float t[NH / 2];
+      acc_times_chunk<NH>(t, dp, smem_desc<128>(sm.tr(0) + hh * NH * 128),
+                          smem_desc<128>(sm.tr(1) + hh * NH * 128), ks);
+#pragma unroll
+      for (int i = 0; i < NH / 2; ++i) dk[hh * NH / 2 + i] += t[i];
+    }
   }
-  if (!active) return;
+  if (!live) return;
   float* out = dqkv + (size_t)b * seq * stride + h * D;
 #pragma unroll
   for (int e2 = 0; e2 < 2; ++e2) {
     const int row = key0 + 8 * e2;
     if (row >= seq) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float* dst = out + row * stride + 8 * n + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(dst + width) = make_float2(dk[n][2 * e2], dk[n][2 * e2 + 1]);
-      *reinterpret_cast<float2*>(dst + 2 * width) = make_float2(dv[n][2 * e2], dv[n][2 * e2 + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      float* dst = out + row * stride + 8 * j + q2;
+      *reinterpret_cast<float2*>(dst + width) =
+          make_float2(dk[4 * j + 2 * e2], dk[4 * j + 2 * e2 + 1]);
+      *reinterpret_cast<float2*>(dst + 2 * width) =
+          make_float2(dv[4 * j + 2 * e2], dv[4 * j + 2 * e2 + 1]);
     }
   }
 }
@@ -1802,42 +1889,43 @@ cudaError_t set_smem_shared_carveout(Kernel kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// A streamed pair on one stream: the query side (dq and the row
-// statistics), then the key side (dk, dv), on 64-row tiles.
+// A pair on one stream: the query side (dq and the row statistics), then
+// the key side (dk, dv), each a block per (batch row x head, `rows` rows)
+// of `threads` threads.
 template <typename T, typename Kq, typename Kkv>
-cudaError_t launch_pair(Kq q_side, Kkv kv_side, size_t smem, const void* qkv, const void* grad,
-                        void* dqkv, float* stats, int B, int seq, int width, int heads,
-                        float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_pair(Kq q_side, Kkv kv_side, size_t smem, int rows, int threads,
+                        const void* qkv, const void* grad, void* dqkv, float* stats, int B,
+                        int seq, int width, int heads, float scale, int causal,
+                        cudaStream_t stream) {
   cudaError_t e;
-  const dim3 grid(B * heads, stats_rows(seq) / kTile);
+  const dim3 grid(B * heads, (seq + rows - 1) / rows);
   if ((e = set_smem_shared_carveout(q_side, smem)) != cudaSuccess) return e;
   if ((e = set_smem_shared_carveout(kv_side, smem)) != cudaSuccess) return e;
-  q_side<<<grid, kTileThreads, smem, stream>>>(static_cast<const T*>(qkv),
-                                               static_cast<const T*>(grad), static_cast<T*>(dqkv),
-                                               stats, seq, width, heads, scale, causal);
+  q_side<<<grid, threads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<const T*>(grad),
+                                          static_cast<T*>(dqkv), stats, seq, width, heads, scale,
+                                          causal);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  kv_side<<<grid, kTileThreads, smem, stream>>>(static_cast<const T*>(qkv),
-                                                static_cast<const T*>(grad),
-                                                static_cast<T*>(dqkv), stats, seq, width, heads,
-                                                scale, causal);
+  kv_side<<<grid, threads, smem, stream>>>(static_cast<const T*>(qkv),
+                                           static_cast<const T*>(grad), static_cast<T*>(dqkv),
+                                           stats, seq, width, heads, scale, causal);
   return cudaGetLastError();
 }
 
 // T > 128: bf16 in one launch up to kResidentMaxSeq (the resident kernel),
-// its streamed pair above; fp32 always the fp32 (3xTF32) pair.
+// its streamed pair above; fp32 always the fp32 (3xTF32, wgmma) pair.
 template <int D>
 cudaError_t launch_tiled(const void* qkv, const void* grad, void* dqkv, float* stats, int B,
                          int seq, int width, int heads, float scale, int causal, int dtype,
                          cudaStream_t stream) {
   if (dtype == 0) {
-    return launch_pair<float>(attention_bwd_q_tf32<D, true>,
-                              attention_bwd_kv_tf32<D, false>, tf32_smem(D), qkv, grad,
-                              dqkv, stats, B, seq, width, heads, scale, causal, stream);
+    return launch_pair<float>(attention_bwd_q_tf32<D>, attention_bwd_kv_tf32<D>, tf32_smem(D),
+                              kTfRows, kTfThreads, qkv, grad, dqkv, stats, B, seq,
+                              width, heads, scale, causal, stream);
   }
   if (seq > kResidentMaxSeq) {
     return launch_pair<bf16>(attention_bwd_q_streamed_bf16<D>, attention_bwd_kv_streamed_bf16<D>,
-                             bf16_streamed_smem(D), qkv, grad, dqkv, stats, B, seq, width, heads,
-                             scale, causal, stream);
+                             bf16_streamed_smem(D), kTile, kTileThreads, qkv, grad, dqkv, stats,
+                             B, seq, width, heads, scale, causal, stream);
   }
   cudaError_t e;
   const size_t smem = resident_bf16_smem(seq, D);
@@ -1940,7 +2028,8 @@ int mnt_attention_bwd_kernels(int seq, int dtype) {
 // device.
 int mnt_attention_bwd_warps(int seq, int head_dim, int dtype, int rows_x_heads) {
   if (seq > kWholeMaxSeq) {
-    return dtype == 1 && seq <= kResidentMaxSeq ? resident_warps(seq) : kTileThreads / 32;
+    if (dtype == 0) return kTfThreads / 32;
+    return seq <= kResidentMaxSeq ? resident_warps(seq) : kTileThreads / 32;
   }
   return round16(seq) / 16 * (dtype == 0 ? f32_split(round16(seq), rows_x_heads) : 1);
 }

@@ -136,9 +136,12 @@
 //   128-byte swizzle; D = 16 one of 64 bytes), V^T's along the keys into two
 //   of 32;
 // - the tensor cores' adders truncate: each product sums its small terms
-//   first (lo.hi, then hi.lo, then hi.hi), and each chunk's P.V goes into a
-//   zeroed tile that is then added to O in fp32, so no chain of truncating
-//   additions runs over more than a chunk;
+//   first (lo.hi, then hi.lo, then hi.hi), and each half chunk's P.V (32
+//   keys) goes to a zeroed tile of its own, added to O in fp32, so P.V's
+//   chains take 4 k-steps at full size (one tile a chunk took 16; over 12
+//   inputs at (8, 1024) with V 4x larger the card's mean error fell from
+//   7.9e-6 to 7.2e-6; a second tile for S's hi.hi did not lower it, and the
+//   largest error, ~1e-5 either way, comes from elsewhere: PERF.md);
 // - three warpgroups a block share each chunk's planes (q's two planes a
 //   warpgroup, two stages of K, K's lo plane, V^T's two, V's landing rows:
 //   194 KB at D = 64, one block an SM), the next chunk landing while this
@@ -155,7 +158,7 @@
 // tensor cores' adders truncate (tests/test_torch_port_wgmma_tf32.py
 // emulates both).
 
-#include "attention_common.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -436,41 +439,10 @@ attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int se
 
 // ------------------------------------------------------------ wgmma
 
-// Warpgroup MMA (PTX ISA, wgmma.mma_async, sm_90a).  A warpgroup is four
-// consecutive warps; each instruction is issued by all 128 threads at once.
-// The fp32 accumulator of m64nNk16 puts warp w's rows 16w .. 16w + 15 in
-// mma.sync's m16n8 layout, tile after tile: lane l (g = l / 4, q = l % 4)
-// holds d[4j], d[4j + 1] at row 16w + g, columns 8j + 2q, 8j + 2q + 1, and
-// d[4j + 2], d[4j + 3] at row 16w + g + 8.  A from registers has mma.sync's
-// m16n8k16 A layout a warp, so two adjacent n8 tiles of an accumulator,
-// rounded to bf16, are one k-step's A fragment.
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of (row, 16-byte piece) in a tile of rows of kRowBytes (128,
-// 64 or 32: one swizzle atom a row), with the hardware's swizzle for that
-// width: bits 4.. of the offset XOR bits 7.. (3, 2 or 1 of them).  The tile
-// starts on a multiple of 1024 bytes, so the offset's bits are the
-// address's.
-template <int kRowBytes>
-__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
-  return off ^ (((off >> 7) & (kRowBytes / 16 - 1)) << 4);
-}
-
-// Matrix descriptor of a tile (or of its part from `addr` on) in that
-// layout: the start address, the byte offsets between 8-row groups (both
-// fields, 8 rows x kRowBytes: a K-major operand reads one as the stride
-// between groups of rows, a transposed one as the stride between groups
-// of k; the other offset spans swizzle atoms across the row, and a row is
-// one atom), and the swizzle mode (1: 128 bytes, 2: 64, 3: 32).
-template <int kRowBytes>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t kMode = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
-  constexpr uint64_t kGroup = (8 * kRowBytes) >> 4;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kGroup << 16) | (kGroup << 32) | (kMode << 62);
-}
+// Warpgroup MMA (PTX ISA, wgmma.mma_async, sm_90a; attention_wgmma.cuh has
+// the layouts, fences and tf32 products).  A bf16 A from registers has
+// mma.sync's m16n8k16 A layout a warp, so two adjacent n8 tiles of an
+// accumulator, rounded to bf16, are one k-step's A fragment.
 
 // the bf16 tiles: rows of D values, 2D bytes
 template <int D>
@@ -497,32 +469,6 @@ __device__ __forceinline__ void stage_swizzled(uint32_t tile, const bf16* gmem, 
   }
 }
 
-// cp.async writes reach wgmma's (async proxy) reads of shared memory only
-// through this fence, issued by the writing thread before the barrier
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from touching registers a wgmma writes before its
-// wait (or reads after its issue) by making them depend on this point
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 // d (+)= A . B^T: m64n64k16, A (64 x 16) and B (64 keys x 16) both from
 // shared memory, K-major; kScaleD 0 overwrites d
@@ -818,131 +764,6 @@ attention_fwd_wgmma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int se
 
 // ------------------------------------------------------------ wgmma, tf32
 
-// d (+)= A . B^T: m64n64k8, tf32 (fp32 operands, of which the tensor cores
-// read the TF32 bits), A (64 x 8) and B (64 keys x 8) both from shared
-// memory, K-major (the only layout 32-bit operands take); kScaleD 0
-// overwrites d
-template <int kScaleD>
-__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "n"(kScaleD));
-}
-
-// d (+)= A . B: m64n(D)k8, tf32, A (64 x 8) from registers in mma.sync's
-// m16n8k8 A layout a warp, B (8 keys x D) from shared memory stored as
-// B^T (rows [d][key], K-major)
-template <int D, int kScaleD>
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[D / 2], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  if constexpr (D == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScaleD));
-  } else if constexpr (D == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScaleD));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScaleD));
-  }
-}
-
-// x = hi + lo, 4 values: hi = x rounded to TF32 as split_tf32 rounds it (a
-// value the tensor cores read whole) and lo = x - hi exactly (of which they
-// read the top bits).  Cutting hi instead (split_tf32_trunc) saves two
-// integer operations a value and doubled the kernel's error on the card.
-__device__ __forceinline__ uint32_t tf32_round(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) {
-  hi = make_float4(__uint_as_float(tf32_round(x.x)), __uint_as_float(tf32_round(x.y)),
-                   __uint_as_float(tf32_round(x.z)), __uint_as_float(tf32_round(x.w)));
-  lo = make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w);
-}
-
-// Byte offset of (row r, 16-byte piece c) in a 64-row K-major fp32 tile of D
-// floats a row (q, or a chunk of K), as wgmma reads it: cut along d into
-// sub-tiles of tf_sub(D) floats (one 128- or 64-byte swizzle atom a row),
-// each 64 rows apart
-__host__ __device__ constexpr int tf_sub(int D) { return D < 32 ? D : 32; }
-template <int D>
-__device__ __forceinline__ uint32_t tf_offset(int r, int c) {
-  constexpr int kRowBytes = 4 * tf_sub(D), kPieces = tf_sub(D) / 4;
-  return (c / kPieces) * kWgRows * kRowBytes +
-         swizzle<kRowBytes>(r * kRowBytes + (c % kPieces) * 16);
-}
-
-// Rows [0, rows) of a strided (rows, D) fp32 slice into consecutive 64-row
-// tiles at `tile` (a shared address) in that layout; rows >= valid are
-// zero-filled
-template <int D>
-__device__ __forceinline__ void stage_tf32(uint32_t tile, const float* gmem, size_t stride,
-                                           int valid, int rows, int tid, int nthreads) {
-  constexpr int kPieces = D / 4;  // 16-byte pieces a row
-  for (int idx = tid; idx < rows * kPieces; idx += nthreads) {
-    const int r = idx / kPieces, c = idx % kPieces;
-    const bool ok = r < valid;
-    const uint32_t dst = tile + (r / kWgRows) * tf_tile_bytes(D) + tf_offset<D>(r % kWgRows, c);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(gmem + (ok ? r * stride + c * 4 : 0)), "r"(ok ? 16 : 0));
-  }
-}
-
-// A landed tile's two planes: each value x of [hi, hi + bytes) becomes its
-// hi in place and its lo at the same offset from `lo` (an elementwise map,
-// so the swizzle does not matter)
-__device__ __forceinline__ void split_planes(float* hi, float* lo, int bytes, int tid,
-                                             int nthreads) {
-  for (int i = tid; i < bytes / 16; i += nthreads) {
-    float4 h, l;
-    split4(reinterpret_cast<const float4*>(hi)[i], h, l);
-    reinterpret_cast<float4*>(hi)[i] = h;
-    reinterpret_cast<float4*>(lo)[i] = l;
-  }
-}
-
 // V's landed chunk (rows [key][d], D + 4 floats a row) into V^T's two
 // planes, the B operand of P.V: rows d, the chunk's 64 keys along k in two
 // sub-tiles of 32 (128-byte rows, swizzled, D rows apart), each 8-key group
@@ -980,17 +801,17 @@ __device__ __forceinline__ void transpose_v(const float* vrows, float* vt, float
 // chunk is staged while this one computes.  Steps 0 .. nch - 1 take each
 // row's online max m and sum l of 2^((s - m) scale2); steps nch .. 2 nch -
 // 1 recompute the scores and add P = 2^((s - m) scale2) / l, in fp32, times
-// V, each chunk's P.V summed in a zeroed tile (in two halves of 32 keys,
-// each waited for: registers) and then added to O.  Each product sums its
-// two small terms first: the tensor cores' adders truncate, and the large
-// sum then takes the fewest additions.
+// V, each half of a chunk's P.V (32 keys, each waited for: registers)
+// summed in a zeroed tile and then added to O.  Each product sums its two
+// small terms first: the tensor cores' adders truncate, and the large sum
+// then takes the fewest additions.
 template <int D>
 __global__ void __launch_bounds__(128 * kTfGroups, 1)
 attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int seq, int width,
                    int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int TILE = tf_tile_bytes(D), VT = tf_vt_bytes(D), NO = D / 2, KS = D / 8;
-  constexpr int kRowBytes = 4 * tf_sub(D), kStepsSub = tf_sub(D) / 8;  // k-steps a sub-tile
+  constexpr int kRowBytes = 4 * tf_sub(D);
   const float scale2 = scale * 1.4426950408889634f;  // log2(e)
   const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid % 32;
   // the warp's index broadcast from lane 0 (attention_fwd_wgmma says why)
@@ -1019,22 +840,20 @@ attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int s
   auto stage = [&](int step) {  // sweep 1 stages K, sweep 2 K and V
     if (step >= steps) return;
     const int c0 = chunk0(step);
-    stage_tf32<D>(kh + (step & 1) * TILE, base + width + c0 * stride, stride, seq - c0, kWgKeys,
-                  tid, nthreads);
+    stage_tf32<D, kWgRows>(kh + (step & 1) * TILE, base + width + c0 * stride, stride, seq - c0,
+                           kWgKeys, tid, nthreads);
     if (step >= nch) {
       stage_rows<float, D>(at(vrows), D + 4, base + 2 * width + c0 * stride, stride, seq - c0,
                            kWgKeys, tid, nthreads);
     }
   };
-  stage_tf32<D>(qh, base + rb * stride, stride, seq - rb, rows, tid, nthreads);
+  stage_tf32<D, kWgRows>(qh, base + rb * stride, stride, seq - rb, rows, tid, nthreads);
   stage(0);
   cp_async_commit();
 
   // descriptors: a k-step's offset from a tile's start, its sub-tile's and
   // its 32 bytes within the row
-  auto k_off = [](int kk) -> uint64_t {
-    return (uint64_t)(((kk / kStepsSub) * kWgRows * kRowBytes + (kk % kStepsSub) * 32) >> 4);
-  };
+  auto k_off = [](int kk) { return tf_k_off<D, kWgRows>(kk); };
   auto v_off = [](int j) -> uint64_t {
     return (uint64_t)(((j / 4) * D * 128 + (j % 4) * 32) >> 4);
   };
@@ -1048,13 +867,19 @@ attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int s
   auto scores = [&](float(&s)[32], int step) {
     const uint64_t kh_desc = smem_desc<kRowBytes>(kh + (step & 1) * TILE);
     wgmma_fence();
-    wgmma_tf32_ss<0>(s, ql_desc, kh_desc);
+    wgmma_tf32_ss<64, 0>(s, ql_desc, kh_desc);
 #pragma unroll
-    for (int kk = 1; kk < KS; ++kk) wgmma_tf32_ss<1>(s, ql_desc + k_off(kk), kh_desc + k_off(kk));
+    for (int kk = 1; kk < KS; ++kk) {
+      wgmma_tf32_ss<64, 1>(s, ql_desc + k_off(kk), kh_desc + k_off(kk));
+    }
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) wgmma_tf32_ss<1>(s, qh_desc + k_off(kk), kl_desc + k_off(kk));
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_tf32_ss<64, 1>(s, qh_desc + k_off(kk), kl_desc + k_off(kk));
+    }
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) wgmma_tf32_ss<1>(s, qh_desc + k_off(kk), kh_desc + k_off(kk));
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_tf32_ss<64, 1>(s, qh_desc + k_off(kk), kh_desc + k_off(kk));
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -1073,8 +898,9 @@ attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int s
   auto landed = [&](int step) {
     cp_async_wait<0>();
     __syncthreads();
-    if (step == 0) split_planes(at(qh), at(ql), groups * TILE, tid, nthreads);
-    split_planes(at(kh + (step & 1) * TILE), at(kl), TILE, tid, nthreads);
+    if (step == 0) split_planes(at(qh), at(qh), at(ql), groups * TILE, tid, nthreads);
+    split_planes(at(kh + (step & 1) * TILE), at(kh + (step & 1) * TILE), at(kl), TILE, tid,
+                 nthreads);
     if (step >= nch) transpose_v<D>(at(vrows), at(vt), at(vt_lo), tid, nthreads);
     fence_proxy_async();
     __syncthreads();
@@ -1116,7 +942,7 @@ attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int s
     for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / group_sum<4>(l[r]);
   }
   // sweep 2: P = 2^((s - m) scale2) / l in fp32, split into the hi and lo A
-  // fragments of P.V (k-step j: keys c0 + 8j ..), then the chunk's P.V over
+  // fragments of P.V (k-step j: keys c0 + 8j ..), then each half's P.V over
   // the k-steps the tile's rows see into a zeroed tile, added to O
   float o[NO];
 #pragma unroll
@@ -1128,12 +954,13 @@ attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int s
     float s[32];
     scores(s, step);
     // the chunk's P.V in two halves of 32 keys, each waited for before the
-    // next half's fragments are formed: all 64 keys' hi and lo fragments at
-    // once spill at D = 64 (and forming one half's while the other is in
-    // flight spills more)
-    float oc[NO];
+    // next half's fragments are formed (all 64 keys' hi and lo fragments at
+    // once spill at D = 64, and forming one half's while the other is in
+    // flight spills more), each in its own zeroed tile: one tile for the
+    // chunk left 16 of its 24 k-steps adding into a full-size sum
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
+      float oc[NO];
       if (half == 1 && c0 + 32 >= kend) break;
       uint32_t ph[4][4], pl[4][4];
 #pragma unroll
@@ -1160,11 +987,7 @@ attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int s
         fence_regs(pl[i]);
       }
       wgmma_fence();
-      if (half == 0) {
-        wgmma_tf32_rs<D, 0>(oc, pl[0], vt_desc);
-      } else {
-        wgmma_tf32_rs<D, 1>(oc, pl[0], vt_desc + v_off(4));
-      }
+      wgmma_tf32_rs<D, 0>(oc, pl[0], vt_desc + v_off(4 * half));
 #pragma unroll
       for (int i = 1; i < 4; ++i) {
         const int j = 4 * half + i;
@@ -1183,9 +1006,9 @@ attention_fwd_tf32(const float* __restrict__ qkv, float* __restrict__ out, int s
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(oc);
-    }
 #pragma unroll
-    for (int i = 0; i < NO; ++i) o[i] += oc[i];
+      for (int i = 0; i < NO; ++i) o[i] += oc[i];
+    }
   }
   if (!live) return;
   float* out_b = out + (size_t)b * seq * width + h * D;

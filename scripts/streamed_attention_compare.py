@@ -27,7 +27,8 @@ With --k2-fp32, K2 alone in fp32 above 128 tokens: at the smoke's phase-3
 lengths (129, 261, 273, 288, 320 at ViT-L/14's width, LONG_SHAPES and the
 two ViT-L/14 vision shards) beside its plain version and SDPA's forward +
 backward, and at guard shapes that should not move (fp32 up to 128 tokens,
-bf16 at 273 and 337), each with a digest of the output's bits; then the
+bf16 at 273 and 337), each with a digest of the output's bits, with every
+K2 entry point's registers; then the
 fp32 VPT step at ViT-L/14 with a 16-token prompt (T = 273) in the per-step
 loop (busy ms, K1's and K2's ms a step) and in the whole-run trainer over
 3 epochs of 10 steps of the smoke's synthetic images (ms a step, epoch
@@ -65,7 +66,8 @@ two tensor-parallel shards and LONG_SHAPES, beside its plain version and
 SDPA's forward, with the bound, the bound share, the error against the
 plain version, whether two launches give the same bits and a digest of
 them, and at guard shapes that should not move (bf16 at 257, 273 and 337
-tokens, fp32 at 50 and 77), each with its digest; then the fp32 VPT step at
+tokens, fp32 at 50 and 77), each with its digest, and its error at (8,
+1024) with V 4x larger, both masks; then the fp32 VPT step at
 ViT-L/14 with a 16-token prompt (T = 273) in the per-step loop (busy ms,
 K1's and K2's ms a step) and the device encode of a 256-image fp32 batch by
 ViT-L/14's vision tower (T = 257: ms, busy ms and K1's ms a batch).
@@ -373,6 +375,18 @@ def long_fp32_cases(torch, smoke, reps: int):
         print("  " + json.dumps(case), flush=True)
         cases.append(case)
         del qkv, heads, out, again
+    # (8, 1024) with V 4x larger, both masks: the error of the tensor cores'
+    # truncating sums grows with the values summed
+    for mask in ("causal", None):
+        qkv = torch.randn(8, 1024, 3 * 1024, generator=g, device="cuda")
+        qkv[..., 2 * 1024:] *= 4
+        out = fused_attention(qkv, mask, 16)
+        case = {"shape": [8, 1024, 1024, 16], "mask": mask, "dtype": "float32", "v_scale": 4,
+                "max_abs_err": (out - attention_reference(qkv, mask, 16)).abs().max().item(),
+                "tol": smoke.ATTN_TOL["float32"], "digest": digest(torch, out)}
+        print("  " + json.dumps(case), flush=True)
+        cases.append(case)
+        del qkv, out
     return cases
 
 
@@ -731,7 +745,7 @@ def main(argv=None) -> int:
         out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)
         out["encode"] = encode_256(torch, smoke, runtime[1])
     elif args.k2_fp32:
-        out["ptxas"] = ptxas(_cuda, ["attention_bwd"], ["tf32", "tiled", "streamed"])
+        out["ptxas"] = ptxas(_cuda, ["attention_bwd"], ["attention_bwd"])
         out["kernels"] = k2_fp32_cases(torch, smoke, args.reps)
         runtime = vit_l14_runtime(torch, RESIDENT_PREFIX, "float32")
         out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)

@@ -57,13 +57,13 @@ def _require_card():
 # Ragged lengths around the kernels' 16-row tiles and 128-key chunks, up to
 # K2's whole-sequence path's 128, at D = 16 (the tiny-test arch), 32 and 64
 # (B = 1), unmasked and causal: (B, T, W, heads, mask); then the lengths K2
-# tiles (129 ... 320, around its 64-row tiles and chunks and K1's 64-key
-# chunks, ViT-L/14's 257, 261 and 273, and 320, the last length bf16 keeps K
-# and V resident); then the lengths both kernels stream (321 on, around
-# their 64-key and 64-row chunks, ViT-L/14's 337 with an 80-token prompt,
-# ViT-L/14@336's 577)
+# tiles (129 ... 320, around its 64-row tiles and 32- and 64-row chunks and
+# K1's 64-key chunks, ViT-L/14's 257, 261 and 273, and 320, the last length
+# bf16 keeps K and V resident); then the lengths both kernels stream (321
+# on, around their 64-key and 64-row chunks, ViT-L/14's 337 with an 80-token
+# prompt, ViT-L/14@336's 577)
 EDGE_T = (1, 15, 16, 17, 48, 63, 64, 65, 66, 77, 128)
-LONG_EDGE_T = (129, 143, 191, 192, 193, 257, 261, 273, 320)
+LONG_EDGE_T = (129, 143, 191, 192, 193, 255, 256, 257, 261, 273, 320)
 STREAMED_EDGE_T = (321, 337, 383, 384, 385, 577, 1024)
 EDGE_CASES, LONG_EDGE_CASES, STREAMED_EDGE_CASES = ([
     (b, t, w, w // d, mask)
@@ -117,6 +117,22 @@ def test_attention_kernel_matches_plain(case, dtype):
     assert out.shape == (B, T, W) and out.dtype == dtype
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
+def test_attention_fp32_kernel_with_larger_values_matches_plain(mask):
+    """K1 fp32 above 128 tokens with V 4x larger (8, 1024) at ViT-L/14's
+    width: the tensor cores' truncating adders err in proportion to the
+    sums, and the kernel keeps its chains short enough to stay within the
+    fp32 tolerance."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn(8, 1024, 3 * 1024, generator=g, device="cuda")
+    qkv[..., 2 * 1024:] *= 4
+    out = fused_attention(qkv, mask, 16)
+    ref = attention_reference(qkv, mask, 16)
+    tol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
 # K1 streams K and V past these lengths (the wrapper counts those launches
@@ -240,7 +256,10 @@ def test_fused_attention_gradient_on_card_matches_autograd_of_plain(case):
 @pytest.mark.parametrize("case", [(256, 66, 768, 12, None), (102, 77, 512, 8, "causal"),
                                   (16, 273, 1024, 16, None), (2, 200, 128, 2, "causal"),
                                   (16, 320, 1024, 16, None), (1, 273, 64, 1, "causal"),
-                                  (16, 337, 1024, 16, None), (2, 1024, 128, 2, "causal")],
+                                  (16, 337, 1024, 16, None), (2, 1024, 128, 2, "causal"),
+                                  (2, 129, 64, 4, "causal"), (2, 193, 128, 4, None),
+                                  (2, 256, 256, 4, "causal"), (2, 321, 128, 2, None),
+                                  (16, 273, 512, 8, None), (16, 273, 256, 4, None)],
                          ids=lambda c: "x".join(map(str, c)))
 def test_attention_bwd_kernel_is_deterministic(case, dtype):
     """No atomics: two launches on the same inputs give the same bits."""
@@ -259,9 +278,9 @@ def test_attention_bwd_reports_its_warps_and_workspace():
     """Above 128 tokens bf16 runs in one launch with no workspace up to 320
     tokens, its warps sized so that each takes the same number of 16-row
     tiles (T = 273: 18 tiles, 9 warps of 2); fp32, and bf16 above 320, in
-    a pair of launches of 4 warps, on 8 bytes (lse, r * D^-0.5) per (row,
-    head, query), queries rounded up to 64, with shared memory that no
-    longer grows with T."""
+    a pair of launches of 4 warps (fp32: one warpgroup a block, two blocks
+    an SM), on 8 bytes (lse, r * D^-0.5) per (row, head, query), queries
+    rounded up to 64, with shared memory that no longer grows with T."""
     _require_card()
     from menghini_neurips23_tpu_torch.ops import _cuda
     from menghini_neurips23_tpu_torch.ops.attention import _BWD_SIGNATURES
@@ -292,7 +311,9 @@ def test_attention_bwd_reports_its_warps_and_workspace():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", [(102, 77, 512, 8, "causal"), (256, 50, 768, 12, None),
                                   (2, 129, 128, 2, "causal"), (16, 273, 1024, 16, None),
-                                  (16, 337, 1024, 16, None)],
+                                  (16, 337, 1024, 16, None), (2, 193, 128, 4, None),
+                                  (2, 256, 256, 4, "causal"), (16, 273, 512, 8, None),
+                                  (16, 273, 256, 4, None), (2, 1024, 128, 2, "causal")],
                          ids=lambda c: "x".join(map(str, c)))
 def test_attention_bwd_counts_its_pairs(case, dtype):
     """A K2 call that takes a pair (fp32 above 128 tokens, bf16 above 320)

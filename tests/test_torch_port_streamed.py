@@ -1,14 +1,18 @@
 """The schedules of the attention kernels above 128 tokens (K1's forward: in
-fp32 streamed from 129 tokens, in bf16 with K and V resident up to 320 and
-streamed past it, both forms on one schedule; K2's pair of launches, in
-fp32 from 129 tokens and in bf16 past 320), emulated in plain torch,
+bf16 with K and V resident up to 320 and streamed past it, both forms on one
+schedule, and in fp32 on warpgroup MMA; K2's pair of launches, in fp32 from
+129 tokens on warpgroup MMA and in bf16 past 320), emulated in plain torch,
 against the JAX package's fused attention and its custom VJP on the CPU.
+The fp32 forms' schedules are tests/torch_port_fixtures.py's
+`k1_wgmma_tf32` and `k2_wgmma_tf32` (tests/test_torch_port_wgmma_tf32.py and
+test_torch_port_wgmma_bwd_tf32.py hold them at more lengths).
 
 The kernels themselves run only on a card (tests/test_torch_port_gpu.py
 holds them against the port's plain versions there).  What these tests pin
 is their arithmetic: the order of the sums, the base-2 softmax, the row
 statistics the two sweeps (and the two launches of the backward) hand on,
-the rounding points, and, in fp32, 3xTF32 products on the tensor cores.
+the rounding points, and, in fp32, 3xTF32 products on the tensor cores,
+chained k-step by k-step as the kernels chain them.
 The JAX side runs its Pallas kernels as its own tests do off-TPU
 (interpreted); the same numpy inputs, made from a seed, go to both.
 
@@ -17,7 +21,7 @@ Tolerances: fp32 1e-5 and bf16 2e-2, as in tests/test_torch_port_ops.py
 points; sums run in another order).  The fp32 products are emulated as the
 kernels form them: each operand x split on its bit pattern into hi (x
 rounded to TF32's 10 fraction bits, to nearest, ties away from zero, as
-cvt.rna.tf32.f32 rounds) and lo (x - hi cut to TF32), and lo.hi + hi.lo +
+cvt.rna.tf32.f32 rounds) and lo (x - hi cut to TF32), and lo.hi, hi.lo and
 hi.hi summed in fp32.  One TF32 product alone misses 1e-5 on the same
 inputs, which is why the kernels take three.
 """
@@ -32,17 +36,16 @@ import torch
 
 from menghini_neurips23_tpu.ops.attention import fused_attention as jax_fused_attention
 from menghini_neurips23_tpu_torch.ops.attention import attention_bwd_reference, attention_reference
-from tests.torch_port_fixtures import mm_1xtf32 as _mm_1xtf32
-from tests.torch_port_fixtures import mm_3xtf32 as _mm_3xtf32
+from tests.torch_port_fixtures import k1_wgmma_tf32, k2_wgmma_tf32
 
 torch.set_num_threads(2)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 B, H, D = 2, 2, 64
-# the keys of one update of a row's statistics: K1's chunks (64 in bf16,
-# resident or streamed; 32 in fp32) and K2's query side's 32-key steps
-K1_CHUNK = {torch.bfloat16: 64, torch.float32: 32}
+# the keys of one update of a row's statistics: K1 bf16's 64-key chunks
+# (resident or streamed) and K2 bf16's streamed query side's 32-key steps
+K1_CHUNK = 64
 K2_STEP = 32
 LOG2E = 1.4426950408889634
 
@@ -113,16 +116,18 @@ def _jax_forward(qkv, mask, jdt):
 @pytest.mark.parametrize("T", [129, 200, 273, 320, 337, 577])
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_k1_streamed_schedule_matches_jax(mask, T, dtype):
-    """K1's schedule above 128 tokens (fp32 on 3xTF32 products in 32-key
-    chunks, bf16 on products of bf16 values, which fp32 holds exactly, in
-    64-key chunks, resident up to 320 and streamed past it) against the JAX
-    package's fused attention (its Pallas forward, interpreted off-TPU) and
-    the port's plain version."""
+    """K1's schedule above 128 tokens (fp32 on warpgroup MMA as 3xTF32,
+    `k1_wgmma_tf32`; bf16 on products of bf16 values, which fp32 holds
+    exactly, in 64-key chunks, resident up to 320 and streamed past it)
+    against the JAX package's fused attention (its Pallas forward,
+    interpreted off-TPU) and the port's plain version."""
     jdt, tdt, tol = _DTYPES[dtype]
     qkv, _ = _inputs(T, 300 + T)
     qkv_t = torch.from_numpy(qkv).to(tdt)
-    mm = _mm_3xtf32 if tdt == torch.float32 else _mm_plain
-    got = _k1_streamed(qkv_t, mask, K1_CHUNK[tdt], mm)
+    if tdt == torch.float32:
+        got = k1_wgmma_tf32(qkv_t, mask, H)
+    else:
+        got = _k1_streamed(qkv_t, mask, K1_CHUNK, _mm_plain)
     assert got.dtype == tdt and got.shape == (B, T, H * D)
     np.testing.assert_allclose(got.float().numpy(), _jax_forward(qkv, mask, jdt), rtol=tol,
                                atol=tol)
@@ -133,23 +138,22 @@ def test_k1_streamed_schedule_matches_jax(mask, T, dtype):
 
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_k1_streamed_fp32_needs_three_tf32_products(mask):
-    """At T = 337 in fp32, the schedule on one TF32 product errs by more than
-    the kernel's 1e-5 against the JAX package's forward (3.4e-4 unmasked),
-    and on 3xTF32 by less than a tenth of it (5.7e-7, much of it the two
+    """At T = 337 in fp32, the schedule (`k1_wgmma_tf32`) on one TF32
+    product errs by more than the kernel's 1e-5 against the JAX package's
+    forward, and on 3xTF32 by less than a tenth of it (much of it the two
     sides' own fp32 sums): the kernel takes three."""
     T = 337
     qkv, _ = _inputs(T, 300 + T)
     qkv_t = torch.from_numpy(qkv)
     want = _jax_forward(qkv, mask, jnp.float32)
-    err = {name: float(np.abs(_k1_streamed(qkv_t, mask, K1_CHUNK[torch.float32], mm).numpy()
-                              - want).max())
-           for name, mm in (("one", _mm_1xtf32), ("three", _mm_3xtf32))}
+    err = {name: float(np.abs(k1_wgmma_tf32(qkv_t, mask, H, three=three).numpy() - want).max())
+           for name, three in (("one", False), ("three", True))}
     assert err["one"] > 1e-5, err
     assert err["three"] < 1e-6, err
 
 
 def _k2_pair(qkv, g, mask, mm):
-    """K2's pair of launches (fp32 above 128 tokens, bf16 above 320).  Query
+    """K2's bf16 pair of launches (above 320 tokens).  Query
     side: sweep 1 in 32-key steps keeps each row's online max m of the raw
     dots, l = sum 2^(s c - m c) and rho = sum 2^(s c - m c) * dP (c =
     D^-0.5 log2(e)), rescaling l and rho alike when m grows; each row's
@@ -158,8 +162,8 @@ def _k2_pair(qkv, g, mask, mm):
     dP again, P = 2^(s c - lse), dS = P (dP D^-0.5 - r D^-0.5) rounded to
     the input type and dq = dS k.  Key side: S^T = k q^T and dP^T = v g^T
     formed anew, the same P and dS from the workspace, dv = P_lp^T g and
-    dk = dS^T q.  `mm` forms every product: 3xTF32 in fp32; in bf16 the
-    plain product of bf16 values, which fp32 holds exactly."""
+    dk = dS^T q.  `mm` forms every product: the plain product of bf16
+    values, which fp32 holds exactly."""
     dt = qkv.dtype
     T = qkv.shape[1]
     q, k, v = (_heads(t) for t in qkv.split(H * D, dim=-1))
@@ -238,15 +242,15 @@ def test_k2_streamed_bf16_schedule_matches_jax_vjp(mask):
 @pytest.mark.parametrize("T", [129, 273, 337])
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_k2_tf32_pair_schedule_matches_jax_vjp(mask, T):
-    """K2's fp32 pair above 128 tokens, every product as 3xTF32, the base-2
-    statistics handed from the query side to the key side as the workspace
-    holds them, against the JAX package's custom VJP (its Pallas backward,
-    interpreted off-TPU) and the port's plain version, at 1e-5 + 1e-5
-    |ref|."""
+    """K2's fp32 pair above 128 tokens on warpgroup MMA (`k2_wgmma_tf32`),
+    every product as 3xTF32, the base-2 statistics handed from the query
+    side to the key side as the workspace holds them, against the JAX
+    package's custom VJP (its Pallas backward, interpreted off-TPU) and the
+    port's plain version, at 1e-5 + 1e-5 |ref|."""
     jdt, tdt, tol = _DTYPES["float32"]
     qkv, g = _inputs(T, 500 + T, grad=True)
     qkv_t, g_t = torch.from_numpy(qkv), torch.from_numpy(g)
-    got = _k2_pair(qkv_t, g_t, mask, _mm_3xtf32)
+    got = k2_wgmma_tf32(qkv_t, g_t, mask, H)
     assert got.dtype == tdt and got.shape == (B, T, 3 * H * D)
     np.testing.assert_allclose(got.numpy(), _jax_vjp(qkv, g, mask, jdt), rtol=tol, atol=tol)
     np.testing.assert_allclose(got.numpy(), attention_bwd_reference(qkv_t, g_t, mask, H).numpy(),
@@ -255,16 +259,16 @@ def test_k2_tf32_pair_schedule_matches_jax_vjp(mask, T):
 
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_k2_tf32_pair_needs_three_tf32_products(mask):
-    """At T = 273 in fp32, K2's pair on one TF32 product a product misses
-    1e-5 + 1e-5 |ref| against the JAX package's custom VJP, and on 3xTF32
-    it meets it: the kernels take three."""
+    """At T = 273 in fp32, K2's pair (`k2_wgmma_tf32`) on one TF32 product a
+    product misses 1e-5 + 1e-5 |ref| against the JAX package's custom VJP,
+    and on 3xTF32 it meets it: the kernels take three."""
     T = 273
     qkv, g = _inputs(T, 500 + T, grad=True)
     qkv_t, g_t = torch.from_numpy(qkv), torch.from_numpy(g)
     want = _jax_vjp(qkv, g, mask, jnp.float32)
-    excess = {name: float((np.abs(_k2_pair(qkv_t, g_t, mask, mm).numpy() - want)
-                           - 1e-5 * np.abs(want)).max())
-              for name, mm in (("one", _mm_1xtf32), ("three", _mm_3xtf32))}
+    excess = {name: float((np.abs(k2_wgmma_tf32(qkv_t, g_t, mask, H, three=three).numpy()
+                                  - want) - 1e-5 * np.abs(want)).max())
+              for name, three in (("one", False), ("three", True))}
     assert excess["one"] > 1e-5, excess
     assert excess["three"] <= 1e-5, excess
 

@@ -6,29 +6,30 @@ port's plain version.
 The kernel runs only on a card (tests/test_torch_port_gpu.py holds it
 against `attention_reference` there, at every length around its 64-row
 tiles and 64-key chunks).  What these tests pin is its arithmetic, tile by
-tile as the kernel takes it: a warpgroup per 64 query rows (rows past T
-zero-filled), 64-key chunks of K and V (keys past T zero-filled) in both
-sweeps, a causal tile's chunks only up to its diagonal; sweep 1 keeps each
-row's online max m of the raw scores and sum l of 2^((s - m) D^-0.5
-log2(e)) (-inf past T and the diagonal), leaving out the 8-key groups past
-the tile's keys; sweep 2 recomputes the scores, forms P = 2^((s - m) D^-0.5
-log2(e)) * (1 / l) in fp32 (0 in the 8-key groups past the tile's keys)
-and adds each chunk's P . V, formed in a zeroed tile over its two halves
-of 32 keys (the second only where the tile's keys reach it), to O.  Every
-product is 3xTF32 as the kernel forms it: each operand x split into hi (x
-rounded to TF32 as cvt.rna.tf32.f32 rounds, tests/torch_port_fixtures.py's
-`_split`) and lo (x - hi, of which the tensor cores read the TF32 cut),
-the small terms summed first, lo.hi + hi.lo, then hi.hi.
-The JAX side runs its Pallas kernel as its own tests do off-TPU
-(interpreted); the same numpy inputs, made from a seed, go to both.
+tile as the kernel takes it (tests/torch_port_fixtures.py's
+`k1_wgmma_tf32`): a warpgroup per 64 query rows (rows past T zero-filled),
+64-key chunks of K and V (keys past T zero-filled) in both sweeps, a causal
+tile's chunks only up to its diagonal; sweep 1 keeps each row's online max
+m of the raw scores and sum l of 2^((s - m) D^-0.5 log2(e)) (-inf past T
+and the diagonal), leaving out the 8-key groups past the tile's keys; sweep
+2 recomputes the scores, forms P = 2^((s - m) D^-0.5 log2(e)) * (1 / l) in
+fp32 (0 in the 8-key groups past the tile's keys) and adds each chunk's
+P . V to O over its two halves of 32 keys (the second only where the
+tile's keys reach it), each half in a zeroed tile of its own.  Every
+product is 3xTF32 as the kernel chains its wgmma k-steps: each operand x
+split into hi (x rounded to TF32 as cvt.rna.tf32.f32 rounds,
+tests/torch_port_fixtures.py's `_split`) and lo (x - hi, of which the
+tensor cores read the TF32 cut), the small terms first, lo.hi and hi.lo,
+then hi.hi.  The JAX side runs its Pallas kernel as its own tests do
+off-TPU (interpreted); the same numpy inputs, made from a seed, go to both.
 
 Tolerance: fp32 1e-5, as in tests/test_torch_port_ops.py and on the card
 (sums run in another order; the split leaves out lo.lo and the bits below
 lo, about 2^-21 of a product).  One TF32 product alone misses it on the
-same inputs, which is why the kernel takes three.
+same inputs, which is why the kernel takes three.  The chain comparison
+runs the schedule on `acc_truncating`, a model of the tensor cores'
+truncating adders, to show which chain carries the error the card shows.
 """
-
-import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +38,7 @@ import torch
 
 from menghini_neurips23_tpu.ops.attention import fused_attention as jax_fused_attention
 from menghini_neurips23_tpu_torch.ops.attention import attention_reference
-from tests.torch_port_fixtures import _split, _tf32_hi
+from tests.torch_port_fixtures import acc_truncating, k1_wgmma_tf32
 
 torch.set_num_threads(2)
 
@@ -45,77 +46,11 @@ TOL = 1e-5
 B, H = 2, 2
 ROWS = 64  # query rows a warpgroup
 KEYS = 64  # keys a chunk, in both sweeps
-LOG2E = 1.4426950408889634
-
-
-def _acc_3xtf32(c, a, b):
-    """c + a @ b as the kernel's wgmma chain adds it: lo.hi, then hi.lo,
-    then hi.hi (c = 0: a zeroed tile)."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    return ((c + torch.matmul(al, bh)) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
-
-
-def _acc_1xtf32(c, a, b):
-    """c + a @ b from one TF32 product of the kernel's hi parts."""
-    return c + torch.matmul(_tf32_hi(a), _tf32_hi(b))
 
 
 def _inputs(T, D, seed):
     rng = np.random.default_rng(seed)
     return rng.normal(0, 1, (B, T, 3 * H * D)).astype(np.float32)
-
-
-def _heads(x, rows):
-    """(B, T, H*D) -> (B, H, rows, D), zero past T (the kernel's zero-filled
-    loads)."""
-    T = x.shape[1]
-    h = x.reshape(B, T, H, -1).transpose(1, 2)
-    return torch.nn.functional.pad(h, (0, 0, 0, rows - T))
-
-
-def _k1_tf32(qkv, mask, acc=_acc_3xtf32):
-    """The kernel's schedule on fp32 qkv: (B, T, 3W) -> (B, T, W); `acc`
-    forms every product."""
-    T, W = qkv.shape[1], qkv.shape[2] // 3
-    D = W // H
-    padded = math.ceil(T / ROWS) * ROWS
-    q, k, v = (_heads(t, padded) for t in qkv.split(W, dim=-1))
-    scale2 = torch.tensor(D**-0.5, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
-    causal = mask == "causal"
-    out = torch.zeros(B, H, padded, D)
-    for rt in range(0, padded, ROWS):  # a warpgroup's tile
-        rows = torch.arange(rt, rt + ROWS)[:, None]
-        kend = min(T, rt + ROWS) if causal else T  # the keys the tile's rows see
-        chunks = [c0 for c0 in range(0, padded, KEYS) if c0 < kend]
-
-        def scores(c0):
-            s = acc(0, q[:, :, rt:rt + ROWS], k[:, :, c0:c0 + KEYS].transpose(-1, -2))
-            cols = torch.arange(c0, c0 + KEYS)[None, :]
-            valid = (cols < T) & ((cols <= rows) if causal else True)
-            return torch.where(valid, s, torch.tensor(float("-inf")))
-
-        m = torch.full((B, H, ROWS, 1), float("-inf"))
-        l = torch.zeros(B, H, ROWS, 1)
-        for c0 in chunks:  # sweep 1: key 0 keeps every row's m finite after chunk 0
-            s = scores(c0)
-            mn = torch.maximum(m, s.amax(-1, keepdim=True))
-            seen = [i for i in range(KEYS // 8) if c0 + 8 * i < kend]  # 8-key groups
-            part = torch.exp2(s * scale2 - mn * scale2)[..., : 8 * len(seen)]
-            l = l * torch.exp2(m * scale2 - mn * scale2) + part.sum(-1, keepdim=True)
-            m = mn
-        inv_l = 1 / l
-        o = torch.zeros(B, H, ROWS, D)
-        for c0 in chunks:  # sweep 2: each chunk's P.V in a zeroed tile, then added to O
-            p = torch.exp2(scores(c0) * scale2 - m * scale2) * inv_l
-            p = torch.where(torch.arange(c0, c0 + KEYS) < c0 + 8 * math.ceil((kend - c0) / 8),
-                            p, torch.zeros(()))
-            # two halves of 32 keys, the second only where the tile's keys reach it
-            oc = acc(0, p[..., :32], v[:, :, c0:c0 + 32])
-            if c0 + 32 < kend:
-                oc = acc(oc, p[..., 32:], v[:, :, c0 + 32:c0 + KEYS])
-            o = o + oc
-        out[:, :, rt:rt + ROWS] = o
-    return out[:, :, :T].transpose(1, 2).reshape(B, T, W)
 
 
 def _jax_forward(qkv, mask):
@@ -133,13 +68,12 @@ def _jax_forward(qkv, mask):
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
 def test_k1_tf32_schedule_matches_jax(mask, T, D):
     """The warpgroup schedule on 3xTF32 (64-row tiles, 64-key chunks in
-    both sweeps, each chunk's P.V in a zeroed tile over two 32-key halves)
-    against the JAX
-    package's fused attention (its Pallas forward, interpreted off-TPU) and
-    the port's plain version, at 1e-5."""
+    both sweeps, each 32-key half of a chunk's P.V in a zeroed tile) against
+    the JAX package's fused attention (its Pallas forward, interpreted
+    off-TPU) and the port's plain version, at 1e-5."""
     qkv = _inputs(T, D, 900 + T + D)
     qkv_t = torch.from_numpy(qkv)
-    got = _k1_tf32(qkv_t, mask)
+    got = k1_wgmma_tf32(qkv_t, mask, H)
     assert got.dtype == torch.float32 and got.shape == (B, T, H * D)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), _jax_forward(qkv, mask), rtol=TOL, atol=TOL)
@@ -157,10 +91,37 @@ def test_k1_tf32_needs_three_tf32_products(mask, T):
     qkv = _inputs(T, 64, 900 + T + 64)
     qkv_t = torch.from_numpy(qkv)
     want = _jax_forward(qkv, mask)
-    err = {name: float(np.abs(_k1_tf32(qkv_t, mask, acc).numpy() - want).max())
-           for name, acc in (("one", _acc_1xtf32), ("three", _acc_3xtf32))}
+    err = {name: float(np.abs(k1_wgmma_tf32(qkv_t, mask, H, three=three).numpy() - want).max())
+           for name, three in (("one", False), ("three", True))}
     assert err["one"] > 1e-5, err
     assert err["three"] < 5e-6, err
+
+
+def test_k1_tf32_chains_under_truncating_adders():
+    """With the tensor cores' adders modelled as truncating
+    (`acc_truncating`), at T = 512, causal, V 4x larger (one head of 64):
+    each 32-key half of a chunk's P.V in a zeroed tile of its own, as the
+    kernel takes it, errs well under half of what one tile a chunk (16 of
+    its 24 k-steps adding into a full-size sum) errs against the exact
+    result, where a second tile for S's hi.hi over the second half of d
+    does not help.  On the card (PERF.md) the same change lowered
+    the mean error over 12 inputs at (8, 1024) by a tenth, not the largest:
+    the model shows the chains' share of the error, not the card's whole
+    error."""
+    T, Dh = 512, 64
+    rng = np.random.default_rng(7)
+    qkv = rng.normal(0, 1, (1, T, 3 * Dh)).astype(np.float32)
+    qkv[..., 2 * Dh:] *= 4
+    x = torch.from_numpy(qkv).double()
+    q, k, v = (t[0] for t in x.split(Dh, dim=-1))
+    s = (q @ k.T * Dh**-0.5).masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1),
+                                          float("-inf"))
+    want = (torch.softmax(s, -1) @ v)[None]
+    err = {(st, pt): (k1_wgmma_tf32(torch.from_numpy(qkv), "causal", 1, acc=acc_truncating,
+                                    s_tiles=st, pv_tiles=pt).double() - want).abs().max().item()
+           for st, pt in ((1, 1), (2, 1), (1, 2))}
+    assert err[(1, 2)] < 0.5 * err[(1, 1)], err
+    assert err[(2, 1)] > 0.9 * err[(1, 1)], err
 
 
 def _v_transposed_order():
