@@ -23,7 +23,8 @@ Phases (one or more lines each; any failure raises and exits non-zero):
      prints ptxas's register report; fails if any entry point spills
      registers, if an entry point of K1's or K2's fp32 form up to 128
      tokens holds no TF32 HMMA in its SASS, or if one of K1's forms above
-     128 tokens (bf16 attention_fwd_wgmma, fp32 attention_fwd_tf32) holds
+     128 tokens (bf16 attention_fwd_onesweep up to 320 tokens and
+     attention_fwd_wgmma past them, fp32 attention_fwd_tf32) holds
      no HGMMA (warpgroup MMA) in its SASS (cuobjdump), whose registers,
      spills and any ptxas note on its wgmma it prints
   3. kernels: each kernel against its plain version on the card, fp32 and
@@ -214,10 +215,14 @@ VPT_LONG_PREFIX = 80  # ViT-L/14: T = 1 + 256 + 80 = 337
 # 12 heads); each held to its unsharded case's tolerance
 # K1 from 129 to 320 tokens, ViT-L/14's vision tower: the frozen pass over
 # 8 images and over a 256-image batch (T = 257), VPT's training batch with a
-# 16-token prompt (273, and 8 rows of it), UPT's with its 4-token prompt (261)
+# 16-token prompt (273, and 8 rows of it), UPT's with its 4-token prompt
+# (261); then every count of 64-key chunks the bf16 kernel is built for
+# (three, four and five): one key past 128, a causal 193 and 320, the last
+# length bf16 keeps resident
 RESIDENT_SHAPES = [(8, 257, 1024, 16, None), (8, 273, 1024, 16, None),
                    (16, 273, 1024, 16, None), (16, 261, 1024, 16, None),
-                   (256, 257, 1024, 16, None)]
+                   (256, 257, 1024, 16, None), (8, 129, 1024, 16, None),
+                   (8, 193, 1024, 16, "causal"), (8, 320, 1024, 16, None)]
 SHARD_SHAPES = [(16, 273, 512, 8, None, "ViT-L/14 vision, m=2"),
                 (16, 273, 256, 4, None, "ViT-L/14 vision, m=4"),
                 (102, 77, 384, 6, "causal", "ViT-L/14 text, m=2")]
@@ -310,7 +315,8 @@ def phase_build():
     # K1's forms above 128 tokens on warpgroup MMA (bf16 and fp32) and K2's
     # fp32 pair above 128 tokens (3xTF32): each entry point's registers and
     # spill stores, and what ptxas says of its wgmma (a serialised pipeline)
-    for name, fn, params in (("attention_fwd", "attention_fwd_wgmma", "<D, resident>"),
+    for name, fn, params in (("attention_fwd", "attention_fwd_onesweep", "<D, chunks>"),
+                             ("attention_fwd", "attention_fwd_wgmma", "<D>"),
                              ("attention_fwd", "attention_fwd_tf32", "<D>"),
                              ("attention_bwd", "attention_bwd_q_tf32", "<D>"),
                              ("attention_bwd", "attention_bwd_kv_tf32", "<D>")):
@@ -357,6 +363,8 @@ def phase_build():
                "FFMA"),
               ("attention_bwd", "attention_bwd_f32", r"\bHMMA\.\S*TF32", "HMMA TF32", r"\bFFMA\b",
                "FFMA"),
+              ("attention_fwd", "attention_fwd_onesweep", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.",
+               "HMMA"),
               ("attention_fwd", "attention_fwd_wgmma", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.", "HMMA"),
               ("attention_fwd", "attention_fwd_tf32", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.", "HMMA"),
               ("attention_bwd", "attention_bwd_q_tf32", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.",
@@ -2297,9 +2305,9 @@ def main() -> int:
         f"{N_PER_CLASS} test {RES}px PNGs written in {time.perf_counter() - t0:.2f} s")
 
     # (wrapper, counter) of each kernel; the streamed forms of K1 and K2,
-    # K1's resident bf16 form (129 to 320 tokens; with the streamed bf16
-    # form past 320, attention_fwd_wgmma) and K2's fp32 pair (above 128
-    # tokens) count apart as well
+    # K1's resident bf16 form (129 to 320 tokens, attention_fwd_onesweep;
+    # the streamed bf16 form past 320 is attention_fwd_wgmma) and K2's fp32
+    # pair (above 128 tokens) count apart as well
     wrappers = {"attention_fwd": (fused_attention, "launches"),
                 "attention_bwd": (attention_bwd, "launches"),
                 "clip_head": (fused_probs, "launches"),
@@ -2475,9 +2483,9 @@ def main() -> int:
         entry("attention_bwd", f"{PKG}/csrc/attention_bwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:96", short_bwd,
               lambda c: c["shape"] == [10, 24, 512, 8] and c["dtype"] == "bfloat16"),
-        # K1's bf16 form from 129 to 320 tokens (attention_fwd_wgmma with K
-        # and V resident), headlined at ViT-L/14 with a 16-token VPT prompt
-        # (T = 273)
+        # K1's bf16 form from 129 to 320 tokens (attention_fwd_onesweep, K
+        # and V resident, the scores held in registers), headlined at
+        # ViT-L/14 with a 16-token VPT prompt (T = 273)
         entry("attention_fwd_resident", f"{PKG}/csrc/attention_fwd.cu",
               "menghini_neurips23_tpu/ops/attention.py:65",
               [c for c in attn_cases if c["resident"]],

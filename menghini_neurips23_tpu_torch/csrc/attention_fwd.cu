@@ -68,46 +68,47 @@
 //
 // bf16 above kShortMaxSeq (ViT-L/14's vision tower: 257 tokens, 273 with a
 // 16-token VPT prompt, 261 with UPT's, 337 with an 80-token prompt;
-// ViT-L/14@336's 577; attention_fwd_wgmma) both products run on Hopper's
-// warpgroup MMA (wgmma.mma_async m64nNk16, bf16 operands, fp32
-// accumulators), the only way to the tensor cores' full rate; mma.sync
-// left the two sweeps issue-bound at 1.4-4x a library call:
-// - a warpgroup (4 warps) per 64 query rows, one or two warpgroups a block
-//   (wgmma_groups: two share every K and V chunk, halving what a block reads
-//   from L2, unless the grid would then give an SM fewer than two blocks),
-//   two blocks an SM in 128 registers a thread;
+// ViT-L/14@336's 577) both products run on Hopper's warpgroup MMA
+// (wgmma.mma_async m64nNk16, bf16 operands, fp32 accumulators), the only
+// way to the tensor cores' full rate; mma.sync left the two sweeps
+// issue-bound at 1.4-4x a library call:
+// - a warpgroup (4 warps) per 64 query rows;
 // - q, K and V land by 16-byte cp.async in the swizzled layout wgmma's
 //   matrix descriptors read: rows of 2D bytes, the 128-, 64- or 32-byte
 //   swizzle for D = 64, 32 or 16 (a row is one swizzle atom wide); keys
 //   past T are zero-filled;
-// - S = q . K^T is m64n64k16 with both operands in shared memory (q and a
-//   64-key chunk of K, both K-major), 32 fp32 scores a thread in the
-//   accumulator layout of mma.sync's 16 x 8 tiles;
+// - S = q . K^T has both operands in shared memory (q and K, both
+//   K-major), 32 fp32 scores a thread per 64 keys in the accumulator layout
+//   of mma.sync's 16 x 8 tiles;
 // - P.V takes P from registers: 2^((s - m) D^-0.5 log2(e)) / l, normalised
 //   in fp32 and rounded to bf16, is the A fragments of m64n(D)k16, and V's
 //   chunk (rows [key][d], MN-major for this product) is B with the
 //   transpose bit; P never touches shared memory;
-// - up to kResidentMaxSeq (320) keys the block holds the head's K and V
-//   (80 KB at 320 and D = 64), K landing with q in one group and V in a
-//   second that lands under sweep 1; sweep 2 reads K again from shared
-//   memory.  Past it a ring of (K, V) chunk pairs streams them (sweep 1
-//   stages K alone, sweep 2 K and V), the next step's chunk landing while
-//   this one computes;
-// - two sweeps, as before: sweep 1 keeps each row's online max m and sum
-//   l, sweep 2 recomputes the scores and adds the normalised, rounded P
-//   times V; the base-2 softmax with D^-0.5 log2(e) folded into one FFMA
-//   and one ex2 a score, chunks past a causal diagonal skipped, the 8-key
-//   groups past T left out of the exponentials (their P is exactly 0
-//   either way), warps whose rows all lie past T left out of the softmax;
-//   one owner per output element, no atomics.
+// - up to kResidentMaxSeq (320) keys (attention_fwd_onesweep) a block is
+//   one warpgroup that holds the head's K and V (80 KB at 320 and D = 64)
+//   and walks a run of its query tiles; each tile's scores over every key
+//   stay in registers (160 a thread at 257-320 keys), so each score and
+//   each exponential is computed once: the exact row max by fmax, one ex2
+//   a score, the sum, then P.V;
+// - past it (attention_fwd_wgmma) one or two warpgroups a block
+//   (wgmma_groups: two share every K and V chunk, halving what a block reads
+//   from L2, unless the grid would then give an SM fewer than two blocks),
+//   two blocks an SM in 128 registers a thread, stream a ring of (K, V)
+//   chunk pairs (sweep 1 stages K alone, sweep 2 K and V), the next step's
+//   chunk landing while this one computes, in two sweeps: sweep 1 keeps each
+//   row's online max m and sum l, sweep 2 recomputes the scores and adds the
+//   normalised, rounded P times V;
+// - the base-2 softmax with D^-0.5 log2(e) folded into one FFMA and one ex2
+//   a score, chunks past a causal diagonal skipped, the 8-key groups past
+//   T left out of the exponentials (their P is exactly 0 either way), warps
+//   whose rows all lie past T left out of the softmax; one owner per output
+//   element, no atomics.
 // Every branch around a wgmma is uniform for the compiler (the warp index
 // is broadcast from lane 0) and no register a wgmma writes is touched while
 // one is in flight: ptxas otherwise serialises every wgmma of the kernel.
-// What bounds it on an H100: the two sweeps' products and exponentials,
-// run back to back within a warpgroup, neither near its peak (PERF.md:
-// the products alone take over half of its time, the softmax alone about
-// two thirds; overlapping a chunk's halves inside a warpgroup measured no
-// faster).
+// What bounds it on an H100: the exponentials (MUFU, 16 a clock an SM),
+// then the products, and past 320 tokens each run twice (PERF.md: the
+// one-sweep form's products alone and softmax alone).
 
 // fp32 above kShortMaxSeq (ViT-L/14's vision tower at the default type:
 // 257 tokens for the frozen passes, 273 for VPT, 261 for UPT;
@@ -167,8 +168,9 @@ using namespace mnt;
 
 // Up to kShortMaxSeq keys a warp's scores stay in its registers (one block
 // a (row, head), a warp per 16-row tile); above that bf16 runs on warpgroup
-// MMA, holding K and V resident in shared memory up to kResidentMaxSeq keys
-// and streaming them past it, and fp32 runs on it as 3xTF32, streaming them.
+// MMA, holding K and V resident in shared memory (and a tile's scores in
+// registers) up to kResidentMaxSeq keys and streaming them past it, and
+// fp32 runs on it as 3xTF32, streaming them.
 constexpr int kShortMaxSeq = 128;
 constexpr int kResidentMaxSeq = 320;
 
@@ -187,11 +189,12 @@ __host__ __device__ constexpr int f32_blocks(int KC) {
   return KC <= 32 ? 8 : KC <= 48 ? 5 : KC <= 64 ? 4 : KC <= 80 ? 3 : 2;
 }
 
-// bf16 above kShortMaxSeq (attention_fwd_wgmma): query rows a warpgroup
-// and keys a chunk (a step of either sweep), the most warpgroups a block,
-// blocks an SM (the 128 registers a thread that two blocks of two
-// warpgroups leave; 97 KB of shared memory each resident at T = 320 and D =
-// 64, 49 KB streamed), and the streamed ring's stages of (K, V) chunk
+// bf16 above kShortMaxSeq: query rows a warpgroup and keys a chunk (a step
+// of either sweep), the most warpgroups a block (attention_fwd_wgmma),
+// blocks an SM (attention_fwd_wgmma: the 128 registers a thread that two
+// blocks of two warpgroups leave, 49 KB of shared memory each;
+// attention_fwd_onesweep: one warpgroup in up to 255 registers, 97 KB at T
+// = 257-320 and D = 64), and the streamed ring's stages of (K, V) chunk
 // pairs
 constexpr int kWgRows = 64;
 constexpr int kWgKeys = 64;
@@ -203,11 +206,15 @@ constexpr int kWgStages = 2;
 __host__ __device__ constexpr int wg_tile_bytes(int D) { return kWgRows * 2 * D; }
 
 // a block's shared memory: 1 KB to align the tiles to the 128-byte
-// swizzle's 1024-byte period, a q tile a warpgroup, and K and V of every
-// chunk (resident) or of kWgStages chunks (streamed)
-size_t wgmma_smem(int seq, int groups, int D) {
-  const int chunks = seq <= kResidentMaxSeq ? (seq + kWgKeys - 1) / kWgKeys : kWgStages;
-  return 1024 + (size_t)(groups + 2 * chunks) * wg_tile_bytes(D);
+// swizzle's 1024-byte period, then (attention_fwd_wgmma, streamed) a q tile
+// a warpgroup and K and V of kWgStages chunks, or (attention_fwd_onesweep,
+// resident) two q tiles and K and V of all `chunks`: 99,328 bytes at T =
+// 257-320 and D = 64
+size_t wgmma_smem(int groups, int D) {
+  return 1024 + (size_t)(groups + 2 * kWgStages) * wg_tile_bytes(D);
+}
+size_t onesweep_smem(int chunks, int D) {
+  return 1024 + (size_t)(2 + 2 * chunks) * wg_tile_bytes(D);
 }
 
 // Warpgroups a block: kWgMaxGroups share each K and V chunk, unless the
@@ -543,29 +550,269 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
 }
 
-// bf16, T > kShortMaxSeq.  Block (batch row x head, group of 64-row query
+// bf16, kShortMaxSeq < T <= kResidentMaxSeq: one sweep with the scores held
+// in registers.  Block (batch row x head, run of 64-row query tiles): one
+// warpgroup, which stages the head's K and V once and takes the run's
+// tiles in turn, the next tile's q landing while this one computes; two
+// blocks an SM, each in up to 255 registers, not in step with each other
+// (two warpgroups a block sharing K and V, one block an SM, measured 1.5-1.6x
+// slower: each block's staging and each phase ran with nothing to overlap).
+// NCH = ceil(T / 64) key chunks is a template parameter, so that the NCH
+// score accumulators (32 fp32 a thread each: 160 registers at NCH = 5) are
+// indexed at compile time.  Shared memory, from a 1024-byte boundary: two q
+// tiles, then K's NCH chunks and V's, all in the swizzled layout: 99,328
+// bytes at NCH = 5 and D = 64.  The first tile's q and K's chunk 0 land in
+// cp.async group 0, K's chunk c in group c, V in group NCH, and each
+// chunk's S = q . K^T (SS m64n64k16) is issued as the chunk lands (one
+// m64n256 product for four chunks measured 5-8% slower); a later tile
+// issues them all at once.  After one wait: -inf past
+// T and past a causal row's diagonal, each row's exact max m by fmax over
+// the held scores (no exponential), one ex2 a score (D^-0.5 log2(e) folded
+// into its FFMA), the quad sum l and 1/l; then P = 2^((s - m) scale2) *
+// (1/l), normalised in fp32, rounded to bf16 into the A fragments of P.V
+// (RS m64n(D)k16, V with the transpose bit) for every chunk, and every P.V
+// step issued at once (a chunk's P.V in flight while the next chunk's
+// fragments were formed made ptxas serialise every wgmma at NCH = 5, short
+// of registers: 13-15% slower); one wait before O is stored.  A causal tile
+// computes every chunk's scores (its chunks past the diagonal are -inf,
+// their P 0) but only the exponentials and P.V steps up to its keys; 8-key
+// groups past the tile's keys are left out of the exponentials (their P is
+// exactly 0) and warps whose rows all lie past T out of the softmax.
+//
+// MNT_K1_PART, a build flag that only scripts/streamed_attention_compare.py
+// --resident sets (the package builds with 0): 1 leaves the softmax out (P
+// is the raw scores, rounded), 2 the products (the scores are a function of
+// the thread, and O sums the P fragments' bits), so that the two halves
+// can be timed apart.
+#ifndef MNT_K1_PART
+#define MNT_K1_PART 0
+#endif
+template <int D, int NCH>
+__global__ void __launch_bounds__(128, kWgBlocks)
+attention_fwd_onesweep(const bf16* __restrict__ qkv, bf16* __restrict__ out, int seq, int width,
+                       int heads, float scale, int causal, int run) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int TILE = wg_tile_bytes(D), NO = D / 2;
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+  const int tid = threadIdx.x, lane = tid % 32;
+  // the warp's index broadcast from lane 0 (attention_fwd_wgmma says why)
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;  // two q tiles
+  const uint32_t ks = qs + 2 * TILE, vs = ks + NCH * TILE;
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t stride = 3 * (size_t)width;
+  const bf16* base = qkv + (size_t)b * seq * stride + h * D;
+  const int t0 = blockIdx.y * run, t1 = min((seq + kWgRows - 1) / kWgRows, t0 + run);
+  const int q2 = 2 * (lane & 3);
+  auto stage_q = [&](int t) {
+    stage_swizzled<D>(qs + (t & 1) * TILE, base + t * kWgRows * stride, stride,
+                      seq - t * kWgRows, kWgRows, tid, 128);
+  };
+  stage_q(t0);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    stage_swizzled<D>(ks + c * TILE, base + width + c * kWgKeys * stride, stride,
+                      seq - c * kWgKeys, kWgKeys, tid, 128);
+    cp_async_commit();
+  }
+  stage_swizzled<D>(vs, base + 2 * width, stride, seq, NCH * kWgKeys, tid, 128);
+  cp_async_commit();
+
+  for (int t = t0; t < t1; ++t) {
+    const int r0 = t * kWgRows + 16 * warp;
+    const bool live = r0 < seq;                                   // the warp has rows
+    const int kend = causal ? min(seq, (t + 1) * kWgRows) : seq;  // the keys the tile's rows see
+    // the last key each of the thread's two rows sees
+    const int row = r0 + lane / 4;
+    const int last[2] = {causal ? min(seq - 1, row) : seq - 1,
+                         causal ? min(seq - 1, row + 8) : seq - 1};
+
+    // S = q . K^T, all chunks in flight at once (the first tile's as K
+    // lands); the scores stay unscaled (scale2 is folded into each
+    // exponential's FFMA)
+    const uint64_t q_desc = wg_desc<D>(qs + (t & 1) * TILE);
+    float s[NCH][32];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      if (t == t0) {
+        cp_async_wait_upto(NCH - c);  // q and K's chunks up to c
+        fence_proxy_async();
+        __syncthreads();
+      } else if (c == 0) {
+        cp_async_wait<0>();  // this tile's q
+        fence_proxy_async();
+        __syncthreads();
+      }
+#if MNT_K1_PART == 2
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[c][i] = __uint_as_float(0x3f800000u | (((tid + 7 * i + 13 * c) & 63u) << 17));
+      }
+#else
+      const uint64_t k_desc = wg_desc<D>(ks + c * TILE);
+      wgmma_fence();
+      wgmma_ss<0>(s[c], q_desc, k_desc);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) wgmma_ss<1>(s[c], q_desc + 2 * kk, k_desc + 2 * kk);
+      wgmma_commit();
+#endif
+    }
+    if (t == t0) {
+      cp_async_wait<0>();  // V, under the products
+      fence_proxy_async();
+      __syncthreads();
+    }
+    // the next tile's q, into the tile the one before used (its products
+    // were waited for before every thread met above)
+    if (t + 1 < t1) stage_q(t + 1);
+    cp_async_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) fence_regs(s[c]);
+
+    // the exact row max m (key 0 is in every row's first chunk: m is
+    // finite), then s becomes 2^((s - m) scale2), summed into l
+    // (lane-partial, then over the row's quad); groups past the tile's
+    // keys become 0
+    float ms[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int c0 = c * kWgKeys;
+      if (c0 + kWgKeys > seq || (causal && c0 + kWgKeys - 1 > r0)) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c0 + 8 * i + q2 + (e & 1) > last[e >> 1]) s[c][4 * i + e] = -INFINITY;
+      }
+    }
+#if MNT_K1_PART == 1
+    inv_l[0] = inv_l[1] = 1.f;
+#else
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            m = fmaxf(m, fmaxf(s[c][4 * i + 2 * r], s[c][4 * i + 2 * r + 1]));
+          }
+        ms[r] = group_max<4>(m) * scale2;
+      }
+      float l[2] = {0.f, 0.f};
+      auto expo = [&](float(&sc)[32], int i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * i + e] = ex2(fmaf(sc[4 * i + e], scale2, -ms[e >> 1]));
+          l[e >> 1] += sc[4 * i + e];
+        }
+      };
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        if (!causal && c < NCH - 1) {  // the chunk's keys all lie below T
+#pragma unroll
+          for (int i = 0; i < 8; ++i) expo(s[c], i);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (c * kWgKeys + 8 * i < kend) {
+              expo(s[c], i);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[c][4 * i + e] = 0.f;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / group_sum<4>(l[r]);
+    }
+#endif
+
+    // P.V (chunk c's k-step j: keys 64c + 16j ..), up to the tile's keys
+    float o[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    // every chunk's fragments first, then every P.V step
+    uint32_t a[NCH][4][4];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint32_t& lo = a[c][i / 2][2 * (i % 2)];
+        uint32_t& hi = a[c][i / 2][2 * (i % 2) + 1];
+        if (live) {
+          lo = pack_bf16(s[c][4 * i] * inv_l[0], s[c][4 * i + 1] * inv_l[0]);
+          hi = pack_bf16(s[c][4 * i + 2] * inv_l[1], s[c][4 * i + 3] * inv_l[1]);
+        } else {
+          lo = hi = 0u;
+        }
+      }
+    }
+#if MNT_K1_PART == 2
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          o[(4 * j + e) % NO] += __uint_as_float(a[c][j][e] & 0x3fff3fffu);
+        }
+#else
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) fence_regs(a[c][j]);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c * kWgKeys + 16 * j < kend) {
+          wgmma_rs<D>(o, a[c][j], wg_desc<D>(vs + c * TILE + j * 16 * 2 * D));
+        }
+      }
+    wgmma_commit();
+#endif
+    wgmma_wait_all();
+    fence_regs(o);
+    if (!live) continue;
+    bf16* out_b = out + (size_t)b * seq * width + h * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row + 8 * r < seq)
+          *reinterpret_cast<uint32_t*>(out_b + (size_t)(row + 8 * r) * width + 8 * j + q2) =
+              pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+  }
+}
+
+// bf16, T > kResidentMaxSeq.  Block (batch row x head, group of 64-row query
 // tiles), a warpgroup per tile (blockDim / 128 of them), every product on
 // warpgroup MMA.  Shared memory, from a 1024-byte boundary: a q tile a
-// warpgroup, then (kResident) K's and V's chunks in full, or kWgStages
-// (K, V) chunk pairs, all in the swizzled layout.  The two sweeps are one
+// warpgroup, then kWgStages (K, V) chunk pairs, all in the swizzled layout.
+// The two sweeps are one
 // stream of 2 * nch steps over the block's chunks (causal: up to its last
 // row's diagonal): steps 0 .. nch - 1 take each row's online max m and
 // sum l of P = 2^((s - m) scale2) (scale2 = D^-0.5 * log2(e)); steps nch ..
 // 2 nch - 1 recompute the scores and add the normalised P / l, rounded to
-// bf16 in the A fragments of P.V, times V.  Resident: q and K land in one
-// group before step 0, V in a second before step nch.  Streamed: the chunk
+// bf16 in the A fragments of P.V, times V.  The chunk
 // of step + kWgStages - 1 is staged while step computes, behind one barrier
 // a step.  A warpgroup skips the chunks its rows see none of (causal) and
 // the rest of the block's steps when its tile lies past T, but keeps to
 // the barriers.
-template <int D, bool kResident>
+template <int D>
 __global__ void __launch_bounds__(128 * kWgMaxGroups, kWgBlocks)
 attention_fwd_wgmma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int seq, int width,
                     int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int TILE = wg_tile_bytes(D), NO = D / 2;
-  // streamed: chunks staged this many steps ahead, into the stage of the
-  // step before (each step ends with nothing in flight)
+  // chunks staged this many steps ahead, into the stage of the step before
+  // (each step ends with nothing in flight)
   constexpr int kAhead = kWgStages - 1;
   const float scale2 = scale * 1.4426950408889634f;  // log2(e)
   const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid % 32;
@@ -596,21 +843,9 @@ attention_fwd_wgmma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int se
 
   auto chunk0 = [&](int step) { return (step < nch ? step : step - nch) * kWgKeys; };
   // K's and V's chunk of a step
-  auto k_tile = [&](int step) -> uint32_t {
-    if constexpr (kResident) {
-      return kv + (step < nch ? step : step - nch) * TILE;
-    } else {
-      return kv + (step % kWgStages) * 2 * TILE;
-    }
-  };
-  auto v_tile = [&](int step) -> uint32_t {
-    if constexpr (kResident) {
-      return kv + step * TILE;  // V's chunk step - nch, after K's nch
-    } else {
-      return kv + (step % kWgStages) * 2 * TILE + TILE;
-    }
-  };
-  auto stage = [&](int step) {  // streamed: sweep 1 stages K, sweep 2 K and V
+  auto k_tile = [&](int step) -> uint32_t { return kv + (step % kWgStages) * 2 * TILE; };
+  auto v_tile = [&](int step) -> uint32_t { return kv + (step % kWgStages) * 2 * TILE + TILE; };
+  auto stage = [&](int step) {  // sweep 1 stages K, sweep 2 K and V
     if (step >= steps) return;
     const int c0 = chunk0(step);
     stage_swizzled<D>(k_tile(step), base + width + c0 * stride, stride, seq - c0, kWgKeys, tid,
@@ -620,40 +855,21 @@ attention_fwd_wgmma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int se
                         tid, nthreads);
     }
   };
-  // resident: group 0 q and all of K, group 1 V; streamed: group i the
-  // chunk of step i, q with the first
+  // group i the chunk of step i, q with the first
   stage_swizzled<D>(qs, base + rb * stride, stride, seq - rb, rows, tid, nthreads);
-  if constexpr (kResident) {
-    stage_swizzled<D>(kv, base + width, stride, seq, nch * kWgKeys, tid, nthreads);
-    cp_async_commit();
-    stage_swizzled<D>(kv + nch * TILE, base + 2 * width, stride, seq, nch * kWgKeys, tid,
-                      nthreads);
-    cp_async_commit();
-  } else {
 #pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      stage(i);
-      cp_async_commit();
-    }
+  for (int i = 0; i < kAhead; ++i) {
+    stage(i);
+    cp_async_commit();
   }
   // the block's barrier before a step: its chunk has landed for every
-  // thread (resident: K before step 0, V before step nch, nothing between:
-  // one barrier a chunk measured slower; streamed: the chunk of step +
-  // kAhead is staged behind it)
+  // thread; the chunk of step + kAhead is staged behind it
   auto landed = [&](int step) {
-    if constexpr (kResident) {
-      if (step == 0 || step == nch) {
-        cp_async_wait_upto(step == 0 ? 1 : 0);
-        fence_proxy_async();
-        __syncthreads();
-      }
-    } else {
-      cp_async_wait<kAhead - 1>();
-      fence_proxy_async();
-      __syncthreads();
-      stage(step + kAhead);
-      cp_async_commit();
-    }
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    stage(step + kAhead);
+    cp_async_commit();
   };
   // S = q . K^T for the chunk of `step`, both operands from shared memory,
   // waited for; -inf where a key lies past T or the row's diagonal.  The
@@ -1070,9 +1286,41 @@ cudaError_t launch_f32(const void* qkv, void* out, int B, int seq, int width, in
   return cudaGetLastError();
 }
 
-template <int D, bool kResident>
-cudaError_t launch_wgmma(const void* qkv, void* out, int B, int seq, int width, int heads,
-                         float scale, int causal, cudaStream_t stream) {
+// bf16 from kShortMaxSeq to kResidentMaxSeq (attention_fwd_onesweep): a
+// block per (row x head, run of tiles), a head's tiles in as few runs as
+// fill the card's kWgBlocks blocks an SM (one run a head once there are
+// that many heads)
+template <int D, int NCH>
+cudaError_t launch_onesweep(const void* qkv, void* out, int B, int seq, int width, int heads,
+                            float scale, int causal, cudaStream_t stream) {
+  cudaError_t e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return e;
+  }
+  const int tiles = (seq + kWgRows - 1) / kWgRows;
+  const int runs = std::max(1, std::min(tiles, kWgBlocks * sms / std::max(1, B * heads)));
+  const int run = (tiles + runs - 1) / runs;
+  const size_t smem = onesweep_smem(NCH, D);
+  auto kernel = attention_fwd_onesweep<D, NCH>;
+  if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
+  // two blocks an SM only with the largest carveout
+  if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared)) != cudaSuccess) {
+    return e;
+  }
+  kernel<<<dim3(B * heads, (tiles + run - 1) / run), 128, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), seq, width, heads, scale, causal,
+      run);
+  return cudaGetLastError();
+}
+
+// bf16 above kResidentMaxSeq (attention_fwd_wgmma): a block per (row x
+// head, group of 64-row tiles)
+template <int D>
+cudaError_t launch_streamed(const void* qkv, void* out, int B, int seq, int width, int heads,
+                            float scale, int causal, cudaStream_t stream) {
   cudaError_t e;
   int dev, sms;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -1081,15 +1329,15 @@ cudaError_t launch_wgmma(const void* qkv, void* out, int B, int seq, int width, 
   }
   const int groups = wgmma_groups(seq, B * heads, sms);
   const int tiles = (seq + kWgRows - 1) / kWgRows;
-  const size_t smem = wgmma_smem(seq, groups, D);
-  if ((e = set_smem(attention_fwd_wgmma<D, kResident>, smem)) != cudaSuccess) return e;
+  const size_t smem = wgmma_smem(groups, D);
+  if ((e = set_smem(attention_fwd_wgmma<D>, smem)) != cudaSuccess) return e;
   // two blocks an SM only with the largest carveout
-  if ((e = cudaFuncSetAttribute(attention_fwd_wgmma<D, kResident>,
+  if ((e = cudaFuncSetAttribute(attention_fwd_wgmma<D>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 cudaSharedmemCarveoutMaxShared)) != cudaSuccess) {
     return e;
   }
-  attention_fwd_wgmma<D, kResident>
+  attention_fwd_wgmma<D>
       <<<dim3(B * heads, (tiles + groups - 1) / groups), 128 * groups, smem, stream>>>(
           static_cast<const bf16*>(qkv), static_cast<bf16*>(out), seq, width, heads, scale,
           causal);
@@ -1097,13 +1345,24 @@ cudaError_t launch_wgmma(const void* qkv, void* out, int B, int seq, int width, 
 }
 
 template <int D>
+cudaError_t launch_wgmma(const void* qkv, void* out, int B, int seq, int width, int heads,
+                         float scale, int causal, cudaStream_t stream) {
+#define MNT_ARGS qkv, out, B, seq, width, heads, scale, causal, stream
+  if (seq > kResidentMaxSeq) return launch_streamed<D>(MNT_ARGS);
+  switch ((seq + kWgKeys - 1) / kWgKeys) {
+    case 3: return launch_onesweep<D, 3>(MNT_ARGS);
+    case 4: return launch_onesweep<D, 4>(MNT_ARGS);
+    default: return launch_onesweep<D, 5>(MNT_ARGS);
+  }
+#undef MNT_ARGS
+}
+
+template <int D>
 cudaError_t dispatch_kc(const void* qkv, void* out, int B, int seq, int width, int heads,
                         float scale, int causal, int dtype, cudaStream_t stream) {
   if (seq > kShortMaxSeq) {
     if (dtype == 0) return launch_tf32<D>(qkv, out, B, seq, width, heads, scale, causal, stream);
-    return seq > kResidentMaxSeq
-               ? launch_wgmma<D, false>(qkv, out, B, seq, width, heads, scale, causal, stream)
-               : launch_wgmma<D, true>(qkv, out, B, seq, width, heads, scale, causal, stream);
+    return launch_wgmma<D>(qkv, out, B, seq, width, heads, scale, causal, stream);
   }
 #define MNT_ARGS qkv, out, B, seq, width, heads, scale, causal, stream
   if (dtype == 0) {  // fp32: KC = round16(T)
@@ -1137,7 +1396,9 @@ extern "C" {
 // before launching.  Above the resident length it no longer depends on seq.
 size_t mnt_attention_fwd_smem(int seq, int head_dim, int dtype) {
   if (seq > kShortMaxSeq) {
-    return dtype == 0 ? tf32_smem(head_dim) : wgmma_smem(seq, kWgMaxGroups, head_dim);
+    if (dtype == 0) return tf32_smem(head_dim);
+    return seq > kResidentMaxSeq ? wgmma_smem(kWgMaxGroups, head_dim)
+                                 : onesweep_smem((seq + kWgKeys - 1) / kWgKeys, head_dim);
   }
   return dtype == 0 ? f32_smem(seq, head_dim) : bf16_smem(seq, head_dim);
 }

@@ -47,8 +47,8 @@ _HEAD_DIMS = (16, 32, 64)
 _MAX_SMEM_BYTES = 227 * 1024  # per-block shared memory on an H100
 # up to this many tokens K1 keeps a warp's scores in its registers
 # (kShortMaxSeq in csrc/attention_fwd.cu); past it bf16 runs on warpgroup
-# MMA (attention_fwd_wgmma), holding the head in shared memory up to the
-# resident length
+# MMA, holding the head in shared memory (and a tile's scores in registers,
+# attention_fwd_onesweep) up to the resident length
 _FWD_SHORT_MAX_SEQ = 128
 
 _FWD_SIGNATURES = {

@@ -21,7 +21,10 @@ and, to show that they did not move, at a few lengths up to 128 and past
 and the device encode of a 256-image bf16 batch by ViT-L/14's vision tower
 (T = 257), each with K1's ms; each K1 case carries a digest of the
 output's bits, so that two trees' runs show whether they compute the same
-bits, and the most shared memory a block of it takes.
+bits, whether two launches give the same bits, and the most shared memory
+a block of it takes; then, where the tree's kernel has the MNT_K1_PART
+build flag, K1 bf16 at RESIDENT_SHAPES and the shards with its softmax
+left out and with its products left out, beside the whole kernel.
 
 With --k2-fp32, K2 alone in fp32 above 128 tokens: at the smoke's phase-3
 lengths (129, 261, 273, 288, 320 at ViT-L/14's width, LONG_SHAPES and the
@@ -222,7 +225,8 @@ def resident_cases(torch, smoke, reps: int):
             heads = [t.contiguous() for t in qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4)]
             causal = mask == "causal"
             pairs = T * (T + 1) // 2 if causal else T * T
-            bits = digest(torch, fused_attention(qkv, mask, H))
+            first, again = fused_attention(qkv, mask, H), fused_attention(qkv, mask, H)
+            bits = digest(torch, first)
             fwd = smoke.device_ms(torch, lambda: fused_attention(qkv, mask, H), reps)
             sdpa = smoke.device_ms(torch, lambda: F.scaled_dot_product_attention(
                 *heads, is_causal=causal), reps)
@@ -231,11 +235,65 @@ def resident_cases(torch, smoke, reps: int):
             case = {"shape": [B, T, W, H], "mask": mask, "dtype": dname, "k1_ms": fwd,
                     "k1_sdpa_ms": sdpa, "k1_bound_ms": fb, "k1_bound_by": fb_by,
                     "k1_share": fb / fwd, "k1_digest": bits,
+                    "k1_bit_identical": torch.equal(first.view(torch.uint8),
+                                                    again.view(torch.uint8)),
                     "k1_smem_max": smem_max(torch, T, D, dt),
                     "guard": (B, T, W, H, mask) in GUARD_SHAPES}
             print("  " + json.dumps(case), flush=True)
             cases.append(case)
-            del qkv, heads
+            del qkv, heads, first, again
+    return cases
+
+
+def split_cases(torch, smoke, reps: int):
+    """K1 bf16 from 129 to 320 tokens with its softmax left out and with its
+    products left out (the kernel's MNT_K1_PART build flag, 1 and 2), beside
+    the whole kernel, at RESIDENT_SHAPES and the ViT-L/14 shards; a tree
+    whose kernel has no such flag gives a note instead."""
+    import ctypes
+
+    from menghini_neurips23_tpu_torch.ops import _cuda
+    from menghini_neurips23_tpu_torch.ops.attention import _FWD_SIGNATURES, fused_attention
+
+    src = os.path.join(_cuda.CSRC_DIR, "attention_fwd.cu")
+    with open(src) as f:
+        if "MNT_K1_PART" not in f.read():
+            return "the tree's attention_fwd.cu has no MNT_K1_PART build flag"
+    out_dir = os.path.join(_cuda.build_dir(), "split")
+    os.makedirs(out_dir, exist_ok=True)
+    builds = {part: subprocess.Popen(
+        [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, f"-DMNT_K1_PART={part}", "-o",
+         os.path.join(out_dir, f"libattention_fwd_part{part}.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for part in (1, 2)}
+    fns = {}
+    for part, proc in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"MNT_K1_PART={part}: nvcc failed:\n{log.decode()[-3000:]}")
+        lib = ctypes.CDLL(os.path.join(out_dir, f"libattention_fwd_part{part}.so"))
+        fn = lib.mnt_attention_fwd
+        fn.argtypes, fn.restype = _FWD_SIGNATURES["mnt_attention_fwd"]
+        fns[part] = fn
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for B, T, W, H, mask in smoke.RESIDENT_SHAPES + [s[:5] for s in smoke.SHARD_SHAPES
+                                                     if s[1] > 128]:
+        qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(torch.bfloat16)
+        out = torch.empty(B, T, W, dtype=torch.bfloat16, device="cuda")
+
+        def part(fn):
+            err = fn(qkv.data_ptr(), out.data_ptr(), B, T, W, H, (W // H) ** -0.5,
+                     int(mask == "causal"), 1, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"MNT_K1_PART launch: CUDA error {err}")
+
+        case = {"shape": [B, T, W, H], "mask": mask,
+                "k1_ms": smoke.device_ms(torch, lambda: fused_attention(qkv, mask, H), reps),
+                "products_ms": smoke.device_ms(torch, lambda: part(fns[1]), reps),
+                "softmax_ms": smoke.device_ms(torch, lambda: part(fns[2]), reps)}
+        print("  split " + json.dumps(case), flush=True)
+        cases.append(case)
     return cases
 
 
@@ -754,6 +812,7 @@ def main(argv=None) -> int:
     elif args.resident:
         out["ptxas"] = ptxas(_cuda, ["attention_fwd"], ["attention_fwd"])
         out["kernels"] = resident_cases(torch, smoke, args.reps)
+        out["split"] = split_cases(torch, smoke, args.reps)
         runtime = vit_l14_runtime(torch, RESIDENT_PREFIX)
         out["encode"] = encode_256(torch, smoke, runtime[1])
         out["vpt_step"] = vpt_step(torch, smoke, RESIDENT_PREFIX, runtime)

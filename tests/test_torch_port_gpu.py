@@ -78,7 +78,9 @@ EDGE_CASES, LONG_EDGE_CASES, STREAMED_EDGE_CASES = ([
 # batch of 16, a validation batch of 256), UPT's vision tower with its
 # 4-token prompt (T = 54, the same two batches) and text tower at the full
 # context over 10 classes - ViT-L/14 vision with and without a VPT prefix,
-# and the edge lengths (K1 also past 128 keys, where it takes two sweeps)
+# and the edge lengths; at ViT-L/14's width K1 bf16 also at each count of
+# 64-key chunks it holds in registers (129: three, a causal 193: four, 320:
+# five)
 ATTN_CASES = [
     (4, 17, 32, 2, None),
     (4, 17, 32, 2, "causal"),
@@ -95,6 +97,9 @@ ATTN_CASES = [
     (10, 77, 512, 8, "causal"),
     (8, 257, 1024, 16, None),
     (8, 273, 1024, 16, None),
+    (8, 129, 1024, 16, None),
+    (8, 193, 1024, 16, "causal"),
+    (8, 320, 1024, 16, None),
     (2, 129, 64, 2, "causal"),
     (1, 200, 128, 2, None),
     (16, 337, 1024, 16, None),
@@ -144,7 +149,9 @@ K1_RESIDENT_MAX_SEQ = {torch.float32: 128, torch.bfloat16: 320}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", [(16, 337, 1024, 16, None), (2, 1024, 128, 2, "causal"),
                                   (16, 273, 1024, 16, None), (2, 320, 128, 2, "causal"),
-                                  (2, 129, 128, 2, None)],
+                                  (2, 129, 128, 2, None), (8, 129, 1024, 16, None),
+                                  (8, 193, 1024, 16, "causal"), (8, 320, 1024, 16, None),
+                                  (256, 257, 1024, 16, None), (16, 273, 256, 4, None)],
                          ids=lambda c: "x".join(map(str, c)))
 def test_attention_streamed_kernel_is_deterministic(case, dtype):
     """K1 above 128 tokens, streamed (fp32 from 129, bf16 past 320) or
