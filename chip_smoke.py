@@ -312,14 +312,17 @@ def phase_build():
         spilled = {f: int(n) for f, n in spills.items() if int(n) > 0}
         if not spills or spilled:
             fail(f"{name}: the ptxas report shows spill stores {spilled or 'nowhere (no report)'}")
-    # K1's forms above 128 tokens on warpgroup MMA (bf16 and fp32) and K2's
-    # fp32 pair above 128 tokens (3xTF32): each entry point's registers and
-    # spill stores, and what ptxas says of its wgmma (a serialised pipeline)
+    # K1's forms above 128 tokens on warpgroup MMA (bf16 and fp32), K2's
+    # fp32 pair above 128 tokens (3xTF32) and its bf16 pair above 320: each
+    # entry point's registers and spill stores, and what ptxas says of its
+    # wgmma (a serialised pipeline; K2's bf16 pair must have no such note)
     for name, fn, params in (("attention_fwd", "attention_fwd_onesweep", "<D, chunks>"),
                              ("attention_fwd", "attention_fwd_wgmma", "<D>"),
                              ("attention_fwd", "attention_fwd_tf32", "<D>"),
                              ("attention_bwd", "attention_bwd_q_tf32", "<D>"),
-                             ("attention_bwd", "attention_bwd_kv_tf32", "<D>")):
+                             ("attention_bwd", "attention_bwd_kv_tf32", "<D>"),
+                             ("attention_bwd", "attention_bwd_q_wgmma_bf16", "<D>"),
+                             ("attention_bwd", "attention_bwd_kv_wgmma_bf16", "<D>")):
         report = _cuda.build_log(name)
         wg_ptxas = {}
         for block in report.split("Compiling entry function ")[1:]:
@@ -337,6 +340,8 @@ def phase_build():
         for line in _cuda.build_log(name).splitlines():
             if "wgmma.mma_async" in line or "Performance Loss" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
+                if "wgmma_bf16" in line:
+                    fail(f"ptxas serialised the wgmma of K2's bf16 pair: {line.strip()}")
     # K1's and K2's fp32 forms up to 128 tokens run every product on the
     # tensor cores as 3xTF32: each entry point's SASS must hold HMMA (TF32
     # mma.sync) instructions; its FFMA count (the softmax's and dS's fused
@@ -370,7 +375,14 @@ def phase_build():
               ("attention_bwd", "attention_bwd_q_tf32", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.",
                "HMMA"),
               ("attention_bwd", "attention_bwd_kv_tf32", r"\bHGMMA\.", "HGMMA", r"\bHMMA\.",
-               "HMMA"))
+               "HMMA"),
+              ("attention_bwd", "attention_bwd_q_wgmma_bf16", r"\bHGMMA\.", "HGMMA",
+               r"\bHMMA\.", "HMMA"),
+              ("attention_bwd", "attention_bwd_kv_wgmma_bf16", r"\bHGMMA\.", "HGMMA",
+               r"\bHMMA\.", "HMMA"))
+    # K2's bf16 pair above 320 tokens runs every product on warpgroup MMA:
+    # its SASS holds no mma.sync (HMMA) at all
+    wgmma_only = ("attention_bwd_q_wgmma_bf16", "attention_bwd_kv_wgmma_bf16")
     sass = {}
     for name, fn, need, need_name, beside, beside_name in checks:
         if name not in sass:
@@ -387,6 +399,8 @@ def phase_build():
         log(f"  {fn} SASS [{need_name}, {beside_name}] by entry point: {json.dumps(counts)}")
         if not counts or min(h for h, _ in counts.values()) == 0:
             fail(f"{fn}: an entry point's SASS holds no {need_name}: {counts}")
+        if fn in wgmma_only and max(b for _, b in counts.values()) > 0:
+            fail(f"{fn}: an entry point's SASS holds mma.sync ({beside_name}): {counts}")
 
 
 # ---------------------------------------------------------------- phase 3

@@ -74,12 +74,14 @@
 // 341 KB at T = 273), so no T x T tile is kept; the softmax statistics are
 // taken in one sweep and the rest is recomputed from them, in base 2
 // (D^-0.5 * log2(e) folded into the scale, every exponential one ex2):
-// - sweep 1 (64-key steps resident, 32-key steps in the pairs) keeps each
-//   query row's online max m, sum l = sum 2^(s - m) and rho = sum
-//   2^(s - m) * dP, rescaling l and rho alike when m grows, and ends with
+// - sweep 1 (64-key steps resident and in the bf16 pair, 32-key steps in
+//   the fp32 pair) keeps each query row's online max m, sum l = sum
+//   2^(s - m) and rho = sum 2^(s - m) * dP, rescaling l and rho alike when
+//   m grows, and ends with
 //   lse = m + log2(l) and r = rho / l (= rowsum(dP * P)); sweep 2 forms
 //   P = 2^(s - lse) and dP again, rounds dS and accumulates dq = dS . k;
-// - the key side, a warp per 16 keys, forms the transposed tile S^T =
+// - the key side (a warp per 16 keys, or a warpgroup per 64) forms the
+//   transposed tile S^T =
 //   k . q^T and dP^T = v . g^T, P from the query row's statistics, dv +=
 //   P_lp^T . g, dS from its r, dk += dS^T . q, over the query rows in a fixed order
 //   (causal: from its own diagonal).  Scores, P and dS are formed by the
@@ -123,18 +125,23 @@
 //   left this pair issue-bound at two warps a scheduler (0.09-0.16 of its
 //   bound), each product costing ~3.6 other instructions;
 // - bf16 above 320 tokens (ViT-L/14 with a prompt above 63 tokens, 577 at
-//   ViT-L/14@336), where the resident head would pass 227 KB: two launches,
-//   the resident kernel's phase A and phase B, each a block per (batch row,
-//   head, 64-row tile) of 4 warps with one operand pair streamed.  The query
-//   side holds the tile's q and g (their A fragments loaded once) and
-//   streams 64-key chunks of k and v through a 3-stage cp.async ring, both
-//   sweeps as one stream of steps; it writes dq and each row's base-2
-//   log-sum-exp and r * D^-0.5 to a (B, H, 2, round64(T)) fp32 workspace.
-//   The key side holds the tile's k and v and streams 64-query chunks of q,
-//   g and their two statistics (causal: from its own diagonal chunk).
-//   Every product on mma.sync m16n8k16, at the resident kernel's rounding
-//   points; about 75 KB a block, three blocks an SM.  Nothing depends on T
-//   but the grid and the workspace, so every T is taken.
+//   ViT-L/14@336), where the resident head would pass 227 KB: two launches
+//   on Hopper's warpgroup MMA (wgmma m64nNk16), each a block per (batch
+//   row, head, 64-row tile) of one warpgroup with the other side streamed
+//   in 64-row chunks through a cp.async ring, every operand in
+//   shared memory in the swizzled layout wgmma reads.  The query side holds
+//   the tile's q and g and streams (K, V) chunks, both sweeps as one stream
+//   of steps: S and dP on SS chains, the statistics once a chunk, then dq
+//   += dS . K with dS's A fragments taken from the accumulators and K read
+//   with the transpose bit; it writes dq and each row's base-2 log-sum-exp
+//   and r * D^-0.5 to a (B, H, 2, round64(T)) fp32 workspace.  The key side
+//   holds the tile's K and V and streams (q, g) chunks with their two
+//   statistics (causal: from its own diagonal chunk): S^T and dP^T on SS
+//   chains, then dv += P^T . g and dk += dS^T . q on RS chains.  Both at
+//   the resident kernel's rounding points; 49 and 67 KB a block at D = 64,
+//   four and three blocks an SM.
+//   Nothing depends on T but the grid and the workspace, so every T is
+//   taken.
 
 #include "attention_wgmma.cuh"
 
@@ -152,13 +159,17 @@ constexpr int kResidentMaxSeq = 320;
 // per staging group and sweep-1 step
 constexpr int kResidentWarps = 10;
 constexpr int kChunk = 64;
-// The bf16 streamed pair (above kResidentMaxSeq): rows per block, a warp
-// per 16 of them, and stages in its ring of kChunk-row chunks (the fp32
-// pair's tiles: kTfRows, kTfChunk); kTile is also the
-// workspace's row multiple
+// The bf16 pair (above kResidentMaxSeq): rows a block (one warpgroup),
+// also the workspace's row multiple (the fp32 pair's tiles: kTfRows,
+// kTfChunk); then the stages of the key side's ring of kChunk-row chunks
+// and the blocks an SM its __launch_bounds__ ask for, and the query
+// side's, whose registers leave room for four blocks
 constexpr int kTile = 64;
 constexpr int kTileThreads = 128;
 constexpr int kStages = 3;
+constexpr int kPairBlocks = 3;
+constexpr int kQStages = 2;
+constexpr int kQBlocks = 4;
 
 size_t bf16_smem(int seq, int D) {
   const size_t tp = round16(seq);
@@ -1540,196 +1551,219 @@ attention_bwd_kv_tf32(const float* __restrict__ qkv, const float* __restrict__ g
 
 // ------------------------------------------------ bf16, T > kResidentMaxSeq
 
-// The bf16 streamed pair: the resident kernel's phase A (query side) and
-// phase B (key side), each a launch of blocks over one 64-row tile with one
-// operand pair streamed in 64-row chunks through a ring of kStages stages.
-// A stage holds 64 rows of two operands (k and v, or q and g; D + 8 bf16 a
-// row) and, on the key side, the chunk's lse and r * D^-0.5 (64 floats
-// each); the block's own two operands stay resident (75 KB at D = 64,
-// three blocks an SM).
-__host__ __device__ constexpr size_t bf16_stage_bytes(int D) {
-  return 2 * kChunk * (size_t)(D + 8) * sizeof(bf16) + 2 * kChunk * sizeof(float);
+// The bf16 pair on Hopper's warpgroup MMA (wgmma m64nNk16, bf16 operands,
+// fp32 accumulators; replacing a pair on mma.sync m16n8k16 that ran at
+// 160-220 TFLOP/s over its nine products, held by its instruction rate).
+// A block is one warpgroup owning kTile rows of the resident side (query
+// rows on the query side, keys on the key side) in shared memory, in the
+// swizzled layout wgmma reads (attention_wgmma.cuh: 128-, 64- or 32-byte
+// swizzle at D = 64, 32, 16), and streams the other side's kChunk-row
+// chunks through a ring of stages (kQStages on the query side, kStages on
+// the key side), the chunk of step + stages - 1 landing by cp.async while
+// step computes, behind one barrier a step.
+// S = q . K^T and dP = g . V^T (S^T = K . q^T and dP^T = V . g^T on the key
+// side) take both operands from shared memory, K-major; dq += dS . K, dv +=
+// P^T . g and dk += dS^T . q take A from registers, rounded to bf16
+// straight from the accumulators (two adjacent n8 tiles are one k-step's A
+// fragment), and B, the chunk's rows as they landed, with the transpose
+// bit.  No T x T tile touches shared memory.
+//
+// The traps, which ptxas reports only as `ptxas info (C75xx)` and answers
+// by serialising every wgmma of the kernel:
+// - a branch on threadIdx around a wgmma: the warp index is broadcast
+//   from lane 0, so that every branch is uniform for the compiler;
+// - a register that a wgmma in flight writes (or an A fragment it reads)
+//   touched before its wait: each chain is waited for before its
+//   accumulators are read, and a chunk's fragments are all formed before
+//   its RS chain is issued (in K1, a P.V issued while the next fragments
+//   were formed serialised at 160 live score registers);
+// - cp.async writes reach wgmma's reads only through fence_proxy_async,
+//   issued by every thread after its wait and before the step's barrier.
+// One warpgroup a block: two sharing a double-buffered ring without
+// setmaxnreg spilled and serialised in the fp32 pair.  Registers at D =
+// 64: the query side holds S, dP and dq (96 accumulators), the key side
+// S^T, dP^T, dv and dk (128); ptxas fits them in 124 and 166, no spill, so
+// the query side takes four blocks an SM (128 registers a thread) and the
+// key side three (168; at two blocks' bounds it took 194, 3-9% slower).
+// Shared memory at D = 64: 1 KB of alignment, two 8 KB resident tiles and
+// two 8 KB chunk tiles a stage, the query side in two stages (50,176
+// bytes), the key side in three with each stage's statistics (512 bytes;
+// 68,096 bytes).  (The query side in three stages, three blocks an SM,
+// measured within 11% either way, shape by shape.)  What bounds it:
+// the tensor cores' nine products of T x T x D, against the exponentials
+// (three of every (query, key) pair, 16 a clock an SM) and the rounding of
+// P and dS, which each chunk's waits put between its products.
+__host__ __device__ constexpr int wg_tile(int D) { return kTile * 2 * D; }
+size_t bf16_wgmma_smem(int D) {
+  return 1024 + (2 + 2 * kStages) * (size_t)wg_tile(D) + kStages * 2 * kChunk * sizeof(float);
 }
+// the query side's: no statistics, kQStages stages
+size_t bf16_wgmma_q_smem(int D) { return 1024 + (2 + 2 * kQStages) * (size_t)wg_tile(D); }
 
-size_t bf16_streamed_smem(int D) {
-  return 2 * kTile * (size_t)(D + 8) * sizeof(bf16) + kStages * bf16_stage_bytes(D);
-}
-
-// Query side.  Block (batch row x head, 64-query tile), a warp per 16 rows
-// with the A fragments of its q and g rows loaded once.  The key chunks
-// stream through the ring as one stream of 2 * nch steps (causal: up to the
-// block's last row's diagonal), chunk step + 2 staged while step computes:
-// sweep 1 keeps the online m, l and rho in base 2 (updated every 32 keys),
-// sweep 2 forms P = 2^(s * scale2 - lse), dP and dS = P * (dP * D^-0.5 -
-// r * D^-0.5) rounded straight into the A fragments of dq = dS . k.  Every row of the tile
-// leaves lse (+inf past T: P = 0) and r * D^-0.5 in the workspace.
+// S (or S^T) and dP (or dP^T) of a step, both operands from shared memory,
+// issued as two chains of D / 16 k-steps and waited for: a_* the resident
+// tiles' descriptors (q, g or K, V), b_* the chunk's (K, V or q, g)
 template <int D>
-__global__ void __launch_bounds__(kTileThreads, 3)
-attention_bwd_q_streamed_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
-                              bf16* __restrict__ dqkv, float* __restrict__ stats, int seq,
-                              int width, int heads, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 8;
-  constexpr size_t SB = bf16_stage_bytes(D);
-  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // the block's query rows
-  bf16* gs = qs + kTile * LD;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + kTile * LD);  // k, v
+__device__ __forceinline__ void wg_scores(float (&s)[32], float (&dp)[32], uint64_t a_s,
+                                          uint64_t a_dp, uint64_t b_s, uint64_t b_dp) {
+  wgmma_fence();
+  wgmma_ss<0>(s, a_s, b_s);
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) wgmma_ss<1>(s, a_s + 2 * kk, b_s + 2 * kk);
+  wgmma_ss<0>(dp, a_dp, b_dp);
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) wgmma_ss<1>(dp, a_dp + 2 * kk, b_dp + 2 * kk);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+  fence_regs(dp);
+}
 
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads, rb = kTile * blockIdx.y;
+// accumulator tiles 2j, 2j + 1 (columns 16j .. 16j + 15) of x, rounded to
+// bf16: the A fragment of k-step j
+__device__ __forceinline__ void pack_frag(uint32_t (&a)[4], const float (&x)[32], int j) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    a[2 * t] = pack_bf16(x[8 * j + 4 * t], x[8 * j + 4 * t + 1]);
+    a[2 * t + 1] = pack_bf16(x[8 * j + 4 * t + 2], x[8 * j + 4 * t + 3]);
+  }
+}
+
+// Query side.  Block (batch row x head, 64-query tile).  q's and g's rows
+// land once; the key chunks stream as one stream of 2 * nch steps (causal:
+// up to the tile's diagonal chunk).  Sweep 1 forms S and dP and keeps each
+// row's online max m of the raw dots, l = sum 2^(s c - m c) and rho = sum
+// 2^(s c - m c) dP (c = D^-0.5 log2(e)), updated once a chunk (the quad of
+// lanes that holds a row reduces its max), l and rho rescaled alike when m
+// grows; sweep 2 forms S and dP again, P = 2^(s c - lse) and dS = P (dP
+// D^-0.5 - r D^-0.5) in fp32 in the accumulators, and dq += dS . K over the
+// chunk's 16-key steps below the tile's keys, dq held in fp32 registers
+// and written once.  Every row of the tile leaves lse = m c + log2(l)
+// (+inf past T: P = 0) and r D^-0.5 (0 past T) in the workspace.
+template <int D>
+__global__ void __launch_bounds__(kTileThreads, kQBlocks)
+attention_bwd_q_wgmma_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
+                           bf16* __restrict__ dqkv, float* __restrict__ stats, int seq,
+                           int width, int heads, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int TILE = wg_tile(D), NO = D / 2, kAhead = kQStages - 1;
+  const float scale2 = scale * 1.4426950408889634f;  // log2(e)
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);  // uniform for the compiler
+  const int rt = kTile * blockIdx.y, r0 = rt + 16 * warp;
+  // q, g, then the ring's stages of (K, V) chunk pairs
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u, gs = qs + TILE, ring = gs + TILE;
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
   const bf16* base = qkv + (size_t)b * seq * stride + h * D;
-  const int r0 = rb + 16 * warp, row0 = r0 + lane / 4;  // rows row0 and row0 + 8
-  const bool active = r0 < seq;
-  const int kend = causal ? min(seq, r0 + 16) : seq;  // the keys this warp's rows see
-  const int nch = ((causal ? min(seq, rb + kTile) : seq) + kChunk - 1) / kChunk;
-  const int steps = 2 * nch;
+  const int kend = causal ? min(seq, rt + kTile) : seq;  // the keys the tile's rows see
+  const int nch = (kend + kChunk - 1) / kChunk, steps = 2 * nch;
+  const int row0 = r0 + lane / 4, q2 = 2 * (lane & 3);  // rows row0, row0 + 8
+
+  auto chunk0 = [&](int step) { return (step < nch ? step : step - nch) * kChunk; };
+  auto k_tile = [&](int step) -> uint32_t { return ring + (step % kQStages) * 2 * TILE; };
   auto stage = [&](int step) {
     if (step >= steps) return;
-    const int c0 = (step < nch ? step : step - nch) * kChunk;
-    bf16* dst = reinterpret_cast<bf16*>(ring + (step % kStages) * SB);
-    stage_rows<bf16, D>(dst, LD, base + width + c0 * stride, stride, seq - c0, kChunk, tid,
-                        kTileThreads);
-    stage_rows<bf16, D>(dst + kChunk * LD, LD, base + 2 * width + c0 * stride, stride, seq - c0,
-                        kChunk, tid, kTileThreads);
+    const int c0 = chunk0(step);
+    stage_swizzled<D>(k_tile(step), base + width + c0 * stride, stride, seq - c0, kChunk, tid,
+                      kTileThreads);
+    stage_swizzled<D>(k_tile(step) + TILE, base + 2 * width + c0 * stride, stride, seq - c0,
+                      kChunk, tid, kTileThreads);
   };
-  stage_rows<bf16, D>(qs, LD, base + rb * stride, stride, seq - rb, kTile, tid, kTileThreads);
-  stage_rows<bf16, D>(gs, LD, grad + ((size_t)b * seq + rb) * width + h * D, width, seq - rb,
-                      kTile, tid, kTileThreads);
-  stage(0);
-  cp_async_commit();
-  stage(1);
-  cp_async_commit();
+  // group 0: q, g and step 0's chunk; group i: step i's
+  stage_swizzled<D>(qs, base + rt * stride, stride, seq - rt, kTile, tid, kTileThreads);
+  stage_swizzled<D>(gs, grad + ((size_t)b * seq + rt) * width + h * D, width, seq - rt, kTile,
+                    tid, kTileThreads);
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+    stage(i);
+    cp_async_commit();
+  }
+  const uint64_t q_desc = wg_desc<D>(qs), g_desc = wg_desc<D>(gs);
 
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  // sweep 1: the online max m (of the raw dots: the scale is positive), sum
-  // l and rho = sum of 2^(s * scale2 - m * scale2) * dP, l and rho rescaled
-  // alike when m grows (lane-partial sums over a quad-uniform m)
   // (from sweep 2 on, m and rho hold each row's lse and r * D^-0.5)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rho[2] = {0.f, 0.f};
-  float dq[D / 8][4] = {};
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<1>();  // this step's chunk has landed
-    __syncthreads();     // ... for every thread; and step - 1's stage is free
-    stage(step + 2);
-    cp_async_commit();
-    if (!active) continue;
-    if (step == 0) {
+  float dq[NO];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        load_a(qf[kk], qs, LD, 16 * warp, 16 * kk, lane);
-        load_a(gf[kk], gs, LD, 16 * warp, 16 * kk, lane);
-      }
-    }
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+  for (int step = 0; step < steps; ++step) {
+    // the step's chunk has landed for every thread, and the stage of step
+    // - 1 (its products waited for) takes the chunk of step + kAhead
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    stage(step + kAhead);
+    cp_async_commit();
     if (step == nch) {  // sweep 1 is done: lse (+inf past T: P = 0) and r * D^-0.5
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
-        const float lsum = group_sum<4>(l[e2]);
-        rho[e2] = group_sum<4>(rho[e2]) / lsum * scale;
-        m[e2] = row0 + 8 * e2 < seq ? fmaf(m[e2], scale2, log2f(lsum)) : INFINITY;
+        const float lsum = group_sum<4>(l[e2]), rsum = group_sum<4>(rho[e2]);
+        const bool in = row0 + 8 * e2 < seq;
+        rho[e2] = in ? rsum / lsum * scale : 0.f;
+        m[e2] = in ? fmaf(m[e2], scale2, log2f(lsum)) : INFINITY;
       }
     }
-    const int c0 = (step < nch ? step : step - nch) * kChunk;
-    if (c0 >= kend) continue;
-    const bf16* ks = reinterpret_cast<const bf16*>(ring + (step % kStages) * SB);
-    const bf16* vs = ks + kChunk * LD;
+    const int c0 = chunk0(step);
+    const uint32_t kt = k_tile(step);
+    float s[32], dp[32];
+    wg_scores<D>(s, dp, q_desc, g_desc, wg_desc<D>(kt), wg_desc<D>(kt + TILE));
+    // keys past T or above a row's diagonal: -inf, so P = 0
+    if (c0 + kChunk > seq || (causal && c0 + kChunk - 1 > r0)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * i + q2 + (e & 1), row = row0 + 8 * (e >> 1);
+          if (col >= seq || (causal && col > row)) s[4 * i + e] = -INFINITY;
+        }
+    }
     if (step < nch) {
-      // 32 keys at a time (two 16-key tiles), so that few scores are live
-#pragma unroll 1
-      for (int n1 = 0; n1 < kChunk && c0 + n1 < kend; n1 += 32) {
-        float s[2][2][4], dp[2][2][4];
+      // key 0 is in every row's first chunk, and every chunk holds a key
+      // that each of the tile's rows sees, so m is finite from there on
 #pragma unroll
-        for (int w = 0; w < 2; ++w) {
-          const int n0 = c0 + n1 + 16 * w;
-          if (n0 < kend) {
-            dots_bf16<D>(s[w], qf, ks, n1 + 16 * w, lane);
-            dots_bf16<D>(dp[w], gf, vs, n1 + 16 * w, lane);
-          } else {
+      for (int e2 = 0; e2 < 2; ++e2) {
+        float cm = -INFINITY;
 #pragma unroll
-            for (int u = 0; u < 2; ++u)
+        for (int i = 0; i < 8; ++i) cm = fmaxf(cm, fmaxf(s[4 * i + 2 * e2], s[4 * i + 2 * e2 + 1]));
+        const float mn = fmaxf(m[e2], group_max<4>(cm)), mn2 = mn * scale2;
+        const float alpha = ex2(m[e2] * scale2 - mn2);
+        float ls = 0.f, rs = 0.f;
 #pragma unroll
-              for (int e = 0; e < 4; ++e) s[w][u][e] = dp[w][u][e] = 0.f;
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 2 * e2; e < 2 * e2 + 2; ++e) {
+            const float p = ex2(fmaf(s[4 * i + e], scale2, -mn2));
+            ls += p;
+            rs = fmaf(p, dp[4 * i + e], rs);
           }
-          if (n0 + 16 > seq || (causal && n0 + 15 > r0) || n0 >= kend) {
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int col = n0 + 8 * u + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
-                const bool valid = n0 < kend && col < seq && (!causal || col <= row);
-                s[w][u][e] = valid ? s[w][u][e] : -INFINITY;
-              }
-          }
-        }
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          float cm = -INFINITY;
-#pragma unroll
-          for (int w = 0; w < 2; ++w)
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-              cm = fmaxf(cm, fmaxf(s[w][u][2 * e2], s[w][u][2 * e2 + 1]));
-          // key 0 is in every row's first step, so mn is finite from there on
-          const float mn = fmaxf(m[e2], group_max<4>(cm)), mn2 = mn * scale2;
-          const float alpha = ex2(m[e2] * scale2 - mn2);
-          float ls = 0.f, rsum = 0.f;
-#pragma unroll
-          for (int w = 0; w < 2; ++w)
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-#pragma unroll
-              for (int e = 2 * e2; e < 2 * e2 + 2; ++e) {
-                const float p = ex2(fmaf(s[w][u][e], scale2, -mn2));
-                ls += p;
-                rsum = fmaf(p, dp[w][u][e], rsum);
-              }
-          l[e2] = fmaf(l[e2], alpha, ls);
-          rho[e2] = fmaf(rho[e2], alpha, rsum);
-          m[e2] = mn;
-        }
+        l[e2] = fmaf(l[e2], alpha, ls);
+        rho[e2] = fmaf(rho[e2], alpha, rs);
+        m[e2] = mn;
       }
       continue;
     }
-    // sweep 2, two 16-key tiles a step: P and dP in fp32, dS rounded
-    // straight into the A fragments of dq = dS . k.  Keys past T (zero k
-    // and v rows) are masked on the tile that crosses T
-    const int nk = min(kChunk, kend - c0);
-#pragma unroll 1
-    for (int n1 = 0; n1 < nk; n1 += 32) {
-      float s[2][2][4], dp[2][2][4];
+    // sweep 2: dS in place of S (P = 0 for the -inf keys, and in rows past
+    // T, whose lse is +inf), every fragment formed, then dq += dS . K
 #pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        dots_bf16<D>(s[w], qf, ks, n1 + 16 * w, lane);
-        dots_bf16<D>(dp[w], gf, vs, n1 + 16 * w, lane);
-      }
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        const int n0 = c0 + n1 + 16 * w;
-        const bool edge = n0 + 16 > seq || (causal && n0 + 15 > r0);
-        uint32_t a[4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = n0 + 8 * u + 2 * (lane & 3) + (e & 1), row = row0 + 8 * (e >> 1);
-            const bool valid = !edge || (col < seq && (!causal || col <= row));
-            const float p = valid ? ex2(fmaf(s[w][u][e], scale2, -m[e >> 1])) : 0.f;
-            v[e] = p * fmaf(dp[w][u][e], scale, -rho[e >> 1]);
-          }
-          a[2 * u] = pack_bf16(v[0], v[1]);
-          a[2 * u + 1] = pack_bf16(v[2], v[3]);
-        }
-#pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          uint32_t bk[4];
-          load_b_cols(bk, ks, LD, n1 + 16 * w, 16 * dd, lane);
-          mma_bf16(dq[2 * dd], a, bk[0], bk[1]);
-          mma_bf16(dq[2 * dd + 1], a, bk[2], bk[3]);
-        }
-      }
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(fmaf(s[i], scale2, -m[(i >> 1) & 1]));
+      s[i] = p * fmaf(dp[i], scale, -rho[(i >> 1) & 1]);
     }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pack_frag(a[j], s, j);
+      fence_regs(a[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (c0 + 16 * j < kend) wgmma_rs<D>(dq, a[j], wg_desc<D>(kt + j * 16 * 2 * D));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
   }
   bf16* out = dqkv + (size_t)b * seq * stride + h * D;
   const int tw = stats_rows(seq);
@@ -1737,145 +1771,149 @@ attention_bwd_q_streamed_bf16(const bf16* __restrict__ qkv, const bf16* __restri
 #pragma unroll
   for (int e2 = 0; e2 < 2; ++e2) {
     const int row = row0 + 8 * e2;
-    if (active && row < seq) {
+    if (row < seq) {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(out + row * stride + 8 * n + 2 * (lane & 3)) =
-            pack_bf16(dq[n][2 * e2], dq[n][2 * e2 + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + row * stride + 8 * j + q2) =
+            pack_bf16(dq[4 * j + 2 * e2], dq[4 * j + 2 * e2 + 1]);
     }
-    if ((lane & 3) == 0) st[row] = active ? m[e2] : INFINITY, st[tw + row] = rho[e2];
+    if ((lane & 3) == 0) st[row] = m[e2], st[tw + row] = rho[e2];
   }
 }
 
-// Key side.  Block (batch row x head, 64-key tile), a warp per 16 keys with
-// the A fragments of its k and v rows loaded once.  The query chunks, with
-// their lse and r * D^-0.5, stream through the ring (causal: from the
-// block's own diagonal chunk), chunk c + 2 staged while c computes; a warp
-// takes its chunk's 16-query tiles in order (causal: from its own
-// diagonal).  S^T = k . q^T and dP^T = v . g^T in the accumulator layout
-// are the A fragments of P_lp^T . g and dS^T . q, so no T x T tile touches
-// shared memory.  Queries past T have lse = +inf, so P = dS = 0; keys past
-// T own dk and dv rows that are never written.
+// Key side.  Block (batch row x head, 64-key tile).  K's and V's rows land
+// once; the query chunks stream with their lse and r D^-0.5 (causal: from
+// the tile's diagonal chunk, masked elementwise there): S^T = K . q^T and
+// dP^T = V . g^T, then P^T = 2^(s c - lse) and dS^T = P^T (dP^T D^-0.5 -
+// r D^-0.5) in fp32 in the accumulators (each thread reads the statistics
+// of its columns, queries 8j + 2q and 8j + 2q + 1), both rounded to bf16
+// fragments, then dv += P^T . g and dk += dS^T . q as one group of chains
+// over the chunk's 16-query steps below T.  Queries past T have lse =
+// +inf, so P = dS = 0; keys past T own dk and dv rows that are never
+// written.
 template <int D>
-__global__ void __launch_bounds__(kTileThreads, 3)
-attention_bwd_kv_streamed_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
-                               bf16* __restrict__ dqkv, const float* __restrict__ stats,
-                               int seq, int width, int heads, float scale, int causal) {
+__global__ void __launch_bounds__(kTileThreads, kPairBlocks)
+attention_bwd_kv_wgmma_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
+                            bf16* __restrict__ dqkv, const float* __restrict__ stats, int seq,
+                            int width, int heads, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 8;
-  constexpr size_t SB = bf16_stage_bytes(D);
+  constexpr int TILE = wg_tile(D), NO = D / 2, kAhead = kStages - 1;
   const float scale2 = scale * 1.4426950408889634f;  // log2(e)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // the block's keys
-  bf16* vs = ks + kTile * LD;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTile * LD);  // q, g, statistics
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);  // uniform for the compiler
+  const int jt = kTile * blockIdx.y, j0 = jt + 16 * warp;
+  // K, V, the ring's stages of (q, g) chunk pairs, then the stages'
+  // statistics (lse, then r * D^-0.5: kChunk floats each)
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u, vs = ks + TILE, ring = vs + TILE;
+  const uint32_t sts = ring + kStages * 2 * TILE;
 
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads, jb = kTile * blockIdx.y;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const size_t stride = 3 * (size_t)width;
   const bf16* base = qkv + (size_t)b * seq * stride + h * D;
   const bf16* gbase = grad + (size_t)b * seq * width + h * D;
   const int tw = stats_rows(seq);
   const float* st = stats + (size_t)blockIdx.x * 2 * tw;
-  // causal: query chunks before the block's first key see none of its keys
-  const int first = causal ? jb / kChunk : 0, nch = (seq + kChunk - 1) / kChunk;
+  // causal: query chunks before the tile's first key see none of its keys
+  const int first = causal ? jt / kChunk : 0, nch = (seq + kChunk - 1) / kChunk;
+  const int key0 = j0 + lane / 4, q2 = 2 * (lane & 3);  // keys key0, key0 + 8
+
+  auto q_tile = [&](int c) -> uint32_t { return ring + ((c - first) % kStages) * 2 * TILE; };
+  auto st_tile = [&](int c) -> uint32_t {
+    return sts + ((c - first) % kStages) * 2 * kChunk * (uint32_t)sizeof(float);
+  };
   auto stage = [&](int c) {
     if (c >= nch) return;
-    const int c0 = c * kChunk;
-    bf16* dst = reinterpret_cast<bf16*>(ring + ((c - first) % kStages) * SB);
-    stage_rows<bf16, D>(dst, LD, base + c0 * stride, stride, seq - c0, kChunk, tid,
-                        kTileThreads);
-    stage_rows<bf16, D>(dst + kChunk * LD, LD, gbase + (size_t)c0 * width, width, seq - c0,
-                        kChunk, tid, kTileThreads);
-    // the statistics rows run to stats_rows(seq) >= c0 + kChunk
-    float* sdst = reinterpret_cast<float*>(dst + 2 * kChunk * LD);
-    for (int idx = tid; idx < 2 * kChunk / 4; idx += kTileThreads) {
-      const int a = idx / (kChunk / 4), o = 4 * (idx % (kChunk / 4));
-      cp_async16(sdst + a * kChunk + o, st + a * tw + c0 + o, true);
+    const int i0 = c * kChunk;
+    stage_swizzled<D>(q_tile(c), base + i0 * stride, stride, seq - i0, kChunk, tid,
+                      kTileThreads);
+    stage_swizzled<D>(q_tile(c) + TILE, gbase + (size_t)i0 * width, width, seq - i0, kChunk,
+                      tid, kTileThreads);
+    // the statistics rows run to stats_rows(seq) >= i0 + kChunk
+    if (tid < 2 * kChunk / 4) {
+      const int a = tid / (kChunk / 4), o = 4 * (tid % (kChunk / 4));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       st_tile(c) + (a * kChunk + o) * (uint32_t)sizeof(float)),
+                   "l"(st + a * tw + i0 + o));
     }
   };
-  stage_rows<bf16, D>(ks, LD, base + width + jb * stride, stride, seq - jb, kTile, tid,
-                      kTileThreads);
-  stage_rows<bf16, D>(vs, LD, base + 2 * width + jb * stride, stride, seq - jb, kTile, tid,
-                      kTileThreads);
-  stage(first);
-  cp_async_commit();
-  stage(first + 1);
-  cp_async_commit();
-
-  const int j0 = jb + 16 * warp, key0 = j0 + lane / 4;  // keys key0 and key0 + 8
-  const bool active = j0 < seq;
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  for (int c = first; c < nch; ++c) {
-    cp_async_wait<1>();
-    __syncthreads();
-    stage(c + 2);
+  stage_swizzled<D>(ks, base + width + jt * stride, stride, seq - jt, kTile, tid, kTileThreads);
+  stage_swizzled<D>(vs, base + 2 * width + jt * stride, stride, seq - jt, kTile, tid,
+                    kTileThreads);
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+    stage(first + i);
     cp_async_commit();
-    if (!active) continue;
-    if (c == first) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        load_a(kf[kk], ks, LD, 16 * warp, 16 * kk, lane);
-        load_a(vf[kk], vs, LD, 16 * warp, 16 * kk, lane);
-      }
-    }
-    const int c0 = c * kChunk;
-    const bf16* qs = reinterpret_cast<const bf16*>(ring + ((c - first) % kStages) * SB);
-    const bf16* gs = qs + kChunk * LD;
-    const float* st_lse = reinterpret_cast<const float*>(gs + kChunk * LD);
-    const float* st_rs = st_lse + kChunk;
-    const int iend = min(kChunk, seq - c0);
-    for (int i1 = causal ? max(0, j0 - c0) : 0; i1 < iend; i1 += 16) {
-      const int i0 = c0 + i1;
-      float s[2][4], dp[2][4];
-      dots_bf16<D>(s, kf, qs, i1, lane);   // S^T: (key, query)
-      dots_bf16<D>(dp, vf, gs, i1, lane);  // dP^T
-      const bool edge = causal && j0 + 15 > i0;  // a tile across the diagonal
-      uint32_t ap[4], ad[4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int q1 = i1 + 8 * u + 2 * (lane & 3);  // queries c0 + q1, c0 + q1 + 1
-        const float2 lq = *reinterpret_cast<const float2*>(st_lse + q1);
-        const float2 rq = *reinterpret_cast<const float2*>(st_rs + q1);
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * (e >> 1), q = c0 + q1 + (e & 1);
-          const bool valid = !edge || key <= q;
-          const float lv = e & 1 ? lq.y : lq.x, rv = e & 1 ? rq.y : rq.x;
-          p[e] = valid ? ex2(fmaf(s[u][e], scale2, -lv)) : 0.f;
-          ds[e] = p[e] * fmaf(dp[u][e], scale, -rv);
-        }
-        ap[2 * u] = pack_bf16(p[0], p[1]);
-        ap[2 * u + 1] = pack_bf16(p[2], p[3]);
-        ad[2 * u] = pack_bf16(ds[0], ds[1]);
-        ad[2 * u + 1] = pack_bf16(ds[2], ds[3]);
-      }
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t bg[4], bq[4];
-        load_b_cols(bg, gs, LD, i1, 16 * dd, lane);
-        load_b_cols(bq, qs, LD, i1, 16 * dd, lane);
-        mma_bf16(dv[2 * dd], ap, bg[0], bg[1]);
-        mma_bf16(dv[2 * dd + 1], ap, bg[2], bg[3]);
-        mma_bf16(dk[2 * dd], ad, bq[0], bq[1]);
-        mma_bf16(dk[2 * dd + 1], ad, bq[2], bq[3]);
-      }
-    }
   }
-  if (!active) return;
+  const uint64_t k_desc = wg_desc<D>(ks), v_desc = wg_desc<D>(vs);
+
+  float dk[NO], dv[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+  for (int c = first; c < nch; ++c) {
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    stage(c + kAhead);
+    cp_async_commit();
+    const int i0 = c * kChunk;
+    const uint32_t qt = q_tile(c);
+    // S^T: (key, query), and dP^T
+    float s[32], dp[32];
+    wg_scores<D>(s, dp, k_desc, v_desc, wg_desc<D>(qt), wg_desc<D>(qt + TILE));
+    // P^T and dS^T in place of S^T and dP^T; queries before a key (causal,
+    // the diagonal chunk) get P = 0
+    const float* lse = reinterpret_cast<const float*>(smem_raw + (st_tile(c) - raw));
+    const float* rs = lse + kChunk;
+    const bool edge = causal && j0 + 15 > i0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 lq = *reinterpret_cast<const float2*>(lse + 8 * i + q2);
+      const float2 rq = *reinterpret_cast<const float2*>(rs + 8 * i + q2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * i + e;
+        const float lv = e & 1 ? lq.y : lq.x, rv = e & 1 ? rq.y : rq.x;
+        float pv = ex2(fmaf(s[x], scale2, -lv));
+        if (edge && key0 + 8 * (e >> 1) > i0 + 8 * i + q2 + (e & 1)) pv = 0.f;
+        dp[x] = pv * fmaf(dp[x], scale, -rv);
+        s[x] = pv;
+      }
+    }
+    uint32_t ap[4][4], ad[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pack_frag(ap[j], s, j);
+      pack_frag(ad[j], dp, j);
+      fence_regs(ap[j]);
+      fence_regs(ad[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i0 + 16 * j < seq) wgmma_rs<D>(dv, ap[j], wg_desc<D>(qt + TILE + j * 16 * 2 * D));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i0 + 16 * j < seq) wgmma_rs<D>(dk, ad[j], wg_desc<D>(qt + j * 16 * 2 * D));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dk);
+    fence_regs(dv);
+  }
   bf16* out = dqkv + (size_t)b * seq * stride + h * D;
 #pragma unroll
   for (int e2 = 0; e2 < 2; ++e2) {
     const int row = key0 + 8 * e2;
     if (row >= seq) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = 8 * n + 2 * (lane & 3);
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + q2;
       *reinterpret_cast<uint32_t*>(out + row * stride + width + col) =
-          pack_bf16(dk[n][2 * e2], dk[n][2 * e2 + 1]);
+          pack_bf16(dk[4 * j + 2 * e2], dk[4 * j + 2 * e2 + 1]);
       *reinterpret_cast<uint32_t*>(out + row * stride + 2 * width + col) =
-          pack_bf16(dv[n][2 * e2], dv[n][2 * e2 + 1]);
+          pack_bf16(dv[4 * j + 2 * e2], dv[4 * j + 2 * e2 + 1]);
     }
   }
 }
@@ -1893,15 +1931,15 @@ cudaError_t set_smem_shared_carveout(Kernel kernel, size_t bytes) {
 // the key side (dk, dv), each a block per (batch row x head, `rows` rows)
 // of `threads` threads.
 template <typename T, typename Kq, typename Kkv>
-cudaError_t launch_pair(Kq q_side, Kkv kv_side, size_t smem, int rows, int threads,
-                        const void* qkv, const void* grad, void* dqkv, float* stats, int B,
-                        int seq, int width, int heads, float scale, int causal,
+cudaError_t launch_pair(Kq q_side, Kkv kv_side, size_t q_smem, size_t smem, int rows,
+                        int threads, const void* qkv, const void* grad, void* dqkv, float* stats,
+                        int B, int seq, int width, int heads, float scale, int causal,
                         cudaStream_t stream) {
   cudaError_t e;
   const dim3 grid(B * heads, (seq + rows - 1) / rows);
-  if ((e = set_smem_shared_carveout(q_side, smem)) != cudaSuccess) return e;
+  if ((e = set_smem_shared_carveout(q_side, q_smem)) != cudaSuccess) return e;
   if ((e = set_smem_shared_carveout(kv_side, smem)) != cudaSuccess) return e;
-  q_side<<<grid, threads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<const T*>(grad),
+  q_side<<<grid, threads, q_smem, stream>>>(static_cast<const T*>(qkv), static_cast<const T*>(grad),
                                           static_cast<T*>(dqkv), stats, seq, width, heads, scale,
                                           causal);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -1919,13 +1957,13 @@ cudaError_t launch_tiled(const void* qkv, const void* grad, void* dqkv, float* s
                          cudaStream_t stream) {
   if (dtype == 0) {
     return launch_pair<float>(attention_bwd_q_tf32<D>, attention_bwd_kv_tf32<D>, tf32_smem(D),
-                              kTfRows, kTfThreads, qkv, grad, dqkv, stats, B, seq,
+                              tf32_smem(D), kTfRows, kTfThreads, qkv, grad, dqkv, stats, B, seq,
                               width, heads, scale, causal, stream);
   }
   if (seq > kResidentMaxSeq) {
-    return launch_pair<bf16>(attention_bwd_q_streamed_bf16<D>, attention_bwd_kv_streamed_bf16<D>,
-                             bf16_streamed_smem(D), kTile, kTileThreads, qkv, grad, dqkv, stats,
-                             B, seq, width, heads, scale, causal, stream);
+    return launch_pair<bf16>(attention_bwd_q_wgmma_bf16<D>, attention_bwd_kv_wgmma_bf16<D>,
+                             bf16_wgmma_q_smem(D), bf16_wgmma_smem(D), kTile, kTileThreads, qkv,
+                             grad, dqkv, stats, B, seq, width, heads, scale, causal, stream);
   }
   cudaError_t e;
   const size_t smem = resident_bf16_smem(seq, D);
@@ -2004,7 +2042,7 @@ extern "C" {
 // it no longer depends on seq.
 size_t mnt_attention_bwd_smem(int seq, int head_dim) {
   if (seq > kResidentMaxSeq) {
-    return std::max(bf16_streamed_smem(head_dim), tf32_smem(head_dim));
+    return std::max(bf16_wgmma_smem(head_dim), tf32_smem(head_dim));
   }
   if (seq > kWholeMaxSeq) {
     return std::max(resident_bf16_smem(seq, head_dim), tf32_smem(head_dim));

@@ -446,109 +446,7 @@ attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int se
 
 // ------------------------------------------------------------ wgmma
 
-// Warpgroup MMA (PTX ISA, wgmma.mma_async, sm_90a; attention_wgmma.cuh has
-// the layouts, fences and tf32 products).  A bf16 A from registers has
-// mma.sync's m16n8k16 A layout a warp, so two adjacent n8 tiles of an
-// accumulator, rounded to bf16, are one k-step's A fragment.
-
-// the bf16 tiles: rows of D values, 2D bytes
-template <int D>
-__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
-  return swizzle<2 * D>(off);
-}
-template <int D>
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
-  return smem_desc<2 * D>(addr);
-}
-
-// Rows [0, rows) of a strided (rows, D) bf16 slice into the tile at `tile`
-// (a shared address) in the swizzled layout; rows >= valid are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_swizzled(uint32_t tile, const bf16* gmem, size_t stride,
-                                               int valid, int rows, int tid, int nthreads) {
-  constexpr int kPieces = D / 8;  // 16-byte pieces a row
-  for (int idx = tid; idx < rows * kPieces; idx += nthreads) {
-    const int r = idx / kPieces, c = idx % kPieces;
-    const bool ok = r < valid;
-    const uint32_t dst = tile + swizzled<D>(r * 2 * D + c * 16);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(gmem + (ok ? r * stride + c * 8 : 0)), "r"(ok ? 16 : 0));
-  }
-}
-
-
-// d (+)= A . B^T: m64n64k16, A (64 x 16) and B (64 keys x 16) both from
-// shared memory, K-major; kScaleD 0 overwrites d
-template <int kScaleD>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "n"(kScaleD));
-}
-
-// d += A . B: m64n(D)k16, A (64 x 16) from registers, B (16 keys x D) from
-// shared memory with the transpose bit (rows [key][d]: MN-major)
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
+// (the bf16 layouts and products are attention_wgmma.cuh's)
 
 // bf16, kShortMaxSeq < T <= kResidentMaxSeq: one sweep with the scores held
 // in registers.  Block (batch row x head, run of 64-row query tiles): one

@@ -1,24 +1,30 @@
-"""Time variants of K1's bf16 kernels above 128 tokens (csrc/attention_fwd.cu)
-against each other on one CUDA card: the shipped source, the parent
-commit's, and copies of the shipped source with regions replaced or text
-patched, as a spec file describes them
-(scripts/kernel_variants/k1_bf16_above_128.json: the alternative designs
-measured before the one-sweep form was chosen).
+"""Time variants of a kernel library of the port (csrc/attention_fwd.cu by
+default, or csrc/attention_bwd.cu) against each other on one CUDA card: the
+shipped source, the parent commit's, and copies of the shipped source with
+regions replaced or text patched, as a spec file describes them
+(scripts/kernel_variants/k1_bf16_above_128.json: K1's bf16 kernels above
+128 tokens and the alternative designs measured before the one-sweep form
+was chosen; k2_bf16_pair.json: K2's bf16 pair above 320 tokens on
+warpgroup MMA, its step-D overlap, and the pair taken from 129 tokens on).
 
-A spec names `regions` of attention_fwd.cu by their first line and the
-first line after them, and `variants`, each either `{"src": "parent"}` (the
-csrc/ of the tree given as --parent) or a copy of this tree's csrc/ with
-`regions` ({region: fragment file, relative to the spec}) put in place and
-then `patches` ([old, new] string pairs, each applied to the source files
-that hold `old`) applied, built with the package's nvcc flags and any
-`flags`.  Each variant's library is loaded with ctypes and its
-`mnt_attention_fwd` called at the spec's bf16 `shapes` (B, T, W, heads,
-mask), in turns (forward, then backward over the variants), with CUDA-event
-times of 20 calls replayed from a CUDA graph (`chip_smoke.device_ms`); each
-output is held against `attention_reference` (bf16 tolerance) and two
-launches must give the same bits.  Each variant's ptxas registers and spill
-stores for the bf16 kernels above 128 tokens, and any ptxas note that it
-serialised their wgmma, are printed too.
+A spec may name its `library` (default `attention_fwd`; `attention_bwd`
+for K2) and the `kernels` whose ptxas report is printed (default K1's
+`attention_fwd_onesweep` and `attention_fwd_wgmma`).  It names `regions`
+of the library's source by their first line and the first line after
+them, and `variants`, each either `{"src": "parent"}` (the csrc/ of the
+tree given as --parent) or a copy of this tree's csrc/ with `regions`
+({region: fragment file, relative to the spec}) put in place and then
+`patches` ([old, new] string pairs, each applied to the source files that
+hold `old`) applied, built with the package's nvcc flags and any `flags`.
+Each variant's library is loaded with ctypes and called at the spec's bf16
+`shapes` (B, T, W, heads, mask), in turns (forward, then backward over the
+variants), with CUDA-event times of 20 calls replayed from a CUDA graph
+(`chip_smoke.device_ms`): K1's `mnt_attention_fwd` held against
+`attention_reference` (bf16 tolerance), K2's `mnt_attention_bwd` (on the
+workspace its own library asks for) against `attention_bwd_reference`
+(within tol + tol |ref|); two launches must give the same bits.  Each
+variant's ptxas registers and spill stores for the spec's kernels, and any
+ptxas note that it serialised their wgmma, are printed too.
 
     python3 scripts/kernel_variants.py [SPEC] [--parent DIR] [--only NAME ...]
 
@@ -48,7 +54,7 @@ def make_source(spec, spec_dir, name, v, parent, csrc):
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(os.path.join(parent, "menghini_neurips23_tpu_torch", "csrc")
                     if v.get("src") == "parent" else csrc, d)
-    path = os.path.join(d, "attention_fwd.cu")
+    path = os.path.join(d, f"{spec.get('library', 'attention_fwd')}.cu")
     with open(path) as f:
         text = f.read()
     for region, fragment in v.get("regions", {}).items():
@@ -74,14 +80,17 @@ def make_source(spec, spec_dir, name, v, parent, csrc):
     return d
 
 
-def ptxas_report(log: str):
-    """{kernel<ints>: [registers, spill stores]} of the bf16 kernels above
-    128 tokens, and the entry points whose wgmma ptxas serialised."""
+K1_KERNELS = ("attention_fwd_onesweep", "attention_fwd_wgmma")
+
+
+def ptxas_report(log: str, kernels=K1_KERNELS):
+    """{kernel<ints>: [registers, spill stores]} of `kernels`' entry
+    points, and the entry points whose wgmma ptxas serialised."""
     regs, serialised = {}, set()
     for block in log.split("Compiling entry function ")[1:]:
         sym = re.match(r"'([^']+)'", block).group(1)
         kernel = re.search(r"\d((?:attention)\w*?)I", sym).group(1)
-        if kernel not in ("attention_fwd_onesweep", "attention_fwd_wgmma"):
+        if kernel not in kernels:
             continue
         key = f"{kernel}<{', '.join(re.findall(r'L[ib](\d+)E', sym))}>"
         r = re.search(r"Used (\d+) registers", block)
@@ -118,17 +127,25 @@ def main(argv=None) -> int:
     smoke = importlib.util.module_from_spec(spec_s)
     spec_s.loader.exec_module(smoke)
     from menghini_neurips23_tpu_torch.ops import _cuda
-    from menghini_neurips23_tpu_torch.ops.attention import _FWD_SIGNATURES, attention_reference
+    from menghini_neurips23_tpu_torch.ops.attention import (
+        _BWD_SIGNATURES,
+        _FWD_SIGNATURES,
+        attention_bwd_reference,
+        attention_reference,
+    )
 
     with open(args.spec) as f:
         spec = json.load(f)
     spec_dir = os.path.dirname(os.path.abspath(args.spec))
+    library = spec.get("library", "attention_fwd")
+    signatures = _BWD_SIGNATURES if library == "attention_bwd" else _FWD_SIGNATURES
+    tol = smoke.ATTN_TOL["bfloat16"]
     names = [n for n in spec["variants"] if args.only is None or n in args.only]
     procs = {}
     for name in names:
         d = make_source(spec, spec_dir, name, spec["variants"][name], args.parent, _cuda.CSRC_DIR)
         cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, *spec["variants"][name].get("flags", []),
-               "-o", os.path.join(d, "lib.so"), os.path.join(d, "attention_fwd.cu")]
+               "-o", os.path.join(d, "lib.so"), os.path.join(d, f"{library}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     fns, builds = {}, {}
     for name, proc in procs.items():
@@ -138,41 +155,64 @@ def main(argv=None) -> int:
             f.write(log)
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed:\n{log[-3000:]}")
-        regs, serialised = ptxas_report(log)
+        regs, serialised = ptxas_report(log, spec.get("kernels", K1_KERNELS))
         builds[name] = {"ptxas": regs, "wgmma_serialised": serialised}
         print(f"  build {name} " + json.dumps(builds[name]), flush=True)
-        fn = ctypes.CDLL(os.path.join(d, "lib.so")).mnt_attention_fwd
-        fn.argtypes, fn.restype = _FWD_SIGNATURES["mnt_attention_fwd"]
-        fns[name] = fn
+        lib = ctypes.CDLL(os.path.join(d, "lib.so"))
+        for sym, (argtypes, restype) in signatures.items():
+            getattr(lib, sym).argtypes, getattr(lib, sym).restype = argtypes, restype
+        fns[name] = lib
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for B, T, W, H, mask in spec["shapes"]:
         qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(torch.bfloat16)
-        ref = attention_reference(qkv, mask, H).float()
-        out = torch.empty(B, T, W, dtype=torch.bfloat16, device="cuda")
+        scale, causal = (W // H) ** -0.5, int(mask == "causal")
+        if library == "attention_bwd":
+            grad = torch.randn(B, T, W, generator=g, device="cuda").to(torch.bfloat16)
+            ref = attention_bwd_reference(qkv, grad, mask, H).float()
+            out = torch.empty_like(qkv)
+            # each variant's own workspace (a variant may take the pair at
+            # lengths the shipped library holds resident)
+            ws = {name: torch.empty(max(1, fns[name].mnt_attention_bwd_workspace(B, T, H, 1) // 4),
+                                    dtype=torch.float32, device="cuda") for name in names}
 
-        def launch(fn):
-            err = fn(qkv.data_ptr(), out.data_ptr(), B, T, W, H, (W // H) ** -0.5,
-                     int(mask == "causal"), 1, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"CUDA error {err}")
+            def launch(name):
+                # the current stream at each call: a CUDA graph captures on its own
+                err = fns[name].mnt_attention_bwd(qkv.data_ptr(), grad.data_ptr(), out.data_ptr(),
+                                                  ws[name].data_ptr(), B, T, W, H, scale, causal,
+                                                  1, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
+        else:
+            ref = attention_reference(qkv, mask, H).float()
+            out = torch.empty(B, T, W, dtype=torch.bfloat16, device="cuda")
+
+            def launch(name):
+                err = fns[name].mnt_attention_fwd(qkv.data_ptr(), out.data_ptr(), B, T, W, H,
+                                                  scale, causal, 1,
+                                                  torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
 
         row = {"shape": [B, T, W, H], "mask": mask, "variants": {}}
         for name in names:
-            launch(fns[name])
+            launch(name)
             first = out.clone()
-            launch(fns[name])
+            launch(name)
             torch.cuda.synchronize()
+            diff = (out.float() - ref).abs()
             row["variants"][name] = {
-                "max_abs_err": (out.float() - ref).abs().max().item(),
+                "max_abs_err": diff.max().item(),
+                # the part of the error past tol |ref| (K2's criterion)
+                "max_excess": (diff - tol * ref.abs()).max().item(),
                 "bit_identical": torch.equal(first.view(torch.uint8), out.view(torch.uint8)),
                 "ms": []}
         for name in names + names[::-1]:
             row["variants"][name]["ms"].append(
-                smoke.device_ms(torch, lambda: launch(fns[name]), args.reps))
-        ok = all(v["max_abs_err"] <= smoke.ATTN_TOL["bfloat16"] and v["bit_identical"]
-                 for v in row["variants"].values())
+                smoke.device_ms(torch, lambda: launch(name), args.reps))
+        err_key = "max_excess" if library == "attention_bwd" else "max_abs_err"
+        ok = all(v[err_key] <= tol and v["bit_identical"] for v in row["variants"].values())
         row["ok"] = ok
         print("  " + json.dumps(row), flush=True)
         rows.append(row)

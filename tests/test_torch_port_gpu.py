@@ -281,6 +281,25 @@ def test_attention_bwd_kernel_is_deterministic(case, dtype):
     assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
 
 
+@pytest.mark.parametrize("case", STREAMED_EDGE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_bwd_streamed_pair_is_deterministic_and_counted(case):
+    """bf16 above 320 tokens (K2's pair on warpgroup MMA) at every length
+    around its 64-row tiles and 64-row chunks, at D = 16, 32 and 64, both
+    masks: two calls give the same bits, and each call counts once in
+    `streamed_launches`."""
+    _require_card()
+    B, T, W, H, mask = case
+    g = torch.Generator(device="cuda").manual_seed(6)
+    qkv = torch.randn(B, T, 3 * W, generator=g, device="cuda").to(torch.bfloat16)
+    grad = torch.randn(B, T, W, generator=g, device="cuda").to(torch.bfloat16)
+    before = attention_bwd.streamed_launches
+    first = attention_bwd(qkv, grad, mask, H)
+    second = attention_bwd(qkv, grad, mask, H)
+    torch.cuda.synchronize()
+    assert attention_bwd.streamed_launches == before + 2
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
 def test_attention_bwd_reports_its_warps_and_workspace():
     """Above 128 tokens bf16 runs in one launch with no workspace up to 320
     tokens, its warps sized so that each takes the same number of 16-row

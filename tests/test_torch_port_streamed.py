@@ -44,9 +44,10 @@ _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 B, H, D = 2, 2, 64
 # the keys of one update of a row's statistics: K1 bf16's 64-key chunks
-# (resident or streamed) and K2 bf16's streamed query side's 32-key steps
+# (resident or streamed) and K2 bf16's pair's query side's 64-key chunks
+# (one online update a chunk on warpgroup MMA)
 K1_CHUNK = 64
-K2_STEP = 32
+K2_STEP = 64
 LOG2E = 1.4426950408889634
 
 
@@ -153,10 +154,11 @@ def test_k1_streamed_fp32_needs_three_tf32_products(mask):
 
 
 def _k2_pair(qkv, g, mask, mm):
-    """K2's bf16 pair of launches (above 320 tokens).  Query
-    side: sweep 1 in 32-key steps keeps each row's online max m of the raw
-    dots, l = sum 2^(s c - m c) and rho = sum 2^(s c - m c) * dP (c =
-    D^-0.5 log2(e)), rescaling l and rho alike when m grows; each row's
+    """K2's bf16 pair of launches (above 320 tokens, on warpgroup MMA).
+    Query side: sweep 1 in 64-key chunks (one update a chunk) keeps each
+    row's online max m of the raw dots, l = sum 2^(s c - m c) and rho =
+    sum 2^(s c - m c) * dP (c = D^-0.5 log2(e)), rescaling l and rho
+    alike when m grows; each row's
     lse = m c + log2(l) and r D^-0.5 = rho / l * D^-0.5 go to a (B, H, 2,
     round64(T)) workspace (+inf and 0 past T); sweep 2 forms the dots and
     dP again, P = 2^(s c - lse), dS = P (dP D^-0.5 - r D^-0.5) rounded to
@@ -218,13 +220,15 @@ def _jax_vjp(qkv, g, mask, jdt):
     return np.asarray(want.astype(jnp.float32))
 
 
+# T = 321: one key past the resident kernel; 337: ViT-L/14 with an 80-token
+# VPT prompt; 385: one key past six whole 64-row tiles and chunks
+@pytest.mark.parametrize("T", [321, 337, 385])
 @pytest.mark.parametrize("mask", [None, "causal"], ids=["unmasked", "causal"])
-def test_k2_streamed_bf16_schedule_matches_jax_vjp(mask):
-    """K2's bf16 streamed pair at T = 337 (base-2 statistics handed from the
-    query side to the key side as the workspace holds them) against the JAX
-    package's custom VJP (its Pallas backward, interpreted off-TPU) and the
-    port's plain version, at 2e-2."""
-    T = 337
+def test_k2_streamed_bf16_schedule_matches_jax_vjp(mask, T):
+    """K2's bf16 pair above 320 tokens (base-2 statistics updated once a
+    64-key chunk, handed from the query side to the key side as the
+    workspace holds them) against the JAX package's custom VJP (its Pallas
+    backward, interpreted off-TPU) and the port's plain version, at 2e-2."""
     jdt, tdt, tol = _DTYPES["bfloat16"]
     qkv, g = _inputs(T, 400 + T, grad=True)
     qkv_t, g_t = torch.from_numpy(qkv).to(tdt), torch.from_numpy(g).to(tdt)
